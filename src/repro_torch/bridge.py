@@ -1,0 +1,78 @@
+"""Weight bridge: the JAX package's param and cache pytrees, given as numpy,
+into the port's dicts of tensors.
+
+``repro.models.transformer.init_lm`` keeps each pattern position's blocks
+stacked along a leading layer dim when ``cfg.scan_layers`` (the default,
+kept by ``reduced``): ``params["scan"][j]`` leaves are ``(n_rep, ...)``,
+and layer ``r * len(pattern) + j`` is slice ``r`` of position ``j``. The
+port's params hold one dict per layer (``params["layers"]``) in that
+order; ``init_lm_cache``'s stacked caches unstack the same way. The caller
+turns the JAX leaves into numpy (``jax.tree_util.tree_map(np.asarray, t)``),
+so this module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ModelConfig
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 torch can read: widen exactly, narrow again
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _unstack(stacked: List[Any], cfg: ModelConfig) -> List[Any]:
+    """Per-layer trees from the per-pattern-position stacks, in layer order."""
+    pattern = cfg.block_pattern
+    if len(stacked) != len(pattern):
+        raise ValueError(f"{len(stacked)} stacks for a pattern of {len(pattern)}")
+    layers = []
+    for r in range(cfg.n_rep):
+        for j in range(len(pattern)):
+            s = stacked[j]
+            layers.append(s[r] if isinstance(s, list)
+                          else _map(lambda a, r=r: np.asarray(a)[r], s))
+    return layers
+
+
+def _check_layout(tree: dict, cfg: ModelConfig) -> None:
+    if tree.get("lead") or tree.get("trail") \
+            or cfg.n_rep * len(cfg.block_pattern) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: only configs whose layers are whole "
+                         "pattern repeats are bridged")
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's params from ``repro.models.init_lm``'s tree (numpy)."""
+    _check_layout(tree, cfg)
+    out = {"embed": _tensor(tree["embed"], device),
+           "layers": [_map(lambda a: _tensor(a, device), layer)
+                      for layer in _unstack(tree["scan"], cfg)],
+           "final_norm": _map(lambda a: _tensor(a, device), tree["final_norm"])}
+    if "head" in tree:
+        out["head"] = _tensor(tree["head"], device)
+    return out
+
+
+def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
+    """The port's per-layer caches from ``init_lm_cache`` / ``lm_prefill``'s
+    cache tree (numpy)."""
+    _check_layout(tree, cfg)
+    return [_map(lambda a: _tensor(a, device), layer)
+            for layer in _unstack(tree["scan"], cfg)]

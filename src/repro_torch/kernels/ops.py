@@ -1,0 +1,191 @@
+"""One wrapper per hand-written kernel: validation, dispatch, launch count.
+
+Every wrapper
+
+* checks device, dtype (float32 / bfloat16), shapes and contiguity, and
+  raises on what its kernel does not take;
+* takes the plain PyTorch version (``kernels/ref.py``) for CPU tensors —
+  only because the tensor lies on the CPU — and for CUDA tensors launches
+  its kernel on ``torch.cuda.current_stream()`` or raises: there is no
+  fallback;
+* adds one to :data:`launches` ``[name]`` where it launches, and nowhere
+  else;
+* is a ``torch.library.custom_op`` (``repro_torch::<name>``) with a fake
+  implementation, so a ``TorchDispatchMode`` (the capture and the timed
+  profile of ``core/graph.py``) sees the kernel as one op. A ctypes launch
+  is invisible to dispatch modes; without the op its time would be lost.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import attn_template as _attn
+from . import norms as _norms
+from . import ref
+from . import swiglu as _glu
+
+KERNELS = ("rms_norm", "swiglu", "attention_core", "decode_core")
+
+#: launches of each kernel since the last :func:`reset_launches`
+launches = dict.fromkeys(KERNELS, 0)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """Validate the shared properties; True for CUDA, False for CPU."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.numel() == 0:
+            raise ValueError(f"{name}: empty operand of shape {tuple(t.shape)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_dtype(name: str, *tensors: torch.Tensor) -> None:
+    dt = tensors[0].dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"{name}: dtype {dt} not in {_DTYPES}")
+    for t in tensors[1:]:
+        if t.dtype != dt:
+            raise TypeError(f"{name}: mixed dtypes {dt} and {t.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# rms_norm
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::rms_norm", mutates_args=())
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim of ``x`` (..., d) with a (d,) scale."""
+    on_card = _on_card("rms_norm", x, scale)
+    _check_dtype("rms_norm", x, scale)
+    if scale.shape != (x.shape[-1],):
+        raise ValueError(f"rms_norm: scale {tuple(scale.shape)} for width "
+                         f"{x.shape[-1]}")
+    if not on_card:
+        return ref.rms_norm(x, scale, eps=eps, zero_centered=zero_centered)
+    launches["rms_norm"] += 1
+    return _norms.rms_norm(x, scale, eps, zero_centered)
+
+
+@rms_norm.register_fake
+def _(x, scale, eps=1e-6, zero_centered=False):
+    return torch.empty_like(x)
+
+
+# ---------------------------------------------------------------------------
+# swiglu
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::swiglu", mutates_args=())
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in f32, rounded once to the operands' dtype."""
+    on_card = _on_card("swiglu", gate, up)
+    _check_dtype("swiglu", gate, up)
+    if gate.shape != up.shape:
+        raise ValueError(f"swiglu: shapes {tuple(gate.shape)} and "
+                         f"{tuple(up.shape)}")
+    if not on_card:
+        return ref.swiglu(gate, up)
+    launches["swiglu"] += 1
+    return _glu.swiglu(gate, up)
+
+
+@swiglu.register_fake
+def _(gate, up):
+    return torch.empty_like(gate)
+
+
+# ---------------------------------------------------------------------------
+# attention (causal) and decode
+# ---------------------------------------------------------------------------
+
+def _check_qkv(name: str, q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must be (B, S, H, D)")
+    b, _, hq, dk = q.shape
+    if k.shape[0] != b or v.shape[0] != b or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} disagree")
+    if k.shape[3] != dk or hq % k.shape[2]:
+        raise ValueError(f"{name}: Dk {dk} vs {k.shape[3]}, or Hq {hq} not a "
+                         f"multiple of Hkv {k.shape[2]}")
+
+
+def _check_kernel_dims(name: str, q, v) -> None:
+    dk, dv = q.shape[3], v.shape[3]
+    if dk > _attn.MAX_HEAD_DIM or dv > _attn.MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dims ({dk}, {dv}) above the kernel's "
+                         f"{_attn.MAX_HEAD_DIM}")
+
+
+@torch.library.custom_op("repro_torch::attention_core", mutates_args=())
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_offset: int = 0,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Causal GQA attention: q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk),
+    v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); query row i sits at ``q_offset + i``."""
+    on_card = _on_card("attention_core", q, k, v)
+    _check_dtype("attention_core", q, k, v)
+    _check_qkv("attention_core", q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"attention_core: q_offset {q_offset} < 0")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if not on_card:
+        return ref.attention(q, k, v, q_offset=q_offset, scale=scale)
+    _check_kernel_dims("attention_core", q, v)
+    launches["attention_core"] += 1
+    return _attn.attention_core(q, k, v, q_offset, scale)
+
+
+@attention_core.register_fake
+def _(q, k, v, q_offset=0, scale=None):
+    return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
+@torch.library.custom_op("repro_torch::decode_core", mutates_args=())
+def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """One-query attention: q (B,1,Hq,Dk) over k/v (B,T,Hkv,D) restricted
+    to each row's first ``lengths[b]`` positions -> (B,1,Hq,Dv) in v's
+    dtype. A row with ``lengths[b] == 0`` gives zeros."""
+    on_card = _on_card("decode_core", q, k, v, lengths)
+    _check_dtype("decode_core", q, k, v)
+    _check_qkv("decode_core", q, k, v)
+    b = q.shape[0]
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_core: one query per row, got {q.shape[1]}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"decode_core: lengths must be int32 ({b},), got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if not on_card:
+        return ref.decode_attention(q, k, v, lengths, scale=scale).to(v.dtype)
+    _check_kernel_dims("decode_core", q, v)
+    if q.shape[2] // k.shape[2] > _attn.MAX_GQA_GROUP:
+        raise ValueError(f"decode_core: GQA group {q.shape[2] // k.shape[2]} "
+                         f"above the kernel's {_attn.MAX_GQA_GROUP}")
+    launches["decode_core"] += 1
+    return _attn.decode_core(q, k, v, lengths, scale)
+
+
+@decode_core.register_fake
+def _(q, k, v, lengths, scale=None):
+    return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)

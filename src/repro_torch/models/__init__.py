@@ -1,0 +1,8 @@
+"""The dense decoder LM of the port (see transformer.py)."""
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import (init_lm, init_lm_cache, lm_decode,
+                                            lm_forward, lm_prefill)
+
+__all__ = ["ModelConfig", "init_lm", "init_lm_cache", "lm_decode",
+           "lm_forward", "lm_prefill"]

@@ -1,0 +1,183 @@
+"""LM assembly: the dense decoder stack, forward / prefill / decode.
+
+The port of ``repro.models.transformer`` for the configs the port runs
+(pre-norm RMSNorm blocks of causal MHA/GQA attention with RoPE and a dense
+FFN, as Llama-2). Layers are a Python list: PyTorch runs eagerly, so the
+JAX package's ``lax.scan`` over stacked layers has no counterpart.
+
+Public API (functions over a params dict of tensors):
+
+    init_lm(generator, cfg)                 -> params
+    lm_forward(params, tokens, cfg)         -> logits (B, S, V)
+    init_lm_cache(cfg, batch, max_len)      -> caches
+    lm_prefill(params, tokens, cfg, max_len, lengths=None)
+                                            -> (last_logits (B, V), caches)
+    lm_decode(params, token, pos, caches, cfg) -> (logits (B, V), caches)
+
+``pos`` may be a scalar or a per-row ``(B,)`` vector; ``lm_decode`` writes
+the caches in place and returns them.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch import nn
+from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.models.common import ModelConfig, dense_init
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a config that uses a part of the JAX zoo not ported yet."""
+    unported = {
+        "block kinds other than 'attn'": set(cfg.layer_kinds()) != {"attn"},
+        "non-causal attention": not cfg.causal,
+        "norm != 'rmsnorm'": cfg.norm != "rmsnorm",
+        "ffn != 'swiglu'": cfg.ffn != "swiglu",
+        "pos_emb != 'rope'": cfg.pos_emb != "rope",
+        "MoE": cfg.n_experts > 0,
+        "MLA": cfg.mla,
+        "qkv_bias / qk_norm / ffn_bias": cfg.qkv_bias or cfg.qk_norm or cfg.ffn_bias,
+        "post_norm / scale_embeddings": cfg.post_norm or cfg.scale_embeddings,
+        "softcaps": bool(cfg.attn_logit_softcap or cfg.final_logit_softcap),
+        "input_mode != 'tokens'": cfg.input_mode != "tokens",
+    }
+    missing = [what for what, hit in unported.items() if hit]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: {missing}")
+
+
+def _init_norm(cfg: ModelConfig, device):
+    return {"scale": torch.ones((cfg.d_model,), dtype=cfg.torch_param_dtype,
+                                device=device)}
+
+
+def _apply_norm(p, x, cfg: ModelConfig):
+    return nn.rms_norm(x, p["scale"].to(x.dtype),
+                       zero_centered=cfg.zero_centered_norm)
+
+
+def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    dev = generator.device
+    return {"norm1": _init_norm(cfg, dev),
+            "mixer": A.init_attention(generator, cfg),
+            "norm2": _init_norm(cfg, dev),
+            "ffn": M.init_ffn(generator, cfg)}
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random params on ``generator``'s device, drawn from it in order."""
+    check_supported(cfg)
+    pd = cfg.torch_param_dtype
+    params = {"embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                                  in_axis=1, dtype=pd)}
+    params["layers"] = [init_block(generator, cfg) for _ in range(cfg.n_layers)]
+    params["final_norm"] = _init_norm(cfg, generator.device)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                                    dtype=pd)
+    return params
+
+
+def block_forward(params, x, cfg: ModelConfig, positions):
+    h = _apply_norm(params["norm1"], x, cfg)
+    a = A.attn_forward(params["mixer"], h, cfg, positions)
+    h, x = nn.add_rms_norm(a, x, params["norm2"]["scale"].to(x.dtype),
+                           zero_centered=cfg.zero_centered_norm)
+    f = M.ffn_forward(params["ffn"], h, cfg)
+    return nn.residual_add(x, f)
+
+
+def block_prefill(params, x, cfg: ModelConfig, positions, max_len: int):
+    h = _apply_norm(params["norm1"], x, cfg)
+    a, cache = A.attn_prefill(params["mixer"], h, cfg, positions, max_len)
+    h, x = nn.add_rms_norm(a, x, params["norm2"]["scale"].to(x.dtype),
+                           zero_centered=cfg.zero_centered_norm)
+    f = M.ffn_forward(params["ffn"], h, cfg)
+    return nn.residual_add(x, f), cache
+
+
+def block_decode(params, x, cfg: ModelConfig, cache, pos):
+    h = _apply_norm(params["norm1"], x, cfg)
+    a, cache = A.attn_decode(params["mixer"], h, cfg, cache, pos)
+    h, x = nn.add_rms_norm(a, x, params["norm2"]["scale"].to(x.dtype),
+                           zero_centered=cfg.zero_centered_norm)
+    f = M.ffn_forward(params["ffn"], h, cfg)
+    return nn.residual_add(x, f), cache
+
+
+def embed_inputs(params, tokens, cfg: ModelConfig):
+    """Tokens (B, S) int -> (B, S, D) in the activation dtype."""
+    return nn.embedding_lookup(params["embed"], tokens).to(cfg.activation_dtype)
+
+
+def logits_from_hidden(params, h, cfg: ModelConfig):
+    if "head" in params:
+        return nn.linear(h, params["head"].to(h.dtype))
+    # tied head: contract against the embedding table directly
+    return nn.einsum("...d,vd->...v", h, params["embed"].to(h.dtype))
+
+
+def _default_positions(tokens):
+    b, s = tokens.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+
+
+def lm_forward(params, tokens, cfg: ModelConfig, positions=None):
+    """Full-sequence logits (B, S, V)."""
+    check_supported(cfg)
+    positions = _default_positions(tokens) if positions is None else positions
+    x = embed_inputs(params, tokens, cfg)
+    for p in params["layers"]:
+        x = block_forward(p, x, cfg, positions)
+    h = _apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params, h, cfg)
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device="cuda") -> List[dict]:
+    """One ``{"k", "v"}`` cache of (batch, max_len, Hkv, Dh) per layer."""
+    check_supported(cfg)
+    return [A.init_attn_cache(cfg, batch, max_len, device=device)
+            for _ in range(cfg.n_layers)]
+
+
+def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,
+               positions=None, lengths=None) -> Tuple[torch.Tensor, List[dict]]:
+    """Process the prompt; return (logits_last (B, V), caches).
+
+    ``lengths`` (B,): true prompt length per row of a right-padded batch.
+    The logits are read at position ``lengths - 1`` instead of the pad
+    tail; with a causal mask no real token attends a pad.
+    """
+    check_supported(cfg)
+    positions = _default_positions(tokens) if positions is None else positions
+    x = embed_inputs(params, tokens, cfg)
+    caches = []
+    for p in params["layers"]:
+        x, c = block_prefill(p, x, cfg, positions, max_len)
+        caches.append(c)
+    h = _apply_norm(params["final_norm"], x, cfg)
+    if lengths is None:
+        h_last = h[:, -1:]
+    else:
+        idx = torch.as_tensor(lengths, device=h.device).long().reshape(-1) - 1
+        h_last = torch.take_along_dim(h, idx[:, None, None], dim=1)
+    return logits_from_hidden(params, h_last, cfg)[:, 0], caches
+
+
+def lm_decode(params, token, pos, caches: List[dict], cfg: ModelConfig):
+    """One decode step. token: (B,) int; pos: scalar or (B,) absolute
+    positions. Returns (logits (B, V), caches), the caches updated in
+    place."""
+    check_supported(cfg)
+    b = token.shape[0]
+    pos = A.pos_vector(pos, b, token.device)
+    x = embed_inputs(params, token[:, None], cfg)
+    for i, p in enumerate(params["layers"]):
+        x, caches[i] = block_decode(p, x, cfg, caches[i], pos)
+    h = _apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params, h, cfg)[:, 0], caches
