@@ -1,0 +1,35 @@
+#!/bin/bash
+# What chip_smoke.py's checks see of a kernel broken on purpose.
+#
+# Each mutation copies chip_smoke.py and src/ into build/mutants/<name>/,
+# changes one kernel source there with sed, and runs the copy's
+# chip_smoke.py on the card (phase 2 stops at the first kernel that
+# disagrees with its plain version). The checkout is never modified.
+#
+#   bash scripts/port_mutation_check.sh      # from the repo root, on a GPU machine
+#
+# Writes each run's output to build/mutants/<name>.txt and prints, per
+# mutation, the exit code and the failing check.
+set -u
+R=$(pwd)
+OUT=$R/build/mutants
+mkdir -p "$OUT"
+mut() {  # name, source file under csrc/, sed script
+  local d=$OUT/$1 src=src/repro_torch/kernels/csrc/$2
+  rm -rf "$d"; mkdir -p "$d"; cp -r "$R/chip_smoke.py" "$R/src" "$d/"
+  sed -i "$3" "$d/$src"
+  if cmp -s "$R/$src" "$d/$src"; then echo "mutation $1 NOT APPLIED"; return; fi
+  diff "$R/$src" "$d/$src"
+  (cd "$d" && timeout 400 python3 chip_smoke.py) > "$OUT/$1.txt" 2>&1
+  echo "mutation $1: rc=$?"
+  grep -E '"ok": false|RuntimeError' "$OUT/$1.txt" | head -3 | cut -c 1-400
+}
+# LayerNorm with the one-pass variance E[v^2] - E[v]^2
+mut ln_one_pass norms.cu \
+  's/const float c = row\[i \* V + j\] - mean;/const float c = row[i * V + j];/; s/inv = rsqrtf(block_sum(acc2, red) \/ static_cast<float>(d) + eps);/inv = rsqrtf(block_sum(acc2, red) \/ static_cast<float>(d) - mean * mean + eps);/'
+# rope with the fast sin / cos intrinsics
+mut rope_fast_sincos rope.cu \
+  's/cs\[i\] = cosf(theta);/cs[i] = __cosf(theta);/; s/cs\[half + i\] = sinf(theta);/cs[half + i] = __sinf(theta);/'
+# rope dividing by half instead of multiplying by its reciprocal
+mut rope_true_division rope.cu \
+  's/__fmul_rn(-static_cast<float>(i), inv_half)/__fdiv_rn(-static_cast<float>(i), static_cast<float>(half))/'

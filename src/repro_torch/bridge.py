@@ -6,9 +6,12 @@ stacked along a leading layer dim when ``cfg.scan_layers`` (the default,
 kept by ``reduced``): ``params["scan"][j]`` leaves are ``(n_rep, ...)``,
 and layer ``r * len(pattern) + j`` is slice ``r`` of position ``j``. The
 port's params hold one dict per layer (``params["layers"]``) in that
-order; ``init_lm_cache``'s stacked caches unstack the same way. The caller
-turns the JAX leaves into numpy (``jax.tree_util.tree_map(np.asarray, t)``),
-so this module imports nothing of JAX.
+order; ``init_lm_cache``'s stacked caches unstack the same way. Every
+other top-level entry (``embed``, the learned position table ``pos``,
+``final_norm``, ``head``) is carried as it is, and an entry this module
+does not know raises instead of being dropped. The caller turns the JAX
+leaves into numpy (``jax.tree_util.tree_map(np.asarray, t)``), so this
+module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,15 +61,23 @@ def _check_layout(tree: dict, cfg: ModelConfig) -> None:
                          "pattern repeats are bridged")
 
 
+#: top-level entries of ``init_lm``'s tree carried as they are
+_CARRIED = ("embed", "pos", "final_norm", "head")
+#: the layer stacks, unstacked into ``layers``
+_STACKS = ("lead", "scan", "trail")
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The port's params from ``repro.models.init_lm``'s tree (numpy)."""
+    unknown = sorted(set(tree) - set(_CARRIED) - set(_STACKS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: params entries the bridge does not "
+                         f"know: {unknown}")
     _check_layout(tree, cfg)
-    out = {"embed": _tensor(tree["embed"], device),
-           "layers": [_map(lambda a: _tensor(a, device), layer)
-                      for layer in _unstack(tree["scan"], cfg)],
-           "final_norm": _map(lambda a: _tensor(a, device), tree["final_norm"])}
-    if "head" in tree:
-        out["head"] = _tensor(tree["head"], device)
+    out = {k: _map(lambda a: _tensor(a, device), tree[k])
+           for k in _CARRIED if k in tree}
+    out["layers"] = [_map(lambda a: _tensor(a, device), layer)
+                     for layer in _unstack(tree["scan"], cfg)]
     return out
 
 

@@ -12,7 +12,26 @@ from typing import Dict
 from repro_torch.models.common import ModelConfig
 
 _CONFIGS: Dict[str, ModelConfig] = {
-    # the paper's Llama-2 7B (repro/configs/paper_zoo.py)
+    # the paper's GPT-2 XL and Llama-2 7B (repro/configs/paper_zoo.py)
+    "gpt2-xl": ModelConfig(
+        name="gpt2-xl",
+        family="dense",
+        n_layers=48,
+        d_model=1600,
+        n_heads=25,
+        n_kv_heads=25,
+        d_ff=6400,
+        vocab_size=50257,
+        block_pattern=("attn",),
+        pos_emb="learned",
+        max_position=1024,
+        norm="layernorm",
+        ffn="gelu",
+        ffn_bias=True,
+        qkv_bias=True,
+        causal=True,
+        tie_embeddings=True,
+    ),
     "llama2-7b": ModelConfig(
         name="llama2-7b",
         family="dense",

@@ -51,6 +51,36 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// V consecutive elements at p, widened to f32. With V * sizeof(T) == 16
+// one 16-byte load (p must be 16-byte aligned); V == 1 is the scalar path.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(float (&f)[V], const T* p) {
+  if constexpr (V * sizeof(T) == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[j] = to_f(e[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[j] = to_f(p[j]);
+  }
+}
+
+// The store twin of load_vec: each value rounded once to T.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&f)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 u;
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = from_f<T>(f[j]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = from_f<T>(f[j]);
+  }
+}
+
 // Stage ROWS rows of `cols` elements (row stride `stride` elements) into
 // shared memory as f32 with a row pitch of `ld` floats; rows >= `valid` are
 // zero-filled. With VEC, each thread issues all its 16-byte loads before

@@ -1,33 +1,66 @@
-"""RMSNorm on the card: the launch of ``csrc/rms_norm.cu``.
+"""Row norms on the card: the launches of ``csrc/norms.cu``.
 
-Replaces ``repro.kernels.norms._rms_kernel`` / ``rms_norm`` (the Pallas
-kernel). The source states what bounds it on an H100 (bytes) and what its
-design does about that. Callers go through ``repro_torch.kernels.ops
-.rms_norm``, which validates, counts the launch and takes the plain
-version for CPU tensors.
+One template kernel replaces four Pallas kernels of
+``repro.kernels.norms``: ``rms_norm``, ``fused_add_rms_norm``,
+``layer_norm`` and ``fused_add_layer_norm``. The source states what bounds
+them on an H100 (bytes) and what the design does about that. Callers go
+through ``repro_torch.kernels.ops``, which validates, counts the launch and
+takes the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
+#: the widest row the kernel takes (csrc/norms.cu kMaxWidth: the row is
+#: kept in shared memory as f32)
+MAX_WIDTH = 32768
+
+_RMS, _LN = 0, 1
+_P = ctypes.c_void_p
+_ARGS = [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
-             zero_centered: bool) -> torch.Tensor:
-    """Launch on validated, contiguous CUDA tensors of one dtype."""
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()     # None: a null pointer
+
+
+def _launch(name: str, kind: int, x: torch.Tensor,
+            residual: Optional[torch.Tensor], scale: torch.Tensor,
+            bias: Optional[torch.Tensor], eps: float, zero_centered: bool):
     d = x.shape[-1]
     y = torch.empty_like(x)
+    r = None if residual is None else torch.empty_like(x)
     dev, stream = _build.stream_and_device(x)
-    fn = _build.entry("rms_norm", "repro_rms_norm", _ARGS)
-    _build.check(fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                    x.numel() // d, d, eps, int(zero_centered),
-                    _build.DTYPE_CODE[x.dtype], dev, stream), "rms_norm")
-    return y
+    fn = _build.entry("norms", "repro_row_norm", _ARGS)
+    _build.check(fn(x.data_ptr(), _ptr(residual), scale.data_ptr(), _ptr(bias),
+                    y.data_ptr(), _ptr(r), x.numel() // d, d, eps,
+                    int(zero_centered), kind, _build.DTYPE_CODE[x.dtype], dev,
+                    stream), name)
+    return y if r is None else (y, r)
+
+
+# Each takes validated, contiguous CUDA tensors of one dtype.
+
+def rms_norm(x, scale, eps: float, zero_centered: bool) -> torch.Tensor:
+    return _launch("rms_norm", _RMS, x, None, scale, None, eps, zero_centered)
+
+
+def fused_add_rms_norm(x, residual, scale, eps: float, zero_centered: bool):
+    return _launch("fused_add_rms_norm", _RMS, x, residual, scale, None, eps,
+                   zero_centered)
+
+
+def layer_norm(x, scale, bias, eps: float) -> torch.Tensor:
+    return _launch("layer_norm", _LN, x, None, scale, bias, eps, False)
+
+
+def fused_add_layer_norm(x, residual, scale, bias, eps: float):
+    return _launch("fused_add_layer_norm", _LN, x, residual, scale, bias, eps,
+                   False)

@@ -19,16 +19,19 @@ Every wrapper
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import attn_template as _attn
 from . import norms as _norms
 from . import ref
+from . import rope as _rope
 from . import swiglu as _glu
 
-KERNELS = ("rms_norm", "swiglu", "attention_core", "decode_core")
+KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
+           "fused_add_layer_norm", "rope", "swiglu", "attention_core",
+           "decode_core")
 
 #: launches of each kernel since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -66,19 +69,32 @@ def _check_dtype(name: str, *tensors: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# rms_norm
+# row norms: rms_norm, fused_add_rms_norm, layer_norm, fused_add_layer_norm
 # ---------------------------------------------------------------------------
+
+def _check_norm(name: str, x, residual, *vectors) -> bool:
+    """Validate a row norm's operands; True for CUDA, False for CPU."""
+    operands = [t for t in (x, residual, *vectors) if t is not None]
+    on_card = _on_card(name, *operands)
+    _check_dtype(name, *operands)
+    d = x.shape[-1]
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"{name}: residual {tuple(residual.shape)} for x "
+                         f"{tuple(x.shape)}")
+    for v in vectors:
+        if v.shape != (d,):
+            raise ValueError(f"{name}: scale/bias {tuple(v.shape)} for width {d}")
+    if on_card and d > _norms.MAX_WIDTH:
+        raise ValueError(f"{name}: width {d} above the kernel's "
+                         f"{_norms.MAX_WIDTH}")
+    return on_card
+
 
 @torch.library.custom_op("repro_torch::rms_norm", mutates_args=())
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              zero_centered: bool = False) -> torch.Tensor:
     """RMSNorm over the last dim of ``x`` (..., d) with a (d,) scale."""
-    on_card = _on_card("rms_norm", x, scale)
-    _check_dtype("rms_norm", x, scale)
-    if scale.shape != (x.shape[-1],):
-        raise ValueError(f"rms_norm: scale {tuple(scale.shape)} for width "
-                         f"{x.shape[-1]}")
-    if not on_card:
+    if not _check_norm("rms_norm", x, None, scale):
         return ref.rms_norm(x, scale, eps=eps, zero_centered=zero_centered)
     launches["rms_norm"] += 1
     return _norms.rms_norm(x, scale, eps, zero_centered)
@@ -86,6 +102,92 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 
 @rms_norm.register_fake
 def _(x, scale, eps=1e-6, zero_centered=False):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::fused_add_rms_norm", mutates_args=())
+def fused_add_rms_norm(x: torch.Tensor, residual: torch.Tensor,
+                       scale: torch.Tensor, eps: float = 1e-6,
+                       zero_centered: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rms_norm(r), r)`` with ``r = x + residual`` rounded once to the
+    operands' dtype; the norm reads the rounded ``r``."""
+    if not _check_norm("fused_add_rms_norm", x, residual, scale):
+        return ref.fused_add_rms_norm(x, residual, scale, eps=eps,
+                                      zero_centered=zero_centered)
+    launches["fused_add_rms_norm"] += 1
+    return _norms.fused_add_rms_norm(x, residual, scale, eps, zero_centered)
+
+
+@fused_add_rms_norm.register_fake
+def _(x, residual, scale, eps=1e-6, zero_centered=False):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::layer_norm", mutates_args=())
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim of ``x`` (..., d), two-pass variance."""
+    if not _check_norm("layer_norm", x, None, scale, bias):
+        return ref.layer_norm(x, scale, bias, eps=eps)
+    launches["layer_norm"] += 1
+    return _norms.layer_norm(x, scale, bias, eps)
+
+
+@layer_norm.register_fake
+def _(x, scale, bias, eps=1e-5):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::fused_add_layer_norm", mutates_args=())
+def fused_add_layer_norm(x: torch.Tensor, residual: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor,
+                         eps: float = 1e-5
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(layer_norm(r), r)`` with ``r = x + residual`` rounded once."""
+    if not _check_norm("fused_add_layer_norm", x, residual, scale, bias):
+        return ref.fused_add_layer_norm(x, residual, scale, bias, eps=eps)
+    launches["fused_add_layer_norm"] += 1
+    return _norms.fused_add_layer_norm(x, residual, scale, bias, eps)
+
+
+@fused_add_layer_norm.register_fake
+def _(x, residual, scale, bias, eps=1e-5):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+# ---------------------------------------------------------------------------
+# rope
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::rope", mutates_args=())
+def rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0,
+         fraction: float = 1.0) -> torch.Tensor:
+    """Rotate-halves rotary embedding of ``x`` (B, S, H, D) on the leading
+    ``fraction`` of D; int32 ``positions`` (B, S), or (1, S) / (B, 1) that
+    broadcast to it."""
+    on_card = _on_card("rope", x)
+    _check_dtype("rope", x)
+    if x.dim() != 4:
+        raise ValueError(f"rope: x must be (B, S, H, D), got {tuple(x.shape)}")
+    b, s = x.shape[:2]
+    if positions.device != x.device or positions.dtype != torch.int32:
+        raise TypeError(f"rope: positions must be int32 on {x.device}, got "
+                        f"{positions.dtype} on {positions.device}")
+    if positions.dim() != 2 or positions.shape[0] not in (1, b) \
+            or positions.shape[1] not in (1, s):
+        raise ValueError(f"rope: positions {tuple(positions.shape)} do not "
+                         f"broadcast to ({b}, {s})")
+    if not 0.0 <= fraction <= 1.0:
+        raise ValueError(f"rope: fraction {fraction} outside [0, 1]")
+    if not on_card:
+        return ref.rope(x, positions, base=base, fraction=fraction)
+    launches["rope"] += 1
+    return _rope.rope(x, positions, base, fraction)
+
+
+@rope.register_fake
+def _(x, positions, base=10000.0, fraction=1.0):
     return torch.empty_like(x)
 
 

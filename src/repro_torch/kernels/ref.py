@@ -28,6 +28,51 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
+def fused_add_rms_norm(x, residual, scale, eps: float = 1e-6,
+                       zero_centered: bool = False):
+    """``(rms_norm(r), r)`` with ``r = x + residual`` added in f32 and
+    rounded once to ``x``'s dtype; the norm reads the rounded ``r``."""
+    r = (x.float() + residual.float()).to(x.dtype)
+    return rms_norm(r, scale, eps=eps, zero_centered=zero_centered), r
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with the two-pass variance ``mean((x - mean)^2)``."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def fused_add_layer_norm(x, residual, scale, bias, eps: float = 1e-5):
+    """LayerNorm twin of :func:`fused_add_rms_norm`: ``(layer_norm(r), r)``."""
+    r = (x.float() + residual.float()).to(x.dtype)
+    return layer_norm(r, scale, bias, eps=eps), r
+
+
+def rope(x, positions, base: float = 10000.0,
+         fraction: float = 1.0) -> torch.Tensor:
+    """Rotate-halves rotary embedding on (B, S, H, D) over the leading
+    ``fraction`` of D, angles ``pos * base^(-i/half)`` in f32; the tail
+    passes through. ``positions`` is (B, S) (or broadcasts to it)."""
+    d = x.shape[-1]
+    rot = int(d * fraction) // 2 * 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freq = base ** (-torch.arange(0, half, dtype=torch.float32,
+                                  device=x.device) / half)
+    theta = positions[..., None].float() * freq
+    cos = torch.cos(theta)[:, :, None, :]
+    sin = torch.sin(theta)[:, :, None, :]
+    x1 = x_rot[..., :half].float()
+    x2 = x_rot[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1) \
+        if rot < d else out.to(x.dtype)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     gf = gate.float()
     return (gf * torch.sigmoid(gf) * up.float()).to(gate.dtype)

@@ -4,9 +4,10 @@ The port of the full-cache path of ``repro.models.attention``:
 ``init_attention``, ``_qkv``, ``attn_forward``, ``attn_prefill`` and
 ``attn_decode``. Prefill and forward attention run under the
 ``ng:gemm:flash_attention`` tag on both backends, as the JAX jnp twin is
-tagged. Decode on the kernel path is one untagged launch (classed
+tagged. Unfused decode on the kernel path is one untagged launch (classed
 ``fused``); on the plain path it is the tagged qk / mask / softmax / pv
-chain of the JAX reference, op for op.
+chain of the JAX reference, op for op. Under ``nn.fuse()`` decode is the
+one ``ng:fused:fused_attn_decode`` operator on both backends.
 """
 
 from __future__ import annotations
@@ -41,26 +42,33 @@ def pos_vector(pos, batch: int, device) -> torch.Tensor:
 def init_attention(generator: torch.Generator, cfg: ModelConfig) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     pd = cfg.torch_param_dtype
-    return {
+    p = {
         "wq": dense_init(generator, (d, hq * hd), dtype=pd),
         "wk": dense_init(generator, (d, hkv * hd), dtype=pd),
         "wv": dense_init(generator, (d, hkv * hd), dtype=pd),
         "wo": dense_init(generator, (hq * hd, d), dtype=pd),
     }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros((hq * hd,), dtype=pd, device=dev)
+        p["bk"] = torch.zeros((hkv * hd,), dtype=pd, device=dev)
+        p["bv"] = torch.zeros((hkv * hd,), dtype=pd, device=dev)
+    return p
 
 
 def _qkv(params, x, cfg: ModelConfig, positions):
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    q = nn.linear(x, params["wq"].to(x.dtype))
-    k = nn.linear(x, params["wk"].to(x.dtype))
-    v = nn.linear(x, params["wv"].to(x.dtype))
+    q = nn.linear(x, params["wq"].to(x.dtype), params.get("bq"))
+    k = nn.linear(x, params["wk"].to(x.dtype), params.get("bk"))
+    v = nn.linear(x, params["wv"].to(x.dtype), params.get("bv"))
     q = nn.split_heads(q, hq)
     k = nn.split_heads(k, hkv)
     v = nn.split_heads(v, hkv)
-    q = nn.apply_rope(q, positions, base=cfg.rope_base,
-                      fraction=cfg.rope_fraction)
-    k = nn.apply_rope(k, positions, base=cfg.rope_base,
-                      fraction=cfg.rope_fraction)
+    if cfg.pos_emb == "rope":
+        q = nn.apply_rope(q, positions, base=cfg.rope_base,
+                          fraction=cfg.rope_fraction)
+        k = nn.apply_rope(k, positions, base=cfg.rope_base,
+                          fraction=cfg.rope_fraction)
     return q, k, v
 
 
@@ -124,6 +132,10 @@ def attn_decode(params, x, cfg: ModelConfig, cache: dict,
     v = nn.kv_cache_update(cache["v"], v_new, pos)
     wo = params["wo"].to(x.dtype)
 
+    if nn.fusion_enabled():
+        o = nn.fused_attn_decode(q, k, v, (pos + 1).to(torch.int32))
+        o = o.reshape(b, 1, hq * hd).to(x.dtype)
+        return nn.linear(o, wo), cache
     if nn.use_kernels(q):
         from repro_torch.kernels import ops as kops
         o = kops.decode_core(q, k, v, (pos + 1).to(torch.int32))

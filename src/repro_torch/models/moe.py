@@ -1,6 +1,7 @@
 """Dense FFN (the port of ``repro.models.moe``'s ``init_ffn`` and
-``ffn_forward`` for the SwiGLU FFN). The mixture-of-experts layer and the
-other FFN kinds are not ported yet."""
+``ffn_forward``): SwiGLU, or one activation (GELU, ReLU, SiLU) between two
+projections, with optional biases. The mixture-of-experts layer and the
+GeGLU FFN are not ported yet."""
 
 from __future__ import annotations
 
@@ -9,20 +10,36 @@ import torch
 from repro_torch import nn
 from repro_torch.models.common import ModelConfig, dense_init
 
+#: the FFN kinds ported so far (``cfg.ffn``)
+FFN_KINDS = ("swiglu", "gelu", "relu", "silu")
+
+_ACTIVATIONS = {"gelu": nn.gelu, "relu": nn.relu, "silu": nn.silu}
+
 
 def init_ffn(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """The SwiGLU FFN's weights (the only FFN kind ported so far)."""
+    """The dense FFN's weights: ``w_gate`` for SwiGLU, biases with
+    ``cfg.ffn_bias``."""
     d, ff = cfg.d_model, cfg.d_ff
     pd = cfg.torch_param_dtype
-    return {
+    dev = generator.device
+    p = {
         "w_up": dense_init(generator, (d, ff), dtype=pd),
         "w_down": dense_init(generator, (ff, d), dtype=pd),
-        "w_gate": dense_init(generator, (d, ff), dtype=pd),
     }
+    if cfg.ffn == "swiglu":
+        p["w_gate"] = dense_init(generator, (d, ff), dtype=pd)
+    if cfg.ffn_bias:
+        p["b_up"] = torch.zeros((ff,), dtype=pd, device=dev)
+        p["b_down"] = torch.zeros((d,), dtype=pd, device=dev)
+    return p
 
 
 def ffn_forward(params, x, cfg: ModelConfig):
-    """SwiGLU FFN on (..., D)."""
-    up = nn.linear(x, params["w_up"].to(x.dtype))
-    gate = nn.linear(x, params["w_gate"].to(x.dtype))
-    return nn.linear(nn.swiglu(gate, up), params["w_down"].to(x.dtype))
+    """Dense FFN on (..., D)."""
+    up = nn.linear(x, params["w_up"].to(x.dtype), params.get("b_up"))
+    if cfg.ffn == "swiglu":
+        gate = nn.linear(x, params["w_gate"].to(x.dtype))
+        h = nn.swiglu(gate, up)
+    else:
+        h = _ACTIVATIONS[cfg.ffn](up)
+    return nn.linear(h, params["w_down"].to(x.dtype), params.get("b_down"))

@@ -1,9 +1,10 @@
 """LM assembly: the dense decoder stack, forward / prefill / decode.
 
-The port of ``repro.models.transformer`` for the configs the port runs
-(pre-norm RMSNorm blocks of causal MHA/GQA attention with RoPE and a dense
-FFN, as Llama-2). Layers are a Python list: PyTorch runs eagerly, so the
-JAX package's ``lax.scan`` over stacked layers has no counterpart.
+The port of ``repro.models.transformer`` for the configs the port runs:
+pre-norm blocks (RMSNorm or LayerNorm) of causal MHA/GQA attention and a
+dense FFN, with RoPE (Llama-2) or learned positions (GPT-2). Layers are a
+Python list: PyTorch runs eagerly, so the JAX package's ``lax.scan`` over
+stacked layers has no counterpart.
 
 Public API (functions over a params dict of tensors):
 
@@ -23,8 +24,10 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.core.taxonomy import OpGroup
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models.common import ModelConfig, dense_init
@@ -35,12 +38,12 @@ def check_supported(cfg: ModelConfig) -> None:
     unported = {
         "block kinds other than 'attn'": set(cfg.layer_kinds()) != {"attn"},
         "non-causal attention": not cfg.causal,
-        "norm != 'rmsnorm'": cfg.norm != "rmsnorm",
-        "ffn != 'swiglu'": cfg.ffn != "swiglu",
-        "pos_emb != 'rope'": cfg.pos_emb != "rope",
+        f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
+        f"ffn {cfg.ffn!r}": cfg.ffn not in M.FFN_KINDS,
+        f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned"),
         "MoE": cfg.n_experts > 0,
         "MLA": cfg.mla,
-        "qkv_bias / qk_norm / ffn_bias": cfg.qkv_bias or cfg.qk_norm or cfg.ffn_bias,
+        "qk_norm": cfg.qk_norm,
         "post_norm / scale_embeddings": cfg.post_norm or cfg.scale_embeddings,
         "softcaps": bool(cfg.attn_logit_softcap or cfg.final_logit_softcap),
         "input_mode != 'tokens'": cfg.input_mode != "tokens",
@@ -51,13 +54,28 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _init_norm(cfg: ModelConfig, device):
-    return {"scale": torch.ones((cfg.d_model,), dtype=cfg.torch_param_dtype,
-                                device=device)}
+    shape, pd = (cfg.d_model,), cfg.torch_param_dtype
+    p = {"scale": torch.ones(shape, dtype=pd, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=pd, device=device)
+    return p
 
 
 def _apply_norm(p, x, cfg: ModelConfig):
+    if cfg.norm == "layernorm":
+        return nn.layer_norm(x, p["scale"].to(x.dtype), p["bias"].to(x.dtype))
     return nn.rms_norm(x, p["scale"].to(x.dtype),
                        zero_centered=cfg.zero_centered_norm)
+
+
+def _add_norm(p, a, x, cfg: ModelConfig):
+    """``h = norm(a + x)``; returns ``(h, a + x)``: the pre-norm boundary,
+    one fused operator under ``nn.fuse()``."""
+    if cfg.norm == "layernorm":
+        return nn.add_layer_norm(a, x, p["scale"].to(x.dtype),
+                                 p["bias"].to(x.dtype))
+    return nn.add_rms_norm(a, x, p["scale"].to(x.dtype),
+                           zero_centered=cfg.zero_centered_norm)
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -74,6 +92,9 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     pd = cfg.torch_param_dtype
     params = {"embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
                                   in_axis=1, dtype=pd)}
+    if cfg.pos_emb == "learned":
+        params["pos"] = dense_init(generator, (cfg.max_position, cfg.d_model),
+                                   in_axis=1, dtype=pd)
     params["layers"] = [init_block(generator, cfg) for _ in range(cfg.n_layers)]
     params["final_norm"] = _init_norm(cfg, generator.device)
     if not cfg.tie_embeddings:
@@ -85,8 +106,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
 def block_forward(params, x, cfg: ModelConfig, positions):
     h = _apply_norm(params["norm1"], x, cfg)
     a = A.attn_forward(params["mixer"], h, cfg, positions)
-    h, x = nn.add_rms_norm(a, x, params["norm2"]["scale"].to(x.dtype),
-                           zero_centered=cfg.zero_centered_norm)
+    h, x = _add_norm(params["norm2"], a, x, cfg)
     f = M.ffn_forward(params["ffn"], h, cfg)
     return nn.residual_add(x, f)
 
@@ -94,8 +114,7 @@ def block_forward(params, x, cfg: ModelConfig, positions):
 def block_prefill(params, x, cfg: ModelConfig, positions, max_len: int):
     h = _apply_norm(params["norm1"], x, cfg)
     a, cache = A.attn_prefill(params["mixer"], h, cfg, positions, max_len)
-    h, x = nn.add_rms_norm(a, x, params["norm2"]["scale"].to(x.dtype),
-                           zero_centered=cfg.zero_centered_norm)
+    h, x = _add_norm(params["norm2"], a, x, cfg)
     f = M.ffn_forward(params["ffn"], h, cfg)
     return nn.residual_add(x, f), cache
 
@@ -103,15 +122,19 @@ def block_prefill(params, x, cfg: ModelConfig, positions, max_len: int):
 def block_decode(params, x, cfg: ModelConfig, cache, pos):
     h = _apply_norm(params["norm1"], x, cfg)
     a, cache = A.attn_decode(params["mixer"], h, cfg, cache, pos)
-    h, x = nn.add_rms_norm(a, x, params["norm2"]["scale"].to(x.dtype),
-                           zero_centered=cfg.zero_centered_norm)
+    h, x = _add_norm(params["norm2"], a, x, cfg)
     f = M.ffn_forward(params["ffn"], h, cfg)
     return nn.residual_add(x, f), cache
 
 
-def embed_inputs(params, tokens, cfg: ModelConfig):
-    """Tokens (B, S) int -> (B, S, D) in the activation dtype."""
-    return nn.embedding_lookup(params["embed"], tokens).to(cfg.activation_dtype)
+def embed_inputs(params, tokens, cfg: ModelConfig, positions):
+    """Tokens (B, S) int -> (B, S, D) in the activation dtype, plus the
+    learned position rows where the config has them."""
+    x = nn.embedding_lookup(params["embed"], tokens).to(cfg.activation_dtype)
+    if cfg.pos_emb == "learned":
+        with nn.scope(OpGroup.MEMORY, "pos_learned"):
+            x = x + F.embedding(positions, params["pos"]).to(x.dtype)
+    return x
 
 
 def logits_from_hidden(params, h, cfg: ModelConfig):
@@ -130,7 +153,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, positions=None):
     """Full-sequence logits (B, S, V)."""
     check_supported(cfg)
     positions = _default_positions(tokens) if positions is None else positions
-    x = embed_inputs(params, tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, positions)
     for p in params["layers"]:
         x = block_forward(p, x, cfg, positions)
     h = _apply_norm(params["final_norm"], x, cfg)
@@ -155,7 +178,7 @@ def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,
     """
     check_supported(cfg)
     positions = _default_positions(tokens) if positions is None else positions
-    x = embed_inputs(params, tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, positions)
     caches = []
     for p in params["layers"]:
         x, c = block_prefill(p, x, cfg, positions, max_len)
@@ -176,7 +199,7 @@ def lm_decode(params, token, pos, caches: List[dict], cfg: ModelConfig):
     check_supported(cfg)
     b = token.shape[0]
     pos = A.pos_vector(pos, b, token.device)
-    x = embed_inputs(params, token[:, None], cfg)
+    x = embed_inputs(params, token[:, None], cfg, pos[:, None])
     for i, p in enumerate(params["layers"]):
         x, caches[i] = block_decode(p, x, cfg, caches[i], pos)
     h = _apply_norm(params["final_norm"], x, cfg)

@@ -7,7 +7,7 @@ timed profile (``repro_torch.core.graph``) read the stack to attribute each
 aten op to the paper's operator groups.
 
 A backend switch selects the implementation of the kernel-backed ops
-(``rms_norm``, ``swiglu``, prefill and decode attention):
+(the norms, ``swiglu``, the fused ops, prefill and decode attention):
 
     None    (default) the hand-written kernels for CUDA tensors, the plain
             PyTorch code for CPU tensors
@@ -16,6 +16,15 @@ A backend switch selects the implementation of the kernel-backed ops
     "cuda"  the kernel wrappers (``repro_torch.kernels.ops``) on every
             device; for a CPU tensor a wrapper takes its plain version,
             which is how the CPU tests reach the wrappers
+
+A second, orthogonal switch, :func:`fuse` (``repro.nn.fuse``), routes the
+fusable call sites through single fused operators tagged
+``ng:fused:<name>``: ``add_rms_norm`` / ``add_layer_norm`` (residual add +
+the norm after it), ``swiglu``, ``apply_rope`` and the decode attention
+(``fused_attn_decode``). On the kernel backend each fused op is one kernel
+launch; on the plain backend the same fused math runs untagged under the
+fused tag (the ``kernels/ref.py`` twins), so both attribute it to the
+``fused`` group.
 """
 
 from __future__ import annotations
@@ -65,6 +74,31 @@ def use_kernels(x: torch.Tensor) -> bool:
 def _kernels():
     from repro_torch.kernels import ops as kops
     return kops
+
+
+#: process-global fusion switch: while True, the fusable call sites emit
+#: single fused operators under ``ng:fused:`` tags instead of their unfused
+#: op chains
+_FUSION = False
+
+
+def set_fusion(enabled: bool) -> None:
+    global _FUSION
+    _FUSION = bool(enabled)
+
+
+def fusion_enabled() -> bool:
+    return _FUSION
+
+
+@contextlib.contextmanager
+def fuse(enabled: bool = True):
+    prev = fusion_enabled()
+    set_fusion(enabled)
+    try:
+        yield
+    finally:
+        set_fusion(prev)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +156,13 @@ def tagged(group: OpGroup, name: str):
 # Normalization
 # ---------------------------------------------------------------------------
 
+@tagged(OpGroup.NORMALIZATION, "layer_norm")
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    if use_kernels(x):
+        return _kernels().layer_norm(x, scale, bias, eps=eps)
+    return ref.layer_norm(x, scale, bias, eps=eps)
+
+
 @tagged(OpGroup.NORMALIZATION, "rms_norm")
 def rms_norm(x, scale, eps: float = 1e-6, zero_centered: bool = False):
     if use_kernels(x):
@@ -130,17 +171,31 @@ def rms_norm(x, scale, eps: float = 1e-6, zero_centered: bool = False):
     return ref.rms_norm(x, scale, eps=eps, zero_centered=zero_centered)
 
 
-def add_rms_norm(x, residual, scale, eps: float = 1e-6,
-                 zero_centered: bool = False):
-    """``(rms_norm(x + residual), x + residual)`` — the pre-norm boundary,
-    unfused: a residual_add op followed by an rms_norm op."""
-    r = residual_add(x, residual)
+@tagged(OpGroup.NORMALIZATION, "fused_add_rms_norm")
+def fused_add_rms_norm(x, residual, scale, eps: float = 1e-6,
+                       zero_centered: bool = False):
+    """residual += x; y = rms_norm(residual) — one kernel on the card."""
+    if use_kernels(x):
+        return _kernels().fused_add_rms_norm(x, residual, scale, eps=eps,
+                                             zero_centered=zero_centered)
+    r = (x.float() + residual.float()).to(x.dtype)
     return rms_norm(r, scale, eps=eps, zero_centered=zero_centered), r
 
 
 # ---------------------------------------------------------------------------
 # Activation
 # ---------------------------------------------------------------------------
+
+@tagged(OpGroup.ACTIVATION, "relu")
+def relu(x):
+    return torch.relu(x)
+
+
+@tagged(OpGroup.ACTIVATION, "gelu")
+def gelu(x):
+    """GELU, tanh approximation (``repro.nn.gelu``'s default)."""
+    return F.gelu(x, approximate="tanh")
+
 
 @tagged(OpGroup.ACTIVATION, "silu")
 def silu(x):
@@ -150,6 +205,8 @@ def silu(x):
 @tagged(OpGroup.ACTIVATION, "swiglu")
 def swiglu(gate, up):
     """SiLU(gate) * up — fused Activation + Elem-wise mul."""
+    if _FUSION:
+        return _fused_swiglu(gate, up)
     if use_kernels(gate):
         return _kernels().swiglu(gate, up)
     return (gate * torch.sigmoid(gate.float()).to(gate.dtype)) * up
@@ -233,20 +290,14 @@ def kv_cache_update(cache, new, index):
 
 @tagged(OpGroup.MEMORY, "apply_rope")
 def apply_rope(x, positions, base: float = 10000.0, fraction: float = 1.0):
-    """Rotary embedding on (B, S, H, D); optionally on a leading fraction."""
-    d = x.shape[-1]
-    rot = int(d * fraction) // 2 * 2
-    x_rot, x_pass = x[..., :rot], x[..., rot:]
-    half = rot // 2
-    freq = base ** (-torch.arange(0, half, dtype=torch.float32,
-                                  device=x.device) / half)
-    theta = positions[..., None].float() * freq                # (B,S,half)
-    cos = torch.cos(theta)[:, :, None, :]
-    sin = torch.sin(theta)[:, :, None, :]
-    x1, x2 = x_rot[..., :half].float(), x_rot[..., half:].float()
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return torch.cat([out.to(x.dtype), x_pass], dim=-1) \
-        if rot < d else out.to(x.dtype)
+    """Rotary embedding on (B, S, H, D); optionally on a leading fraction.
+
+    Unfused, the plain op chain on every backend (as the JAX package runs
+    it); under :func:`fuse`, one fused operator (the rope kernel on the
+    card)."""
+    if _FUSION:
+        return _fused_rope(x, positions, base=base, fraction=fraction)
+    return ref.rope(x, positions, base=base, fraction=fraction)
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +312,80 @@ def residual_add(x, y):
 @tagged(OpGroup.ELEMENTWISE, "scale")
 def scale(x, factor):
     return x * factor
+
+
+# ---------------------------------------------------------------------------
+# Fused operators (paper §6). Each is ONE operator under one ng:fused: tag
+# and, on the kernel backend, one kernel launch. The plain backend calls
+# the untagged kernels/ref.py twins, so no inner ng: tag shadows the fused
+# attribution.
+# ---------------------------------------------------------------------------
+
+@tagged(OpGroup.FUSED, "fused_add_rms_norm")
+def _fused_add_rms_norm(x, residual, scale, eps: float = 1e-6,
+                        zero_centered: bool = False):
+    if use_kernels(x):
+        return _kernels().fused_add_rms_norm(x, residual, scale, eps=eps,
+                                             zero_centered=zero_centered)
+    return ref.fused_add_rms_norm(x, residual, scale, eps=eps,
+                                  zero_centered=zero_centered)
+
+
+@tagged(OpGroup.FUSED, "fused_add_layer_norm")
+def _fused_add_layer_norm(x, residual, scale, bias, eps: float = 1e-5):
+    if use_kernels(x):
+        return _kernels().fused_add_layer_norm(x, residual, scale, bias,
+                                               eps=eps)
+    return ref.fused_add_layer_norm(x, residual, scale, bias, eps=eps)
+
+
+def add_rms_norm(x, residual, scale, eps: float = 1e-6,
+                 zero_centered: bool = False):
+    """``(rms_norm(x + residual), x + residual)`` — the pre-norm boundary.
+
+    Unfused, a residual_add op followed by an rms_norm op; under
+    :func:`fuse`, one fused operator."""
+    if _FUSION:
+        return _fused_add_rms_norm(x, residual, scale, eps=eps,
+                                   zero_centered=zero_centered)
+    r = residual_add(x, residual)
+    return rms_norm(r, scale, eps=eps, zero_centered=zero_centered), r
+
+
+def add_layer_norm(x, residual, scale, bias, eps: float = 1e-5):
+    """LayerNorm twin of :func:`add_rms_norm` (returns ``(y, x+residual)``)."""
+    if _FUSION:
+        return _fused_add_layer_norm(x, residual, scale, bias, eps=eps)
+    r = residual_add(x, residual)
+    return layer_norm(r, scale, bias, eps=eps), r
+
+
+@tagged(OpGroup.FUSED, "fused_swiglu")
+def _fused_swiglu(gate, up):
+    if use_kernels(gate):
+        return _kernels().swiglu(gate, up)
+    return ref.swiglu(gate, up)
+
+
+@tagged(OpGroup.FUSED, "fused_rope")
+def _fused_rope(x, positions, base: float = 10000.0, fraction: float = 1.0):
+    if use_kernels(x):
+        return _kernels().rope(x, positions, base=base, fraction=fraction)
+    return ref.rope(x, positions, base=base, fraction=fraction)
+
+
+@tagged(OpGroup.FUSED, "fused_attn_decode")
+def fused_attn_decode(q, k, v, lengths, scale: Optional[float] = None):
+    """One-query decode attention over a per-row valid KV prefix as ONE
+    operator: the ``decode_core`` kernel on the card.
+
+    q: (B, 1, Hq, Dk); k: (B, T, Hkv, Dk); v: (B, T, Hkv, Dv);
+    lengths: (B,) int32 attendable prefix -> (B, 1, Hq, Dv), f32 from the
+    plain twin and v's dtype from the kernel (the caller casts).
+    """
+    if use_kernels(q):
+        return _kernels().decode_core(q, k, v, lengths, scale=scale)
+    return ref.decode_attention(q, k, v, lengths, scale=scale)
 
 
 # ---------------------------------------------------------------------------

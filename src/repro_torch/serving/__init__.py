@@ -11,7 +11,10 @@ The port of ``repro.serving.Engine`` (greedy decoding). A slot table of
   slot decodes a pad token at position 0 and its output is discarded;
 * a finished slot (EOS / token budget / context full) is refilled from the
   FIFO queue at the next step;
-* ``EngineStats`` counts throughput and per-request latency.
+* ``EngineStats`` counts throughput and per-request latency;
+* ``fused=True`` runs prefill and decode under ``nn.fuse()``: the fused
+  add+norm, SwiGLU, rope and decode-attention operators. The switch is
+  process-global, so the engine sets it around its own model calls only.
 
 Where the JAX engine casts f32 params to the activation dtype inside every
 jitted step, this eager engine casts once, at construction, by the same
@@ -28,6 +31,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import nn
 from repro_torch.models import init_lm_cache, lm_decode, lm_prefill
 from repro_torch.models.common import ModelConfig
 
@@ -139,8 +143,10 @@ class Engine:
     """
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
-                 max_len: int = 512, eos_id: Optional[int] = None):
+                 max_len: int = 512, eos_id: Optional[int] = None,
+                 fused: bool = False):
         self.cfg = cfg
+        self.fused = fused
         self.device = params["embed"].device
         self.params = cast_params(params, cfg.activation_dtype)
         self.max_batch = max_batch
@@ -192,10 +198,12 @@ class Engine:
         toks = np.full((1, self._bucket(plen)), PAD_ID, np.int64)
         toks[0, :plen] = req.prompt          # right-padded
         t0 = self.clock()
-        logits, one = lm_prefill(
-            self.params, torch.from_numpy(toks).to(self.device), self.cfg,
-            max_len=self.max_len,
-            lengths=torch.tensor([plen], dtype=torch.int32, device=self.device))
+        with nn.fuse(self.fused):
+            logits, one = lm_prefill(
+                self.params, torch.from_numpy(toks).to(self.device), self.cfg,
+                max_len=self.max_len,
+                lengths=torch.tensor([plen], dtype=torch.int32,
+                                     device=self.device))
         first = int(torch.argmax(logits.float(), dim=-1)[0])
         live = not ((self.eos_id is not None and first == self.eos_id)
                     or req.max_new_tokens <= 1
@@ -262,9 +270,12 @@ class Engine:
             return finished
 
         t0 = self.clock()
-        logits, self._caches = lm_decode(
-            self.params, torch.from_numpy(self._cur.astype(np.int64)).to(self.device),
-            torch.from_numpy(self._pos).to(self.device), self._caches, self.cfg)
+        with nn.fuse(self.fused):
+            logits, self._caches = lm_decode(
+                self.params,
+                torch.from_numpy(self._cur.astype(np.int64)).to(self.device),
+                torch.from_numpy(self._pos).to(self.device), self._caches,
+                self.cfg)
         nxt_host = torch.argmax(logits.float(), dim=-1).cpu().numpy()
         self.stats.decode_s += self.clock() - t0
         self.stats.decode_steps += 1

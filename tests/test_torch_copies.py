@@ -5,6 +5,7 @@ import ast
 import dataclasses
 import pathlib
 
+import jax
 import numpy as np
 import pytest
 
@@ -13,11 +14,14 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
 from repro.core import taxonomy as jtax  # noqa: E402
+from repro.models import init_lm as jinit_lm  # noqa: E402
 from repro.models.common import ModelConfig as JModelConfig  # noqa: E402
 
+from repro_torch import bridge  # noqa: E402
 from repro_torch import nn as tnn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import taxonomy as ttax  # noqa: E402
+from repro_torch.models import init_lm  # noqa: E402
 from repro_torch.models.common import ModelConfig, dense_init  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -50,18 +54,19 @@ def test_model_config_fields_pinned():
     assert fields(ModelConfig) == fields(JModelConfig)
 
 
+@pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl"])
 @pytest.mark.parametrize("cut", [False, True])
-def test_llama_config_copy_pinned(cut):
-    want = jget_config("llama2-7b")
-    got = get_config("llama2-7b")
+def test_llama_config_copy_pinned(cut, arch):
+    want = jget_config(arch)
+    got = get_config(arch)
     if cut:
         want, got = jreduced(want), reduced(got)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_unknown_config_lists_known():
-    with pytest.raises(KeyError, match="llama2-7b"):
-        get_config("gpt2-xl")
+    with pytest.raises(KeyError, match="gpt2-xl.*llama2-7b"):
+        get_config("bert-base")
 
 
 def _imports(path: pathlib.Path):
@@ -122,6 +127,39 @@ def test_kv_cache_update_scalar_and_per_row():
                         torch.tensor([0, 3], dtype=torch.int32))
     assert cache[0, 0, 0, 0] == 1 and cache[1, 3, 0, 0] == 2
     assert cache[0, 3, 0, 0] == 0 and cache[1, 0, 0, 0] == 0
+
+
+def test_fusion_switch_restores():
+    assert not tnn.fusion_enabled()
+    with tnn.fuse():
+        assert tnn.fusion_enabled()
+        with tnn.fuse(False):
+            assert not tnn.fusion_enabled()
+        assert tnn.fusion_enabled()
+    assert not tnn.fusion_enabled()
+
+
+def test_bridge_raises_on_an_unknown_entry_and_carries_every_other():
+    jcfg = jreduced(jget_config("gpt2-xl"))
+    cfg = reduced(get_config("gpt2-xl"))
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jinit_lm(jax.random.PRNGKey(0), jcfg))
+    params = bridge.params_from_jax(tree, cfg, device="cpu")
+    assert set(params) == {"embed", "pos", "final_norm", "layers"}
+    np.testing.assert_array_equal(params["pos"].numpy(), tree["pos"])
+    assert {"bq", "bk", "bv"} <= set(params["layers"][0]["mixer"])
+    assert {"b_up", "b_down"} <= set(params["layers"][0]["ffn"])
+    with pytest.raises(ValueError, match="pos_extra"):
+        bridge.params_from_jax({**tree, "pos_extra": tree["pos"]}, cfg,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("unported", [dict(ffn="geglu"), dict(qk_norm=True),
+                                      dict(pos_emb="sinusoidal")])
+def test_unported_features_still_raise(unported):
+    cfg = reduced(get_config("gpt2-xl")).replace(**unported)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        init_lm(torch.Generator().manual_seed(0), cfg)
 
 
 def test_backend_switch_validates_and_restores():

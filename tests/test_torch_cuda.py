@@ -105,10 +105,57 @@ def test_decode_core_scalar_staging_on_card(card, dt):
     _assert_close(got, ref.decode_attention(q, k, v, n).to(dt), dt)
 
 
+NORM_SHAPES = [(4, 1, 4096), (4, 1, 1600), (2, 33, 257), (5, 1000)]
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_layer_norm_on_card(card, shape, dt):
+    x = _randn(card, shape, dt) + 3.0
+    w, b = _randn(card, shape[-1:], dt), _randn(card, shape[-1:], dt)
+    got = _launched("layer_norm", lambda: ops.layer_norm(x, w, b))
+    _assert_close(got, ref.layer_norm(x, w, b), dt)
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_fused_add_norm_on_card(card, shape, dt, kind):
+    x, res = _randn(card, shape, dt), _randn(card, shape, dt, 4.0)
+    w, b = _randn(card, shape[-1:], dt), _randn(card, shape[-1:], dt)
+    if kind == "rms":
+        name, fn = "fused_add_rms_norm", lambda m: m.fused_add_rms_norm(x, res, w)
+    else:
+        name = "fused_add_layer_norm"
+        fn = lambda m: m.fused_add_layer_norm(x, res, w, b)   # noqa: E731
+    (y, r), (want_y, want_r) = _launched(name, lambda: fn(ops)), fn(ref)
+    _assert_close(y, want_y, dt)
+    assert torch.equal(r, want_r)      # one f32 add, rounded once, both sides
+
+
+@pytest.mark.parametrize("case", [(4, 1, 32, 128, 1.0, [[186], [144], [120], [72]]),
+                                  (1, 16, 32, 128, 1.0, None),
+                                  (2, 7, 25, 64, 0.25, None),
+                                  (1, 5, 3, 34, 1.0, [[4091, 4092, 4093, 4094, 4095]]),
+                                  (1, 5, 3, 96, 1.0, [[4091, 4092, 4093, 4094, 4095]])])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rope_on_card(card, case, dt):
+    b, s, h, d, fraction, pos = case
+    x = _randn(card, (b, s, h, d), dt)
+    p = (torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+         if pos is None else torch.tensor(pos, dtype=torch.int32, device="cuda"))
+    got = _launched("rope", lambda: ops.rope(x, p, fraction=fraction))
+    _assert_close(got, ref.rope(x, p, fraction=fraction), dt)
+
+
 def test_kernels_raise_above_what_they_take(card):
     q = _randn(card, (1, 4, 2, 192), torch.float32)
     with pytest.raises(ValueError, match="head dims"):
         ops.attention_core(q, q, q)
+    with pytest.raises(ValueError, match="width"):
+        ops.layer_norm(_randn(card, (1, 40000), torch.float32),
+                       _randn(card, (40000,), torch.float32),
+                       _randn(card, (40000,), torch.float32))
     with pytest.raises(ValueError, match="GQA group"):
         ops.decode_core(_randn(card, (1, 1, 64, 8), torch.float32),
                         _randn(card, (1, 4, 1, 8), torch.float32),
@@ -116,27 +163,37 @@ def test_kernels_raise_above_what_they_take(card):
                         torch.ones(1, dtype=torch.int32, device="cuda"))
 
 
-def test_reduced_model_kernel_path_matches_plain_path(card):
-    cfg = reduced(get_config("llama2-7b"))
+MODELS = [("llama2-7b", False), ("llama2-7b", True), ("gpt2-xl", False),
+          ("gpt2-xl", True)]
+
+
+@pytest.mark.parametrize("arch,fused", MODELS)
+def test_reduced_model_kernel_path_matches_plain_path(card, arch, fused):
+    cfg = reduced(get_config(arch))
     params = init_lm(card, cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 37), generator=card,
                          device="cuda")
-    with nn.backend("torch"):
+    with nn.backend("torch"), nn.fuse(fused):
         want = lm_forward(params, toks, cfg)
     ops.reset_launches()
-    got = lm_forward(params, toks, cfg)           # default: kernels on the card
+    with nn.fuse(fused):
+        got = lm_forward(params, toks, cfg)       # default: kernels on the card
     assert ops.launches["attention_core"] == cfg.n_layers
+    if fused:
+        assert ops.launches["fused_add_rms_norm" if cfg.norm == "rmsnorm"
+                            else "fused_add_layer_norm"] == cfg.n_layers
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-def test_engine_on_card_matches_engine_on_cpu(card):
-    cfg = reduced(get_config("llama2-7b"))
+@pytest.mark.parametrize("arch,fused", MODELS)
+def test_engine_on_card_matches_engine_on_cpu(card, arch, fused):
+    cfg = reduced(get_config(arch))
     params = init_lm(card, cfg)
     rng = np.random.default_rng(0)
     prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n))) for n in (5, 20, 9)]
 
     def serve(p):
-        eng = Engine(cfg, p, max_batch=2, max_len=64)
+        eng = Engine(cfg, p, max_batch=2, max_len=64, fused=fused)
         uids = [eng.add_request(x, max_new_tokens=8) for x in prompts]
         done = {r.uid: r.output for r in eng.run()}
         return [done[u] for u in uids]

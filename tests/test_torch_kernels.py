@@ -1,7 +1,9 @@
 """Port kernels vs the JAX kernels: the CPU branch of each wrapper in
 ``repro_torch.kernels.ops`` against the Pallas kernel in interpret mode, on
-the same numpy inputs. Tolerances are ``tests/test_kernels.py``'s ATOL
-(f32 2e-5, bf16 3e-2): both sides compute in f32 and round once."""
+the same numpy inputs, and each plain twin of ``repro_torch.kernels.ref``
+against its ``repro.kernels.ref`` oracle. Tolerances are
+``tests/test_kernels.py``'s ATOL (f32 2e-5, bf16 3e-2): both sides compute
+in f32 and round once."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,8 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import attn_template as T  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]
@@ -99,15 +102,118 @@ def test_decode_core_matches_pallas(hq, hkv, dt):
     assert not got[3].float().abs().any(), "lengths 0 must give exact zeros"
 
 
+NORM_SHAPES = [(4, 128), (2, 33, 257), (1, 7, 3, 64), (2, 5, 1600)]
+
+
+def _norm_operands(rng, shape, dt, residual: bool, mean: float = 0.0):
+    """x (with an offset mean, as a residual stream has), optional
+    residual, scale and bias, as (jax, torch) pairs."""
+    x = _pair(rng, shape, dt)
+    if mean:
+        a = (rng.standard_normal(shape) + mean).astype(np.float32)
+        x = (jnp.asarray(a).astype(JAX_DT[dt]), torch.from_numpy(a).to(TORCH_DT[dt]))
+    res = _pair(rng, shape, dt) if residual else (None, None)
+    return x, res, _pair(rng, shape[-1:], dt), _pair(rng, shape[-1:], dt)
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("mean", [0.0, 1e3])
+def test_layer_norm_matches_pallas(shape, dt, mean):
+    rng = np.random.default_rng(4)
+    (xj, xt), _, (wj, wt), (bj, bt) = _norm_operands(rng, shape, dt, False, mean)
+    want = jops.layer_norm(xj, wj, bj, interpret=True)
+    got = ops.layer_norm(xt, wt, bt)
+    assert got.dtype == TORCH_DT[dt] and got.shape == xt.shape
+    # a row mean 1e3 standard deviations from zero: either side's f32 mean
+    # carries ~2^-24 * 1e3 * log2(d) of summation-order error, which the
+    # normalized row shows unscaled (2.5e-4 read here); a one-pass
+    # E[x^2] - E[x]^2 variance would err by ~0.1
+    atol = ATOL[dt] if not mean else max(ATOL[dt], 1e-3)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_fused_add_norm_matches_pallas(shape, dt, kind):
+    rng = np.random.default_rng(5)
+    (xj, xt), (rj, rt), (wj, wt), (bj, bt) = _norm_operands(rng, shape, dt, True)
+    if kind == "rms":
+        want = jops.fused_add_rms_norm(xj, rj, wj, interpret=True)
+        got = ops.fused_add_rms_norm(xt, rt, wt)
+    else:
+        want = jops.fused_add_layer_norm(xj, rj, wj, bj, interpret=True)
+        got = ops.fused_add_layer_norm(xt, rt, wt, bt)
+    for g, w in zip(got, want):
+        assert g.dtype == TORCH_DT[dt] and g.shape == xt.shape
+        _close(g, w, dt)
+    # r: one f32 add, rounded once, on both sides
+    np.testing.assert_array_equal(got[1].float().numpy(),
+                                  np.asarray(want[1], np.float32))
+
+
+ROPE_CASES = [  # (B, S, H, D, fraction, base, position offset)
+    (2, 5, 4, 128, 1.0, 10000.0, 0),
+    (1, 3, 25, 64, 1.0, 10000.0, 509),
+    (2, 4, 3, 128, 0.25, 10000.0, 0),      # stablelm's partial rotary
+    (1, 6, 2, 34, 1.0, 500.0, 4090),       # odd half: the scalar path
+]
+
+
+@pytest.mark.parametrize("case", ROPE_CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rope_matches_pallas(case, dt):
+    b, s, h, d, fraction, base, off = case
+    rng = np.random.default_rng(6)
+    xj, xt = _pair(rng, (b, s, h, d), dt)
+    pos = (off + rng.integers(0, 8, (b, s))).astype(np.int32)
+    want = jops.fused_rope(xj, jnp.asarray(pos), base=base, fraction=fraction,
+                           interpret=True)
+    got = ops.rope(xt, torch.from_numpy(pos), base=base, fraction=fraction)
+    assert got.dtype == TORCH_DT[dt] and got.shape == xt.shape
+    _close(got, want, dt)
+
+
+REF_TWINS = {
+    "layer_norm": lambda m, x, r, w, b: m.layer_norm(x, w, b),
+    "fused_add_layer_norm": lambda m, x, r, w, b: m.fused_add_layer_norm(x, r, w, b),
+    "fused_add_rms_norm": lambda m, x, r, w, b: m.fused_add_rms_norm(x, r, w),
+    "rope": lambda m, x, r, w, b: m.rope(x.reshape(2, 5, 4, 8), b[:10].reshape(2, 5),
+                                         base=300.0, fraction=0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REF_TWINS))
+def test_ref_twin_matches_jax_oracle(name):
+    rng = np.random.default_rng(7)
+    x, r = (rng.standard_normal((2, 5, 32)).astype(np.float32) for _ in "xr")
+    w, b = (rng.standard_normal(32).astype(np.float32) for _ in "wb")
+    if name == "rope":
+        b = rng.integers(0, 2048, 32).astype(np.int32)
+    want = REF_TWINS[name](jref, *map(jnp.asarray, (x, r, w, b)))
+    got = REF_TWINS[name](ref, *map(torch.from_numpy, (x, r, w, b)))
+    for g, wv in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, want))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), atol=2e-5,
+                                   rtol=1e-5)
+
+
 def test_cpu_branch_launches_nothing():
     ops.reset_launches()
     x = torch.randn(3, 64)
     ops.rms_norm(x, torch.ones(64))
     ops.swiglu(x, x)
+    ops.layer_norm(x, torch.ones(64), torch.zeros(64))
+    ops.fused_add_rms_norm(x, x, torch.ones(64))
+    ops.fused_add_layer_norm(x, x, torch.ones(64), torch.zeros(64))
+    ops.rope(x.reshape(1, 3, 1, 64), torch.zeros(1, 3, dtype=torch.int32))
+    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 8
     assert all(n == 0 for n in ops.launches.values())
 
 
-@pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix"])
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix",
+                                 "residual_shape", "positions", "fraction"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     x = torch.randn(4, 64)
     w = torch.ones(64)
@@ -120,8 +226,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     elif bad == "shape":
         with pytest.raises(ValueError):
             ops.rms_norm(x, torch.ones(65))
-    else:
+    elif bad == "device_mix":
         with pytest.raises(ValueError):
             ops.decode_core(torch.randn(2, 1, 4, 8), torch.randn(2, 5, 4, 8),
                             torch.randn(2, 5, 4, 8),
                             torch.tensor([1, 2], dtype=torch.int64))
+    elif bad == "residual_shape":
+        with pytest.raises(ValueError):
+            ops.fused_add_layer_norm(x, x[:2], w, w)
+    elif bad == "positions":
+        with pytest.raises(TypeError):
+            ops.rope(x.reshape(1, 4, 1, 64), torch.zeros(1, 4, dtype=torch.int64))
+        with pytest.raises(ValueError):
+            ops.rope(x.reshape(1, 4, 1, 64), torch.zeros(1, 3, dtype=torch.int32))
+    else:
+        with pytest.raises(ValueError):
+            ops.rope(x.reshape(1, 4, 1, 64), torch.zeros(1, 4, dtype=torch.int32),
+                     fraction=1.5)

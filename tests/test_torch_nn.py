@@ -1,6 +1,7 @@
 """The port's tagged nn ops against ``repro.nn``'s jnp ops, op by op, on the
 same numpy inputs (f32, the JAX reference's CPU dtype), and their tags."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,14 +9,20 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro import nn as jnn  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import reduced as jreduced  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import nn as tnn  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import capture  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 
 RNG = np.random.default_rng(0)
 X4 = RNG.standard_normal((2, 5, 4, 16)).astype(np.float32)   # (B, S, H, D)
 X3 = RNG.standard_normal((2, 5, 24)).astype(np.float32)
 W = RNG.standard_normal((24, 12)).astype(np.float32)
 POS = np.array([[0, 1, 2, 3, 4], [7, 8, 9, 10, 11]], np.int32)
+S0, S1 = W[:, 0].copy(), W[:, 1].copy()       # contiguous (d,) scale, bias
 IDS = np.array([[3, 0, 9], [1, 1, 4]], np.int64)
 TABLE = RNG.standard_normal((10, 6)).astype(np.float32)
 
@@ -43,6 +50,10 @@ CASES = {
                lambda j: jnn.einsum("bsd,df->bfs", j(X3), j(W))),
     "rms_norm": (lambda t: tnn.rms_norm(t(X3), t(W[:, 0])),
                  lambda j: jnn.rms_norm(j(X3), j(W[:, 0]))),
+    "layer_norm": (lambda t: tnn.layer_norm(t(X3 + 2), t(W[:, 0]), t(W[:, 1])),
+                   lambda j: jnn.layer_norm(j(X3 + 2), j(W[:, 0]), j(W[:, 1]))),
+    "gelu": (lambda t: tnn.gelu(t(X3 * 3)), lambda j: jnn.gelu(j(X3 * 3))),
+    "relu": (lambda t: tnn.relu(t(X3)), lambda j: jnn.relu(j(X3))),
     "swiglu": (lambda t: tnn.swiglu(t(X3), t(X3 * 0.5)),
                lambda j: jnn.swiglu(j(X3), j(X3 * 0.5))),
 }
@@ -59,6 +70,71 @@ def test_nn_op_matches_jax_op(name):
                                rtol=1e-5)
 
 
+# ops returning (y, x + residual), unfused and under fusion
+PAIR_CASES = {
+    "fused_add_rms_norm": (
+        lambda t: tnn.fused_add_rms_norm(t(X3), t(X3[::-1].copy()), t(W[:, 0])),
+        lambda j: jnn.fused_add_rms_norm(j(X3), j(X3[::-1].copy()), j(W[:, 0]))),
+    "add_rms_norm": (
+        lambda t: tnn.add_rms_norm(t(X3), t(X3[::-1].copy()), t(W[:, 0])),
+        lambda j: jnn.add_rms_norm(j(X3), j(X3[::-1].copy()), j(W[:, 0]))),
+    "add_layer_norm": (
+        lambda t: tnn.add_layer_norm(t(X3), t(X3[::-1].copy()), t(W[:, 0]),
+                                     t(W[:, 1])),
+        lambda j: jnn.add_layer_norm(j(X3), j(X3[::-1].copy()), j(W[:, 0]),
+                                     j(W[:, 1]))),
+}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", sorted(PAIR_CASES))
+def test_nn_pair_op_matches_jax_op(name, fused):
+    port, jax_op = PAIR_CASES[name]
+    with tnn.backend("torch"), jnn.backend("jnp"), tnn.fuse(fused), \
+            jnn.fuse(fused):
+        got = port(torch.from_numpy)
+        want = jax_op(jnp.asarray)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+# the fusable sites: (port call, JAX call, the tag of the op under fusion)
+FUSED_SITES = {
+    "add_rms_norm": (lambda t: tnn.add_rms_norm(t(X3), t(X3), t(S0)),
+                     lambda j: jnn.add_rms_norm(j(X3), j(X3), j(S0)),
+                     "ng:fused:fused_add_rms_norm"),
+    "add_layer_norm": (
+        lambda t: tnn.add_layer_norm(t(X3), t(X3), t(S0), t(S1)),
+        lambda j: jnn.add_layer_norm(j(X3), j(X3), j(S0), j(S1)),
+        "ng:fused:fused_add_layer_norm"),
+    "swiglu": (lambda t: tnn.swiglu(t(X3), t(X3)),
+               lambda j: jnn.swiglu(j(X3), j(X3)), "ng:fused:fused_swiglu"),
+    "apply_rope": (lambda t: tnn.apply_rope(t(X4), t(POS)),
+                   lambda j: jnn.apply_rope(j(X4), j(POS)),
+                   "ng:fused:fused_rope"),
+}
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("name", sorted(FUSED_SITES))
+def test_fused_site_is_one_fused_op_matching_jax(name, backend):
+    port, jax_op, tag = FUSED_SITES[name]
+    with tnn.backend(backend), tnn.fuse(), jnn.backend("jnp"), jnn.fuse():
+        recs = [r for r in capture(lambda: port(torch.from_numpy))
+                if r.prim != "aten.lift_fresh"]      # from_numpy's own op
+        got = port(torch.from_numpy)
+        want = jax_op(jnp.asarray)
+    # the innermost tag of every op is the fused one: nothing shadows it
+    assert recs and all(r.group.value == "fused" for r in recs)
+    assert all(tag in r.scope for r in recs)
+    if backend == "cuda":       # the wrapper is one op
+        assert len(recs) == 1 and recs[0].prim.startswith("repro_torch.")
+    for g, w in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, want))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
 def test_tagged_ops_push_tag_and_call_marker():
     x = torch.ones(3)
     recs = capture(lambda: tnn.residual_add(tnn.silu(x), x))
@@ -67,3 +143,23 @@ def test_tagged_ops_push_tag_and_call_marker():
     assert scopes[-1].startswith("ng:elementwise:residual_add/c")
     assert scopes[0].split("/")[1] != scopes[-1].split("/")[1]
     assert tnn.scope_path() == ""
+
+
+@pytest.mark.parametrize("ffn", ["gelu", "relu", "silu", "swiglu"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_ffn_forward_matches_jax(ffn, bias):
+    jcfg = jreduced(jget_config("gpt2-xl")).replace(ffn=ffn, ffn_bias=bias)
+    cfg = reduced(get_config("gpt2-xl")).replace(ffn=ffn, ffn_bias=bias)
+    jp = jmoe.init_ffn(jax.random.PRNGKey(1), jcfg)
+    rng = np.random.default_rng(2)
+    if bias:            # nonzero biases, so that their use is visible
+        jp = {k: (jnp.asarray(rng.standard_normal(v.shape), v.dtype)
+                  if k.startswith("b_") else v) for k, v in jp.items()}
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    assert set(p) == set(tmoe.init_ffn(torch.Generator().manual_seed(0), cfg))
+    x = rng.standard_normal((2, 3, cfg.d_model)).astype(np.float32)
+    with tnn.backend("torch"), jnn.backend("jnp"):
+        want = jmoe.ffn_forward(jp, jnp.asarray(x), jcfg)
+        got = tmoe.ffn_forward(p, torch.from_numpy(x), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
