@@ -9,9 +9,11 @@ Phases, each printing JSON lines:
 1. device  - requires CUDA; prints the card's name and power limit (as
              ``nvidia-smi --query-gpu=name,power.limit`` gives them) and
              builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
-2. kernels - holds each of the eight kernels against its plain PyTorch
-             version on the card, in bf16 and f32, at the main path's shapes
-             (llama2-7b; gpt2-xl's 25 heads of 64) and odd ones;
+2. kernels - holds each of the ten kernels against its plain PyTorch
+             version on the card, in bf16 and f32, at the main paths' shapes
+             (llama2-7b; gpt2-xl's 25 heads of 64; the encoders' and the
+             detector's full-mask attention; the detector's NMS) and odd
+             ones; NMS keep masks must be identical;
 3. serve   - for each of llama2-7b and gpt2-xl at full width and depth in
              bf16 (random weights from a seeded generator on the card), the
              continuous-batching ``Engine`` unfused and fused
@@ -26,9 +28,21 @@ Phases, each printing JSON lines:
 4. profile - a per-op measured profile of ``lm_forward`` (batch 1, seq 16)
              on the kernel path, unfused and fused, for both models: the
              measured GEMM / NonGEMM split;
+   encode  - bert-base (b1 and b8, s128) and the vit-b16 embeddings stub
+             (b1, s197) through ``lm_forward`` at full width and depth in
+             bf16, unfused and fused: launches, the kernel path's logits
+             against the plain path's and the fused path's against the
+             unfused, and a measured profile of each (batch 1);
+   vision  - vit-b16-cls (224 px) and detector-vit-s (256 px) through
+             ``vision_forward``, same conditions: images/s at batch 1 and
+             batch 8, the classifier's logits and the detector's backbone
+             features and sorted top-K scores against the plain path, the
+             NMS kernel against the plain NMS on the kernel path's own
+             boxes, and a measured profile of each (batch 1) in which the
+             detector must show RoI, Interpolation and Reduction time;
 5. timing  - kernel, plain version, one PyTorch library call computing the
              same function (where there is one) and the card's bound, at the
-             serve phase's shapes.
+             main paths' shapes.
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -75,6 +89,12 @@ LARGE_MEAN_TOL = {"bfloat16": TOL["bfloat16"], "float32": (1e-3, 1e-5)}
 # decode_core dropping its newest key reads 0.25 on the decode step,
 # attention_core masking the diagonal 2.1-2.8 on prefill
 LOGIT_ATOL = 0.125
+# the encoders' logits and the vision outputs, kernel path against plain
+# path and fused against unfused, all 12 layers in bf16 (readings: PERF.md)
+ENCODE_ATOL = 0.125
+# the detector's top-K scores (sigmoid probabilities in [0, 1]) as value
+# sets: every score of one path within this of a score of the other
+SCORE_ATOL = 0.03
 
 SOURCES = {
     "rms_norm": ("src/repro_torch/kernels/csrc/norms.cu",
@@ -93,7 +113,14 @@ SOURCES = {
                        "src/repro/kernels/attn_template.py:170"),
     "decode_core": ("src/repro_torch/kernels/csrc/decode.cu",
                     "src/repro/kernels/attn_template.py:185"),
+    "attention_full": ("src/repro_torch/kernels/csrc/attention.cu",
+                       "src/repro/kernels/attn_template.py:170"),
+    "nms": ("src/repro_torch/kernels/csrc/nms.cu",
+            "src/repro/kernels/nms.py:25"),
 }
+ENCODERS = (("bert-base", ((1, 128), (8, 128))), ("vit-b16", ((1, 197),)))
+VISION = ("vit-b16-cls", "detector-vit-s")
+VISION_BATCH, VISION_FORWARDS = 8, 8
 
 
 def emit(**kw) -> None:
@@ -106,7 +133,8 @@ def fail(msg: str) -> None:
 
 def per_forward_launches(cfg, fused: bool) -> dict:
     """Kernel launches of one prefill or decode forward on the kernel path
-    (``attention_core`` on prefill, ``decode_core`` on decode)."""
+    (``attention_core`` on prefill, ``decode_core`` on decode; for an
+    encoder, ``attention_full``)."""
     n = cfg.n_layers
     out = {"attn": n}
     if cfg.norm == "rmsnorm":
@@ -276,14 +304,87 @@ def check_kernels(torch, ops, ref, gen):
                     f"q{[b, 1, hq, dk]} kv{[b, t, hkv]} dv={dv} lengths={lens}")
             if 0 in lens and got[lens.index(0)].float().abs().any():
                 fail("decode_core: lengths 0 must give exact zeros")
+        # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
+        # multiples of the 64-key tile, 128 / 256 / 1024 are
+        for b, sq, skv, hq, hkv, dk, dv in [
+                (1, 197, 197, 12, 12, 64, 64),     # the vit-b16 stub
+                (1, 196, 196, 12, 12, 64, 64),     # vit-b16-cls
+                (8, 128, 128, 12, 12, 64, 64),     # bert-base b8
+                (2, 256, 1024, 6, 6, 64, 64),      # detector refinement
+                (1, 37, 301, 4, 2, 64, 32),        # GQA, Dv != Dk, odd
+                (1, 21, 23, 2, 2, 34, 18)]:        # scalar tile staging
+            q = randn((b, sq, hq, dk), dt)
+            k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dv), dt)
+            compare("attention_full", ops.attention_full(q, k, v),
+                    ref.attention(q, k, v, causal=False), dtname,
+                    f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} dv={dv}")
+    for case, (boxes, scores, thr, score_thr) in nms_cases(np.random.default_rng(SEED)):
+        bt = torch.from_numpy(boxes).cuda()
+        st = torch.from_numpy(scores).cuda()
+        got = ops.nms(bt, st, thr, score_thr)
+        want = ref.nms(bt, st, thr, score_thr)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        emit(phase="kernels", kernel="nms", case=case, n=len(boxes),
+             iou_threshold=thr, score_threshold=score_thr,
+             kept=int(got.sum()), plain_kept=int(want.sum()), identical=same)
+        if not same:
+            fail(f"nms {case}: keep mask differs from the plain version's in "
+                 f"{int((got != want).sum())} of {len(boxes)} boxes")
+        if case == "exact_threshold_pairs" and got.tolist() != [True, True,
+                                                                 True, False]:
+            fail("nms: IoU exactly 0.5 must keep, one ulp above suppress")
     return worst
+
+
+def random_boxes(rng, n, span=60.0):
+    centers = rng.uniform(size=(n, 2)) * span
+    wh = rng.uniform(size=(n, 2)) * 12 + 1
+    return (np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+            .astype(np.float32), rng.uniform(size=n).astype(np.float32))
+
+
+def nms_cases(rng):
+    """(name, (boxes (N, 4) f32, scores (N,) f32, iou threshold, score
+    threshold)) of phase 2's NMS checks."""
+    for n in (1, 37, 256, 1000, 4096):
+        yield f"random-{n}", (*random_boxes(rng, n, span=2 * math.sqrt(n) + 20),
+                              0.5, 0.0)
+    boxes, scores = random_boxes(rng, 256)
+    yield "duplicate_scores", (boxes, np.round(scores * 3) / 3, 0.5, 0.0)
+    boxes[:2] = [[5, 5, 5, 5], [9, 9, 3, 3]]
+    yield "zero_area", (boxes, scores, 0.5, 0.0)
+    jitter = rng.uniform(size=(72, 4)).astype(np.float32) * 0.1
+    yield "all_suppressed", (np.float32([10, 10, 20, 20]) + jitter,
+                             np.linspace(0.9, 0.1, 72, dtype=np.float32), 0.3, 0.0)
+    off = np.arange(40, dtype=np.float32) * 30
+    yield "none_suppressed", (np.stack([off, off, off + 10, off + 10], -1),
+                              rng.uniform(0.25, 0.75, 40).astype(np.float32),
+                              0.5, 0.0)
+    yield "score_threshold", (*random_boxes(rng, 1000), 0.5, 0.4)
+    # f32 IoU exactly 0.5 (kept: only an IoU above the threshold
+    # suppresses) and one ulp above it (suppressed)
+    s = np.nextafter(np.float32(1 / 3), np.float32(0))
+    yield "exact_threshold_pairs", (
+        np.array([[10, 0, 13, 1], [11, 0, 14, 1], [0, 0, 1, 1],
+                  [s, 0, np.float32(s + 1), 1]], np.float32),
+        np.array([0.9, 0.8, 0.7, 0.6], np.float32), 0.5, 0.0)
+    # 2048 pairs of equal boxes a third of their width apart: IoU 1/2 up
+    # to rounding, so each pair's f32 IoU falls a few ulps either side
+    x, y, w, h = rng.uniform(5, 40, (4, 2048))
+    ox, oy = (np.arange(2048) % 64) * 100.0, (np.arange(2048) // 64) * 100.0
+    a = np.stack([ox + x, oy + y, ox + x + w, oy + y + h], -1)
+    pairs = np.stack([a, a + np.stack([w / 3, 0 * w, w / 3, 0 * w], -1)], 1)
+    yield "near_threshold_pairs", (pairs.reshape(-1, 4).astype(np.float32),
+                                   np.linspace(0.99, 0.5, 4096, dtype=np.float32),
+                                   0.5, 0.0)
 
 
 # ---------------------------------------------------------------------------
 # phase 5: times at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def time_kernels(torch, ops, ref, gen, decode_lengths, graph):
+def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     """Kernel, plain and library times at the serve phase's main-path shapes
     (bf16), with the bound each function's bytes and operations set. The
     row-wise kernels do their arithmetic in f32 on the CUDA cores, so their
@@ -378,6 +479,41 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph):
             out["attention_core"], out["decode_core"] = attn, dec
         else:
             extra["attention_core"], extra["decode_core"] = attn, dec
+    # attention_full: vit-b16-cls's 196 tokens (the kernels line), the
+    # detector's refinement (K = 256 queries over its 1024 cells) and
+    # bert-base at b8 s128 (lines of their own)
+    for key, (b, sq, skv, h, what) in (
+            ("attention_full", (1, 196, 196, 12, "vit-b16-cls, 224 px")),
+            ("attention_full refine", (1, 256, 1024, 6,
+                                       "detector-vit-s refinement")),
+            ("attention_full bert", (8, 128, 128, 12, "bert-base b8 s128"))):
+        dh = 64
+        q = randn((b, sq, h, dh))
+        k, v = randn((b, skv, h, dh)), randn((b, skv, h, dh))
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        row = entry(
+            f"q[{b},{sq},{h},{dh}] kv[{b},{skv},{h},{dh}] bf16 full ({what})",
+            lambda: ops.attention_full(q, k, v),
+            lambda: ref.attention(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            2 * b * h * dh * (2 * sq + 2 * skv),
+            2 * b * h * sq * skv * 2 * dh, "bfloat16")
+        if key == "attention_full":
+            out[key] = row
+        else:
+            extra[key] = row
+    # nms: the detector's first image, its 256 score-sorted candidates; the
+    # serial pass computes one IoU row (~13 f32 ops an entry) per kept box
+    boxes, valid, thr = nms_inputs
+    n = boxes.shape[0]
+    keep = ops.nms_sorted(boxes, valid, thr)
+    kept = torch.nonzero(keep).flatten().tolist()
+    out["nms"] = entry(
+        f"boxes[{n},4] f32, {int(valid.sum())} valid, {len(kept)} kept "
+        "(detector-vit-s, 256 px, image 0)",
+        lambda: ops.nms_sorted(boxes, valid, thr),
+        lambda: ref.nms_sorted(boxes, valid, thr), None,
+        16 * n + 2 * n, 13 * sum(n - 1 - i for i in kept))
     for name, tm in extra.items():
         emit(phase="timing", kernel=name, **{k: v for k, v in tm.items()
                                              if k != "bound"},
@@ -499,32 +635,24 @@ def profile(torch, nn, ops, params, cfg, fused: bool, rng):
     """Measured split of one eager ``lm_forward`` (b1 s16) on the kernel
     path, beside its un-instrumented wall time; checks one forward's
     launches against the path's table on the way."""
-    from repro_torch.core import profile_measured
     from repro_torch.models import lm_forward
 
     ptoks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 16))).cuda()
-    walls = []
-    ops.reset_launches()
-    with nn.fuse(fused):
-        for _ in range(6):                      # the first warms cuBLAS
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lm_forward(params, ptoks, cfg)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        per = {k: v for k, v in ops.launches.items() if v}
-        want = {("attention_core" if k == "attn" else k): 6 * n
-                for k, n in per_forward_launches(cfg, fused).items()}
-        if per != want:
-            fail(f"profile: {cfg.name} fused={fused}: 6 forwards launched "
-                 f"{per}, expected {want}")
-        wall_ms = statistics.median(walls[1:]) * 1e3
-        name = f"{cfg.name} {'fused' if fused else 'unfused'} b-1 s-16 bf16"
-        prof = profile_measured(lm_forward, params, ptoks, cfg, name=name,
-                                repeats=3)
+    name = f"{cfg.name} {'fused' if fused else 'unfused'} b-1 s-16 bf16"
+    prof, wall_ms, per = measured(torch, nn, ops, lm_forward,
+                                  (params, ptoks, cfg), name, fused)
+    want = {("attention_core" if k == "attn" else k): n
+            for k, n in per_forward_launches(cfg, fused).items()}
+    if per != want:
+        fail(f"profile: {name}: launched {per} per forward, expected {want}")
+    emit_profile("profile", prof, wall_ms, per)
+
+
+def emit_profile(phase, prof, wall_ms, per_forward, **info):
+    """One JSON line of a measured profile beside its eager wall time."""
     split = prof.split
-    emit(phase="profile", model=prof.name, mode=prof.mode, n_ops=prof.n_ops,
-         launches_per_forward={k: v // 6 for k, v in per.items()},
+    emit(phase=phase, model=prof.name, mode=prof.mode, n_ops=prof.n_ops,
+         launches_per_forward=per_forward,
          device_ms=round(prof.total_seconds * 1e3, 4),
          eager_wall_ms=round(wall_ms, 4),
          device_busy_frac=round(prof.total_seconds * 1e3 / wall_ms, 4),
@@ -534,13 +662,264 @@ def profile(torch, nn, ops, params, cfg, fused: bool, rng):
          nongemm_frac=round(split["nongemm_frac"], 4),
          group_ms={g: round(t * 1e3, 4) for g, t in
                    sorted(prof.group_seconds.items(), key=lambda kv: -kv[1])},
+         group_frac={g: round(t / prof.total_seconds, 4) for g, t in
+                     sorted(prof.group_seconds.items(), key=lambda kv: -kv[1])},
          top_nongemm_groups=[[g, round(t * 1e3, 4), round(p, 2)]
                              for g, t, p in prof.top_nongemm_groups(5)],
          top_op_sites=[[f"{g}:{s}", round(t * 1e3, 4), round(p, 2)]
                        for (g, s), t, p in prof.top_op_sites(10)],
-         top_site_ops=_top_site_ops(prof, 15))
+         top_site_ops=_top_site_ops(prof, 15), **info)
     if prof.mode != "measured_cuda" or not split["gemm_s"] > 0:
-        fail("profile: no device time measured")
+        fail(f"{phase}: {prof.name}: no device time measured")
+
+
+def measured(torch, nn, ops, fn, args, name, fused, n_warm=6):
+    """(profile, median eager wall ms, launches per call) of ``fn(*args)``
+    on the kernel path: ``n_warm`` timed calls on the host clock (the first,
+    which warms cuBLAS, left out of the median), then the per-op profile."""
+    from repro_torch.core import profile_measured
+
+    walls = []
+    ops.reset_launches()
+    with nn.fuse(fused):
+        for _ in range(n_warm):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        per = {k: v // n_warm for k, v in ops.launches.items() if v}
+        prof = profile_measured(fn, *args, name=name, repeats=3)
+    return prof, statistics.median(walls[1:]) * 1e3, per
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _set_distance(a, b) -> float:
+    """Largest Hausdorff distance between the value sets of matching rows
+    of ``a`` and ``b`` (B, K): how far a value of one row lies from the
+    nearest value of the other."""
+    d = (a.float()[:, :, None] - b.float()[:, None, :]).abs()
+    return max(float(d.amin(2).amax()), float(d.amin(1).amax()))
+
+
+def encoder_launches(cfg, fused: bool, extra_full: int = 0) -> dict:
+    """Kernel launches of one encoder forward on the kernel path: the
+    LayerNorm blocks' norms, ``attention_full`` per layer (and once more
+    for the detector's refinement)."""
+    per = per_forward_launches(cfg, fused)
+    per["attention_full"] = per.pop("attn") + extra_full
+    return per
+
+
+def encode(torch, nn, ops, init_lm, lm_forward, arch, cases, launches,
+           paths_only: bool = False):
+    """Phase ``encode``: an encoder at full width and depth in bf16, unfused
+    and fused, through ``lm_forward`` at each (batch, seq) case; then (not
+    with ``paths_only``) the measured profile of the first case."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    params = init_lm(gen, cfg)
+    emit(phase="encode", step="init", config=cfg.name,
+         n_params=sum(t.numel() for t in _leaves(params)))
+
+    def inputs(b, s):
+        if cfg.input_mode == "tokens":
+            return torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                                 device="cuda")
+        return torch.randn((b, s, cfg.d_model), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    bad = []
+    for b, s in cases:
+        x = inputs(b, s)
+        out = {}
+        for backend, fused in (("cuda", False), ("torch", False),
+                               ("cuda", True), ("torch", True)):
+            ops.reset_launches()
+            with nn.backend(backend), nn.fuse(fused):
+                out[backend, fused] = lm_forward(params, x, cfg)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in ops.launches.items() if v}
+            want = encoder_launches(cfg, fused) if backend == "cuda" else {}
+            if got != want:
+                fail(f"encode: {arch} b{b} s{s} {backend} fused={fused} "
+                     f"launched {got}, expected {want}")
+            if backend == "cuda":
+                for k, n in got.items():
+                    launches[k] += n
+        for (got, vs), label in (((("cuda", False), ("torch", False)), "plain"),
+                                 ((("cuda", True), ("torch", True)), "plain"),
+                                 ((("cuda", True), ("cuda", False)), "unfused")):
+            diff = _max_diff(out[got], out[vs])
+            emit(phase="encode", model=arch, batch=b, seq=s, fused=got[1],
+                 against=f"{label} ({vs[0]} fused={vs[1]})",
+                 max_abs_diff=diff,
+                 max_abs_logit=float(out[vs].float().abs().max()),
+                 atol=ENCODE_ATOL, shape=list(out[got].shape),
+                 finite=bool(torch.isfinite(out[got].float()).all()))
+            if not (math.isfinite(diff) and diff <= ENCODE_ATOL):
+                bad.append(f"{arch} b{b} s{s} {got} vs {vs}: {diff}")
+    if bad:
+        fail("encode: outputs past their limit: " + "; ".join(bad))
+    if paths_only:
+        return
+    b, s = cases[0]
+    x = inputs(b, s)
+    for fused in (False, True):
+        name = f"{arch} {'fused' if fused else 'unfused'} b-{b} s-{s} bf16"
+        prof, wall, per = measured(torch, nn, ops, lm_forward,
+                                   (params, x, cfg), name, fused)
+        if per != encoder_launches(cfg, fused):
+            fail(f"encode: {name}: launched {per} per forward")
+        emit_profile("encode", prof, wall, per)
+
+
+def vision(torch, nn, ops, arch, launches, paths_only: bool = False):
+    """Phase ``vision``: the classifier or the detector at full width and
+    depth in bf16, unfused and fused, through ``vision_forward`` (with
+    ``paths_only``, only the comparisons of the paths). Returns the
+    detector kernel path's first image: its score-sorted top-K boxes, their
+    validity and the IoU threshold (phase 5 times the NMS kernel on them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models.vision import (init_vision, vision_backbone,
+                                           vision_forward)
+
+    cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    params = init_vision(gen, cfg)
+    size = cfg.image_size
+    emit(phase="vision", step="init", config=cfg.name,
+         n_params=sum(t.numel() for t in _leaves(params)), image_size=size)
+    imgs = torch.randn((VISION_BATCH, cfg.n_channels, size, size),
+                       generator=gen, device="cuda")
+    det = cfg.is_detector
+
+    def per_forward(fused, b):
+        per = encoder_launches(cfg, fused, extra_full=int(det))
+        if det:
+            per["nms"] = b
+        return per
+
+    bad, nms_inputs = [], None
+
+    def check(what, diff, atol, **info):
+        emit(phase="vision", model=arch, check=what, max_abs_diff=diff,
+             atol=atol, **info)
+        if not (math.isfinite(diff) and diff <= atol):
+            bad.append(f"{arch} {what}: {diff}")
+
+    for fused in (False, True):
+        # throughput: batch 1 and batch 8 on the host clock
+        rates = {}
+        for b in () if paths_only else (1, VISION_BATCH):
+            x = imgs[:b]
+            with nn.fuse(fused):
+                vision_forward(params, x, cfg)          # warm
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(VISION_FORWARDS):
+                    vision_forward(params, x, cfg)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in ops.launches.items() if v}
+            want = {k: n * VISION_FORWARDS for k, n in per_forward(fused, b).items()}
+            if got != want:
+                fail(f"vision: {arch} b{b} fused={fused} launched {got}, "
+                     f"expected {want}")
+            for k, n in got.items():
+                launches[k] += n
+            rates[b] = dict(images_per_s=b * VISION_FORWARDS / wall,
+                            ms_per_forward=wall / VISION_FORWARDS * 1e3)
+        if rates:
+            emit(phase="vision", model=arch, fused=fused, step="throughput",
+                 forwards=VISION_FORWARDS,
+                 **{f"b{b}": r for b, r in rates.items()})
+
+        # the kernel path against the plain path (and the unfused one)
+        x = imgs
+        with nn.fuse(fused):
+            kern = vision_forward(params, x, cfg)
+            with nn.backend("torch"):
+                plain = vision_forward(params, x, cfg)
+        with nn.fuse(False):
+            unfused = vision_forward(params, x, cfg)
+        if not det:
+            check("logits", _max_diff(kern, plain), ENCODE_ATOL, fused=fused,
+                  against="plain", shape=list(kern.shape),
+                  max_abs_logit=float(plain.float().abs().max()),
+                  finite=bool(torch.isfinite(kern.float()).all()))
+            if fused:
+                check("logits", _max_diff(kern, unfused), ENCODE_ATOL,
+                      fused=fused, against="unfused")
+            continue
+        with nn.fuse(fused):
+            hk = vision_backbone(params, x, cfg)[0]
+            with nn.backend("torch"):
+                hp = vision_backbone(params, x, cfg)[0]
+        check("backbone_features", _max_diff(hk, hp), ENCODE_ATOL,
+              fused=fused, against="plain", shape=list(hk.shape),
+              max_abs=float(hp.float().abs().max()))
+        (boxes, scores, keep), (_, pscores, pkeep) = kern, plain
+        # Near-tied bf16 scores may swap places between the paths, so the
+        # boxes are not compared row by row across them. Nor are the sorted
+        # scores place by place: two neighbouring cells whose scores tie in
+        # bf16 both pass the 3x3 peak test in one path and one of them not
+        # in the other, which shifts the sorted list by a place (a shift
+        # at the last nonzero score reads ~0.9). The scores are held as
+        # value sets, and NMS to the plain NMS on the kernel path's boxes.
+        check("top_scores", _set_distance(scores, pscores), SCORE_ATOL,
+              measure="value-set distance", fused=fused, against="plain",
+              shape=list(scores.shape),
+              sorted_max_abs_diff=_max_diff(scores, pscores),
+              nonzero=(scores > 0).sum(-1).tolist(),
+              plain_nonzero=(pscores > 0).sum(-1).tolist(),
+              kept=int(keep.sum()), plain_kept=int(pkeep.sum()),
+              finite=bool(torch.isfinite(boxes.float()).all()))
+        if fused:
+            check("top_scores", _set_distance(scores, unfused[1]),
+                  SCORE_ATOL, measure="value-set distance", fused=fused,
+                  against="unfused",
+                  sorted_max_abs_diff=_max_diff(scores, unfused[1]))
+        for i in range(x.shape[0]):
+            want = ref.nms(boxes[i].float(), scores[i], cfg.det_iou_threshold,
+                           cfg.det_score_threshold)
+            if not torch.equal(keep[i], want):
+                fail(f"vision: {arch} image {i}: the NMS kernel's keep mask "
+                     "differs from the plain NMS on the same boxes")
+        emit(phase="vision", model=arch, fused=fused, check="nms_keep",
+             images=x.shape[0], identical=True,
+             kept_per_image=keep.sum(-1).tolist())
+        if nms_inputs is None:
+            order = ref.nms_order(scores[0])
+            nms_inputs = (boxes[0].float()[order].contiguous(),
+                          scores[0][order] > cfg.det_score_threshold,
+                          cfg.det_iou_threshold)
+    if bad:
+        fail("vision: outputs past their limit: " + "; ".join(bad))
+
+    for fused in () if paths_only else (False, True):
+        name = f"{arch} {'fused' if fused else 'unfused'} b-1 {size}px bf16"
+        prof, wall, per = measured(torch, nn, ops, vision_forward,
+                                   (params, imgs[:1], cfg), name, fused)
+        if per != per_forward(fused, 1):
+            fail(f"vision: {name}: launched {per} per forward")
+        g = prof.group_seconds
+        pool_other = sorted({t.record.prim for t in prof.timed_ops
+                             if t.record.group.value == "other"})
+        emit_profile("vision", prof, wall, per, other_ops=pool_other)
+        if any("pool" in p for p in pool_other):
+            fail(f"vision: {name}: pooling classed OTHER: {pool_other}")
+        need = ("roi", "interpolation", "reduction") if det else ("reduction",)
+        if not all(g.get(k, 0) > 0 for k in need):
+            fail(f"vision: {name}: no device time in {need}: {g}")
+    return nms_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +945,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import graph
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.models import init_lm
+    from repro_torch.models import init_lm, lm_forward
     from repro_torch.serving import Engine
 
     t_start = time.perf_counter()
@@ -593,6 +972,7 @@ def main(argv=None) -> int:
 
     # -- phases 3 and 4, one model at a time -------------------------------
     launches = dict.fromkeys(SOURCES, 0)
+    nms_inputs = None
     decode_lengths = {}
     for arch in ARCHS:
         cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
@@ -622,14 +1002,27 @@ def main(argv=None) -> int:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- phase encode: bert-base and the vit-b16 stub -----------------------
+    for arch, cases in ENCODERS:
+        encode(torch, nn, ops, init_lm, lm_forward, arch, cases, launches,
+               args.paths_only)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- phase vision: vit-b16-cls and detector-vit-s -----------------------
+    for arch in VISION:
+        nms_inputs = vision(torch, nn, ops, arch, launches,
+                            args.paths_only) or nms_inputs
     if args.paths_only:
         return 0
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
-        fail(f"serve: kernels never launched on the main paths: {missing}")
+        fail(f"kernels never launched on the main paths: {missing}")
 
     # -- phase 5: timing ---------------------------------------------------
-    timing = time_kernels(torch, ops, ref, gen, decode_lengths, graph)
+    timing = time_kernels(torch, ops, ref, gen, decode_lengths, graph,
+                          nms_inputs)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -6,15 +6,22 @@
 # chip_smoke.py on the card (phase 2 stops at the first kernel that
 # disagrees with its plain version). The checkout is never modified.
 #
-#   bash scripts/port_mutation_check.sh      # from the repo root, on a GPU machine
+#   bash scripts/port_mutation_check.sh             # every mutation
+#   bash scripts/port_mutation_check.sh nms_ge ...  # the named ones
+#
+# from the repo root, on a GPU machine.
 #
 # Writes each run's output to build/mutants/<name>.txt and prints, per
 # mutation, the exit code and the failing check.
 set -u
+ONLY="$*"
 R=$(pwd)
 OUT=$R/build/mutants
 mkdir -p "$OUT"
 mut() {  # name, source file under csrc/, sed script
+  if [ -n "$ONLY" ] && ! [[ " $ONLY " == *" $1 "* ]]; then
+    return
+  fi
   local d=$OUT/$1 src=src/repro_torch/kernels/csrc/$2
   rm -rf "$d"; mkdir -p "$d"; cp -r "$R/chip_smoke.py" "$R/src" "$d/"
   sed -i "$3" "$d/$src"
@@ -33,3 +40,11 @@ mut rope_fast_sincos rope.cu \
 # rope dividing by half instead of multiplying by its reciprocal
 mut rope_true_division rope.cu \
   's/__fmul_rn(-static_cast<float>(i), inv_half)/__fdiv_rn(-static_cast<float>(i), static_cast<float>(half))/'
+# the full fragment without the mask of the ragged last KV tile
+mut full_no_tail_mask attention.cu \
+  's/bool visible = kpos < Skv;  \/\/ the ragged last KV tile/bool visible = true;/'
+# NMS suppressing at an IoU equal to the threshold
+mut nms_ge nms.cu 's/if (iou > thr) keep_s\[j\] = 0;/if (iou >= thr) keep_s[j] = 0;/'
+# NMS with plain operators, which nvcc contracts into FMAs
+mut nms_fma nms.cu \
+  's/return __fmul_rn(a, b);/return a * b;/; s/return __fadd_rn(a, b);/return a + b;/; s/return __fsub_rn(a, b);/return a - b;/; s/return __fdiv_rn(a, b);/return a \/ b;/'

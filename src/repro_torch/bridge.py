@@ -7,9 +7,12 @@ kept by ``reduced``): ``params["scan"][j]`` leaves are ``(n_rep, ...)``,
 and layer ``r * len(pattern) + j`` is slice ``r`` of position ``j``. The
 port's params hold one dict per layer (``params["layers"]``) in that
 order; ``init_lm_cache``'s stacked caches unstack the same way. Every
-other top-level entry (``embed``, the learned position table ``pos``,
-``final_norm``, ``head``) is carried as it is, and an entry this module
-does not know raises instead of being dropped. The caller turns the JAX
+other top-level entry (``embed``, absent where the config takes
+embeddings; the learned position table ``pos``, ``final_norm``, ``head``)
+is carried as it is, and an entry this module does not know raises
+instead of being dropped. ``repro.models.vision.init_vision``'s tree keeps
+its blocks in a plain list and crosses as it is
+(:func:`vision_params_from_jax`). The caller turns the JAX
 leaves into numpy (``jax.tree_util.tree_map(np.asarray, t)``), so this
 module imports nothing of JAX.
 """
@@ -79,6 +82,27 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     out["layers"] = [_map(lambda a: _tensor(a, device), layer)
                      for layer in _unstack(tree["scan"], cfg)]
     return out
+
+
+#: top-level entries of ``init_vision``'s tree: the classifier's head, or
+#: the detector's neck prior, heads and refinement cross-attention
+_VISION = ("patch", "pos2d", "blocks", "final_norm", "head", "neck_prior",
+           "box_head", "cls_head", "xattn")
+
+
+def vision_params_from_jax(tree: dict, cfg: ModelConfig,
+                           device="cuda") -> dict:
+    """The port's params from ``repro.models.vision.init_vision``'s tree
+    (numpy): every entry carried as it is, ``blocks`` a list of per-layer
+    dicts in both."""
+    unknown = sorted(set(tree) - set(_VISION))
+    if unknown:
+        raise ValueError(f"{cfg.name}: vision params entries the bridge does "
+                         f"not know: {unknown}")
+    if len(tree["blocks"]) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(tree['blocks'])} blocks for "
+                         f"{cfg.n_layers} layers")
+    return {k: _map(lambda a: _tensor(a, device), v) for k, v in tree.items()}
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:

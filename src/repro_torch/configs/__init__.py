@@ -3,6 +3,12 @@
 ``get_config(name)`` returns the full published config (a copy of the JAX
 zoo's entry; a test pins them equal); ``reduced(cfg)`` returns the same
 tiny same-family config ``repro.configs.reduced`` does, for CPU tests.
+
+The paper's four models (``repro/configs/paper_zoo.py``: gpt2-xl,
+llama2-7b, bert-base and the ``vit-b16`` embeddings stub) run through the
+LM stack; the vision family (``vit-b16-cls``, ``repro/configs/vit_b16.py``,
+and ``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
+``repro_torch.models.vision``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,100 @@ _CONFIGS: Dict[str, ModelConfig] = {
         causal=True,
         tie_embeddings=False,
     ),
+    "bert-base": ModelConfig(
+        name="bert-base",
+        family="dense",
+        n_layers=12,
+        d_model=768,
+        n_heads=12,
+        n_kv_heads=12,
+        d_ff=3072,
+        vocab_size=30522,
+        block_pattern=("attn",),
+        pos_emb="learned",
+        max_position=512,
+        norm="layernorm",
+        ffn="gelu",
+        ffn_bias=True,
+        qkv_bias=True,
+        causal=False,               # encoder-only: no decode shapes
+        tie_embeddings=True,
+    ),
+    # the embeddings stub: the LM stack on precomputed patch embeddings
+    "vit-b16": ModelConfig(
+        name="vit-b16",
+        family="dense",
+        n_layers=12,
+        d_model=768,
+        n_heads=12,
+        n_kv_heads=12,
+        d_ff=3072,
+        vocab_size=1000,            # classifier head over ImageNet classes
+        block_pattern=("attn",),
+        pos_emb="learned",
+        max_position=1024,
+        norm="layernorm",
+        ffn="gelu",
+        ffn_bias=True,
+        qkv_bias=True,
+        causal=False,               # encoder-only
+        tie_embeddings=False,
+        input_mode="embeddings",    # patch-embedding frontend is the stub
+    ),
+    # ViT-B/16 classifier: conv patchify, 2D positions, pooled head
+    "vit-b16-cls": ModelConfig(
+        name="vit-b16-cls",
+        family="vision",
+        n_layers=12,
+        d_model=768,
+        n_heads=12,
+        n_kv_heads=12,
+        d_ff=3072,
+        vocab_size=1000,            # unused by the vision path (head=n_classes)
+        block_pattern=("attn",),
+        pos_emb="none",             # 2D learned grid lives in the vision params
+        norm="layernorm",
+        ffn="gelu",
+        ffn_bias=True,
+        qkv_bias=True,
+        causal=False,               # encoder-only
+        tie_embeddings=False,
+        input_mode="embeddings",
+        image_size=224,
+        patch_size=16,
+        n_channels=3,
+        n_classes=1000,
+        pool="avg",
+    ),
+    # ViT-S single-stage detector: 16x16 grid upsampled to 32x32 candidate
+    # cells, peak pooling, top-256 score sort, greedy NMS
+    "detector-vit-s": ModelConfig(
+        name="detector-vit-s",
+        family="vision",
+        n_layers=12,
+        d_model=384,
+        n_heads=6,
+        n_kv_heads=6,
+        d_ff=1536,
+        vocab_size=91,              # unused by the vision path (head=n_classes)
+        block_pattern=("attn",),
+        pos_emb="none",
+        norm="layernorm",
+        ffn="gelu",
+        ffn_bias=True,
+        qkv_bias=True,
+        causal=False,
+        tie_embeddings=False,
+        input_mode="embeddings",
+        image_size=256,
+        patch_size=16,
+        n_channels=3,
+        n_classes=91,               # COCO categories
+        det_top_k=256,
+        det_upsample=2,
+        det_iou_threshold=0.5,
+        det_score_threshold=0.05,
+    ),
 }
 
 ARCH_IDS = sorted(_CONFIGS)
@@ -89,6 +189,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
     )
     kw["window_size"] = min(cfg.window_size, 64)
+    if cfg.is_vision:
+        # a 4x4 patch grid (16 tokens) keeps the CPU forward tiny while
+        # still running interpolate / pool / top-k / NMS end to end
+        kw.update(image_size=min(cfg.image_size, 4 * cfg.patch_size),
+                  n_classes=min(cfg.n_classes, 16),
+                  det_top_k=min(cfg.det_top_k, 32))
     kw["name"] = cfg.name + "-smoke"
     return cfg.replace(**kw)
 

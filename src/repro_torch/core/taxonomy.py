@@ -124,7 +124,10 @@ _reg(
     OpGroup.REDUCTION,
     "sum", "mean", "amax", "amin", "max", "min", "prod", "any", "all",
     "argmax", "argmin", "cumsum", "cumprod", "topk", "sort", "var", "std",
+    # the vision heads' pooling
+    "max_pool2d", "max_pool2d_with_indices", "avg_pool2d",
 )
+_reg(OpGroup.INTERPOLATION, "upsample_bilinear2d")
 _reg(OpGroup.OTHER, "_local_scalar_dense", "item")
 
 #: namespace of this package's hand-written kernels (torch.library ops)

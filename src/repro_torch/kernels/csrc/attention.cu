@@ -1,9 +1,14 @@
-// Causal flash attention with an online softmax (prefill / forward).
+// Flash attention with an online softmax (prefill / forward), causal and
+// full masks.
 //
 // Replaces the TPU kernel `_template_kernel` (shared body
 // `_online_softmax_step`) reached through `attention_core` in
-// src/repro/kernels/attn_template.py (pallas_call at :275), causal
-// fragment only; the window and full fragments are not ported yet.
+// src/repro/kernels/attn_template.py (pallas_call at :275): its causal
+// fragment (the decoder LMs' prefill) and its full fragment (spec "full":
+// the encoders' self-attention, and the detector's query refinement
+// through `kops.attn_full_template`, where Sq != Skv). One kernel body,
+// instantiated twice over the compile-time mask parameter CAUSAL; the
+// window fragment is not ported yet.
 //
 // q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv) -> o (B,Sq,Hq,Dv),
 // read and written in the JAX layout, so the wrapper transposes nothing.
@@ -15,8 +20,11 @@
 // loads bound it. What the design does:
 //   * one CTA of 256 threads per (b*Hq, 64-row q tile); the TPU grid's
 //     sequential KV axis becomes a loop inside the CTA, over 64-key tiles
-//     staged in shared memory, that stops at the causal limit of the
-//     tile, so the masked upper triangle is never loaded;
+//     staged in shared memory. Causal, the loop stops at the causal limit
+//     of the tile, so the masked upper triangle is never loaded; full, it
+//     runs to Skv and masks only the ragged last tile (Skv 196 and 197 are
+//     not multiples of 64). q_offset has no effect on the full mask, as in
+//     the JAX template;
 //   * tiles are staged with 16-byte loads all in flight together
 //     (common.cuh stage_rows), where the head dims allow it;
 //   * register tiling: thread t owns 4 query rows (t/16) and every 16th
@@ -62,9 +70,9 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-    attn_causal_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
                        float scale) {
@@ -96,8 +104,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kOCols; ++j) acc[i][j] = 0.f;
   }
 
-  const int q_last = min(q0 + kBQ, Sq) - 1;            // last real row
-  const int kv_end = min(Skv, q_offset + q_last + 1);  // causal limit
+  const int q_last = min(q0 + kBQ, Sq) - 1;  // last real row
+  const int kv_end = CAUSAL ? min(Skv, q_offset + q_last + 1)  // causal limit
+                            : Skv;
   const int64_t kv_stride_k = static_cast<int64_t>(Hkv) * Dk;
   const int64_t kv_stride_v = static_cast<int64_t>(Hkv) * Dv;
 
@@ -136,7 +145,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kSCols; ++j) {
         const int kpos = k0 + cg + kGroup * j;
-        s[i][j] = (kpos < Skv && qpos >= kpos) ? s[i][j] * scale : repro::kNegInf;
+        bool visible = kpos < Skv;  // the ragged last KV tile
+        if constexpr (CAUSAL) visible = visible && qpos >= kpos;
+        s[i][j] = visible ? s[i][j] * scale : repro::kNegInf;
         mt = fmaxf(mt, s[i][j]);
       }
       const float m_new = fmaxf(m_i[i], group_max(mt));
@@ -189,43 +200,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool CAUSAL>
 int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
                 int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_causal_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_kernel<T, VEC, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + kBQ - 1) / kBQ);
-  attn_causal_kernel<T, VEC><<<grid, kThreads, smem, stream>>>(
+  attn_kernel<T, VEC, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, Dk, Dv,
       q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
            float scale, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = Dk % V == 0 && Dv % V == 0 && repro::aligned16(q) &&
                    repro::aligned16(k) && repro::aligned16(v);
-  return vec ? launch_impl<T, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                                    q_offset, scale, stream)
-             : launch_impl<T, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                                     q_offset, scale, stream);
+  return vec ? launch_impl<T, true, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
+                                            Dk, Dv, q_offset, scale, stream)
+             : launch_impl<T, false, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
+                                             Dk, Dv, q_offset, scale, stream);
 }
 
-}  // namespace
-
-extern "C" int repro_attention_causal(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int Hq, int Hkv, int Dk, int Dv,
-                                      int q_offset, float scale, int dtype,
-                                      int device, void* stream) {
+template <bool CAUSAL>
+int entry(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+          int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, float scale,
+          int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
@@ -234,10 +242,32 @@ extern "C" int repro_attention_causal(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
-                         scale, s);
-  if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+    return launch<float, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
                                  q_offset, scale, s);
+  if (dtype == repro::kBF16)
+    return launch<__nv_bfloat16, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,
+                                         Dv, q_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// causal: query row i sits at q_offset + i and sees keys up to it
+extern "C" int repro_attention_causal(const void* q, const void* k,
+                                      const void* v, void* o, int B, int Sq,
+                                      int Skv, int Hq, int Hkv, int Dk, int Dv,
+                                      int q_offset, float scale, int dtype,
+                                      int device, void* stream) {
+  return entry<true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, scale,
+                     dtype, device, stream);
+}
+
+// full: every key is visible (KV padding only); Sq != Skv allowed
+extern "C" int repro_attention_full(const void* q, const void* k,
+                                    const void* v, void* o, int B, int Sq,
+                                    int Skv, int Hq, int Hkv, int Dk, int Dv,
+                                    float scale, int dtype, int device,
+                                    void* stream) {
+  return entry<false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, scale, dtype,
+                      device, stream);
 }

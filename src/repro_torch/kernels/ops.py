@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import attn_template as _attn
+from . import nms as _nms
 from . import norms as _norms
 from . import ref
 from . import rope as _rope
@@ -31,7 +32,7 @@ from . import swiglu as _glu
 
 KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
            "fused_add_layer_norm", "rope", "swiglu", "attention_core",
-           "decode_core")
+           "decode_core", "attention_full", "nms")
 
 #: launches of each kernel since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -215,7 +216,7 @@ def _(gate, up):
 
 
 # ---------------------------------------------------------------------------
-# attention (causal) and decode
+# attention (causal and full) and decode
 # ---------------------------------------------------------------------------
 
 def _check_qkv(name: str, q, k, v) -> None:
@@ -261,6 +262,28 @@ def _(q, k, v, q_offset=0, scale=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 
+@torch.library.custom_op("repro_torch::attention_full", mutates_args=())
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Full-mask GQA attention (every key visible): q (B,Sq,Hq,Dk),
+    k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); Sq != Skv allowed
+    (cross-attention)."""
+    on_card = _on_card("attention_full", q, k, v)
+    _check_dtype("attention_full", q, k, v)
+    _check_qkv("attention_full", q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if not on_card:
+        return ref.attention(q, k, v, scale=scale, causal=False)
+    _check_kernel_dims("attention_full", q, v)
+    launches["attention_full"] += 1
+    return _attn.attention_full(q, k, v, scale)
+
+
+@attention_full.register_fake
+def _(q, k, v, scale=None):
+    return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
 @torch.library.custom_op("repro_torch::decode_core", mutates_args=())
 def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lengths: torch.Tensor,
@@ -291,3 +314,48 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @decode_core.register_fake
 def _(q, k, v, lengths, scale=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# nms
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::nms_sorted", mutates_args=())
+def nms_sorted(boxes: torch.Tensor, valid: torch.Tensor,
+               iou_threshold: float = 0.5) -> torch.Tensor:
+    """Greedy NMS over score-descending f32 xyxy boxes (N, 4) with a bool
+    (N,) ``valid`` mask -> bool keep mask (N,)."""
+    on_card = _on_card("nms", boxes, valid)
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"nms: boxes must be float32 and valid bool, got "
+                        f"{boxes.dtype} and {valid.dtype}")
+    n = boxes.shape[0]
+    if boxes.shape != (n, 4) or valid.shape != (n,):
+        raise ValueError(f"nms: boxes {tuple(boxes.shape)} and valid "
+                         f"{tuple(valid.shape)}, expected (N, 4) and (N,)")
+    if not on_card:
+        return ref.nms_sorted(boxes, valid, iou_threshold)
+    if n > _nms.MAX_BOXES:
+        raise ValueError(f"nms: {n} boxes above the kernel's {_nms.MAX_BOXES}")
+    launches["nms"] += 1
+    return _nms.nms_sorted(boxes, valid, iou_threshold)
+
+
+@nms_sorted.register_fake
+def _(boxes, valid, iou_threshold=0.5):
+    return torch.empty_like(valid)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+        score_threshold: float = 0.0) -> torch.Tensor:
+    """torchvision-semantics NMS, (N, 4) xyxy boxes and (N,) scores -> keep
+    (N,) bool in the input order, as ``repro.kernels.nms.nms``: a stable
+    descending sort of the scores, :func:`nms_sorted` over the sorted f32
+    boxes with ``valid = score > score_threshold``, and the keep mask
+    scattered back."""
+    order = ref.nms_order(scores)
+    keep_sorted = nms_sorted(boxes[order].float().contiguous(),
+                             scores[order] > score_threshold, iou_threshold)
+    # out of place, as JAX's ``.at[order].set``: the scatter is then no
+    # in-place op, which a timed run could time only once
+    return torch.zeros_like(keep_sorted).scatter(0, order, keep_sorted)

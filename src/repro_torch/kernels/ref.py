@@ -78,14 +78,16 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return (gf * torch.sigmoid(gf) * up.float()).to(gate.dtype)
 
 
-def attention(q, k, v, q_offset: int = 0,
-              scale: Optional[float] = None) -> torch.Tensor:
-    """Naive full-matrix causal GQA attention (the causal fragment of
+def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Naive full-matrix GQA attention (the causal and full fragments of
     ``repro.kernels.ref.attention``).
 
-    q: (B,Sq,Hq,Dk); k: (B,Skv,Hkv,Dk); v: (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv);
-    query row i sits at position ``q_offset + i``. A query row with no
-    visible key yields exact zeros.
+    q: (B,Sq,Hq,Dk); k: (B,Skv,Hkv,Dk); v: (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv).
+    ``causal``: query row i sits at position ``q_offset + i`` and sees keys
+    up to it. ``causal=False`` is the full mask (encoders, cross-attention
+    with ``Sq != Skv``): every key is visible and ``q_offset`` has no
+    effect. A query row with no visible key yields exact zeros.
     """
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -94,10 +96,12 @@ def attention(q, k, v, q_offset: int = 0,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = q.reshape(b, sq, hkv, g, d).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) * scale
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    kpos = torch.arange(skv, device=q.device)
-    mask = (qpos[:, None] >= kpos[None, :])[None]
-    mb = mask[:, None, None]                       # (1,1,1,Sq,Skv)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        kpos = torch.arange(skv, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+    mb = mask[None, None, None]                    # (1,1,1,Sq,Skv)
     s = torch.where(mb, s, NEG_INF)
     p = torch.where(mb.any(dim=-1, keepdim=True), torch.softmax(s, dim=-1),
                     0.0)
@@ -128,3 +132,83 @@ def decode_attention(q, k, v, lengths: torch.Tensor,
     p = torch.where(valid.any(dim=-1)[:, None, None, None], p, 0.0)
     o = torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(b, 1, hq, dv)
+
+
+def interpolate_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear NCHW resize, align_corners=False: the naive four-corner
+    form (each corner gathered on its own), f32 math, ``x.dtype`` out.
+    The oracle of ``nn.interpolate_bilinear``'s hoisted-gather version."""
+    _, _, h, w = x.shape
+    oh, ow = out_hw
+    y0, y1, x0, x1, wy, wx = bilinear_taps(h, w, oh, ow, x.device)
+    xf = x.float()
+    top = xf[:, :, y0][:, :, :, x0] * (1 - wx) + xf[:, :, y0][:, :, :, x1] * wx
+    bot = xf[:, :, y1][:, :, :, x0] * (1 - wx) + xf[:, :, y1][:, :, :, x1] * wx
+    return (top * (1 - wy) + bot * wy).to(x.dtype)
+
+
+def bilinear_taps(h: int, w: int, oh: int, ow: int, device):
+    """Corner indices and weights of an align_corners=False resize from
+    (h, w) to (oh, ow), in f32 as the JAX ops compute them:
+    ``(y0, y1, x0, x1, wy (OH, 1), wx (OW,))``."""
+    ys = (torch.arange(oh, dtype=torch.float32, device=device) + 0.5) \
+        * (h / oh) - 0.5
+    xs = (torch.arange(ow, dtype=torch.float32, device=device) + 0.5) \
+        * (w / ow) - 0.5
+    y0 = torch.clamp(torch.floor(ys), 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs), 0, w - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    wy = torch.clamp(ys - y0, 0.0, 1.0)[:, None]
+    wx = torch.clamp(xs - x0, 0.0, 1.0)
+    y0, y1, x0, x1 = (a.long() for a in (y0, y1, x0, x1))
+    return y0, y1, x0, x1, wy, wx
+
+
+def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
+    """(N, N) IoU of xyxy boxes in f32, each product and sum rounded on its
+    own; 0 where the union is not positive."""
+    b = boxes.float()
+    x1, y1, x2, y2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
+    area = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    ix1 = torch.maximum(x1[:, None], x1[None, :])
+    iy1 = torch.maximum(y1[:, None], y1[None, :])
+    ix2 = torch.minimum(x2[:, None], x2[None, :])
+    iy2 = torch.minimum(y2[:, None], y2[None, :])
+    inter = torch.clamp(ix2 - ix1, min=0) * torch.clamp(iy2 - iy1, min=0)
+    union = area[:, None] + area[None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
+def nms_sorted(boxes_sorted: torch.Tensor, valid: torch.Tensor,
+               iou_threshold: float = 0.5) -> torch.Tensor:
+    """Greedy NMS over score-descending xyxy boxes (N, 4) with a (N,) bool
+    ``valid`` mask -> keep mask (N,) bool: box i, while kept and valid,
+    suppresses every later box whose IoU with it is above the threshold."""
+    n = boxes_sorted.shape[0]
+    iou = iou_matrix(boxes_sorted)
+    idx = torch.arange(n, device=boxes_sorted.device)
+    keep = valid.clone()
+    for i in range(n):
+        alive = keep[i] & valid[i]
+        keep &= ~((iou[i] > iou_threshold) & (idx > i) & alive)
+    return keep
+
+
+def nms_order(scores: torch.Tensor) -> torch.Tensor:
+    """Indices of ``scores`` in descending order, ties in index order.
+
+    A stable sort, as ``jnp.argsort(-scores)``; ``torch.topk`` and an
+    unstable sort promise no order among equal scores, and the detector's
+    peak mask makes ties (zeroed cells) certain."""
+    return torch.sort(scores, descending=True, stable=True).indices
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+        score_threshold: float = 0.0) -> torch.Tensor:
+    """Greedy NMS keep mask (N,), torchvision semantics, boxes (N, 4) xyxy."""
+    order = nms_order(scores)
+    keep_sorted = nms_sorted(boxes[order], scores[order] > score_threshold,
+                             iou_threshold)
+    # out of place, as JAX's ``.at[order].set``
+    return torch.zeros_like(keep_sorted).scatter(0, order, keep_sorted)

@@ -4,7 +4,8 @@ The port of the full-cache path of ``repro.models.attention``:
 ``init_attention``, ``_qkv``, ``attn_forward``, ``attn_prefill`` and
 ``attn_decode``. Prefill and forward attention run under the
 ``ng:gemm:flash_attention`` tag on both backends, as the JAX jnp twin is
-tagged. Unfused decode on the kernel path is one untagged launch (classed
+tagged: the causal mask for the decoders, the full mask for the encoders
+(``cfg.causal`` False) and the detector's cross-attention. Unfused decode on the kernel path is one untagged launch (classed
 ``fused``); on the plain path it is the tagged qk / mask / softmax / pv
 chain of the JAX reference, op for op. Under ``nn.fuse()`` decode is the
 one ``ng:fused:fused_attn_decode`` operator on both backends.
@@ -72,19 +73,23 @@ def _qkv(params, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _attention_impl(q, k, v, q_offset: int = 0):
-    """Causal attention: the attention_core kernel or its plain version."""
+def _attention_impl(q, k, v, q_offset: int = 0, causal: bool = True):
+    """Causal attention (the attention_core kernel) or full-mask attention
+    (the attention_full kernel), or their plain version."""
     with nn.scope(OpGroup.GEMM, "flash_attention"):
         if nn.use_kernels(q):
             from repro_torch.kernels import ops as kops
-            return kops.attention_core(q, k, v, q_offset=q_offset)
-        return ref.attention(q, k, v, q_offset=q_offset)
+            if causal:
+                return kops.attention_core(q, k, v, q_offset=q_offset)
+            return kops.attention_full(q, k, v)
+        return ref.attention(q, k, v, q_offset=q_offset, causal=causal)
 
 
 def attn_forward(params, x, cfg: ModelConfig, positions):
-    """Full-sequence causal attention. x: (B, S, D)."""
+    """Full-sequence attention, causal or full as ``cfg.causal``.
+    x: (B, S, D)."""
     q, k, v = _qkv(params, x, cfg, positions)
-    out = _attention_impl(q, k, v)
+    out = _attention_impl(q, k, v, causal=cfg.causal)
     return nn.linear(nn.merge_heads(out), params["wo"].to(x.dtype))
 
 

@@ -120,6 +120,19 @@ class ModelConfig:
     def n_rep(self) -> int:
         return self.n_layers // len(self.block_pattern)
 
+    @property
+    def is_vision(self) -> bool:
+        return self.image_size > 0
+
+    @property
+    def is_detector(self) -> bool:
+        return self.is_vision and self.det_top_k > 0
+
+    @property
+    def patch_grid(self) -> int:
+        """Patches per side (the encoder sees ``patch_grid ** 2`` tokens)."""
+        return self.image_size // self.patch_size
+
     def layer_kinds(self) -> Tuple[str, ...]:
         return (self.block_pattern * ((self.n_layers // len(self.block_pattern)) + 1)
                 )[: self.n_layers]

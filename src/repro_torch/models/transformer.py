@@ -1,15 +1,21 @@
 """LM assembly: the dense decoder stack, forward / prefill / decode.
 
 The port of ``repro.models.transformer`` for the configs the port runs:
-pre-norm blocks (RMSNorm or LayerNorm) of causal MHA/GQA attention and a
-dense FFN, with RoPE (Llama-2) or learned positions (GPT-2). Layers are a
+pre-norm blocks (RMSNorm or LayerNorm) of MHA/GQA attention and a dense
+FFN, with RoPE (Llama-2), learned positions (GPT-2, BERT, the ViT stub)
+or none (the vision backbone). Decoders attend causally; encoders
+(``cfg.causal`` False: bert-base, the ``vit-b16`` stub) with the full
+mask, through ``lm_forward`` only: the JAX package serves no encoder, so
+``lm_prefill``, ``lm_decode``, ``init_lm_cache`` and the engine reject
+them. Inputs are token ids, or precomputed embeddings where
+``cfg.input_mode == "embeddings"`` (the stub's frontend). Layers are a
 Python list: PyTorch runs eagerly, so the JAX package's ``lax.scan`` over
 stacked layers has no counterpart.
 
 Public API (functions over a params dict of tensors):
 
     init_lm(generator, cfg)                 -> params
-    lm_forward(params, tokens, cfg)         -> logits (B, S, V)
+    lm_forward(params, inputs, cfg)         -> logits (B, S, V)
     init_lm_cache(cfg, batch, max_len)      -> caches
     lm_prefill(params, tokens, cfg, max_len, lengths=None)
                                             -> (last_logits (B, V), caches)
@@ -33,24 +39,32 @@ from repro_torch.models import moe as M
 from repro_torch.models.common import ModelConfig, dense_init
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config that uses a part of the JAX zoo not ported yet."""
+def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
+    """Raise for a config that uses a part of the JAX zoo not ported yet;
+    with ``serving`` (prefill, decode, caches, the engine) also for an
+    encoder, which the JAX package does not serve either."""
     unported = {
         "block kinds other than 'attn'": set(cfg.layer_kinds()) != {"attn"},
-        "non-causal attention": not cfg.causal,
         f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
         f"ffn {cfg.ffn!r}": cfg.ffn not in M.FFN_KINDS,
-        f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned"),
+        f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned",
+                                                        "none"),
         "MoE": cfg.n_experts > 0,
         "MLA": cfg.mla,
         "qk_norm": cfg.qk_norm,
         "post_norm / scale_embeddings": cfg.post_norm or cfg.scale_embeddings,
         "softcaps": bool(cfg.attn_logit_softcap or cfg.final_logit_softcap),
-        "input_mode != 'tokens'": cfg.input_mode != "tokens",
+        f"input_mode {cfg.input_mode!r}": cfg.input_mode not in ("tokens",
+                                                                 "embeddings"),
     }
     missing = [what for what, hit in unported.items() if hit]
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {missing}")
+    if serving and not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder (non-causal attention) has no prefill, "
+            "decode or cache; the JAX package serves no encoder either: "
+            "use lm_forward")
 
 
 def _init_norm(cfg: ModelConfig, device):
@@ -90,14 +104,16 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params on ``generator``'s device, drawn from it in order."""
     check_supported(cfg)
     pd = cfg.torch_param_dtype
-    params = {"embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
-                                  in_axis=1, dtype=pd)}
+    params = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                                     in_axis=1, dtype=pd)
     if cfg.pos_emb == "learned":
         params["pos"] = dense_init(generator, (cfg.max_position, cfg.d_model),
                                    in_axis=1, dtype=pd)
     params["layers"] = [init_block(generator, cfg) for _ in range(cfg.n_layers)]
     params["final_norm"] = _init_norm(cfg, generator.device)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.input_mode != "tokens":
         params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                                     dtype=pd)
     return params
@@ -127,10 +143,15 @@ def block_decode(params, x, cfg: ModelConfig, cache, pos):
     return nn.residual_add(x, f), cache
 
 
-def embed_inputs(params, tokens, cfg: ModelConfig, positions):
-    """Tokens (B, S) int -> (B, S, D) in the activation dtype, plus the
-    learned position rows where the config has them."""
-    x = nn.embedding_lookup(params["embed"], tokens).to(cfg.activation_dtype)
+def embed_inputs(params, inputs, cfg: ModelConfig, positions):
+    """Tokens (B, S) int -> (B, S, D), or precomputed embeddings (B, S, D)
+    passed through, in the activation dtype; plus the learned position
+    rows where the config has them."""
+    if cfg.input_mode == "tokens":
+        x = nn.embedding_lookup(params["embed"], inputs)
+        x = x.to(cfg.activation_dtype)
+    else:      # precomputed modality-frontend embeddings (the ViT stub)
+        x = inputs.to(cfg.activation_dtype)
     if cfg.pos_emb == "learned":
         with nn.scope(OpGroup.MEMORY, "pos_learned"):
             x = x + F.embedding(positions, params["pos"]).to(x.dtype)
@@ -149,11 +170,12 @@ def _default_positions(tokens):
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
 
 
-def lm_forward(params, tokens, cfg: ModelConfig, positions=None):
-    """Full-sequence logits (B, S, V)."""
+def lm_forward(params, inputs, cfg: ModelConfig, positions=None):
+    """Full-sequence logits (B, S, V) of token ids (B, S) or, for
+    ``input_mode == "embeddings"``, of embeddings (B, S, D)."""
     check_supported(cfg)
-    positions = _default_positions(tokens) if positions is None else positions
-    x = embed_inputs(params, tokens, cfg, positions)
+    positions = _default_positions(inputs) if positions is None else positions
+    x = embed_inputs(params, inputs, cfg, positions)
     for p in params["layers"]:
         x = block_forward(p, x, cfg, positions)
     h = _apply_norm(params["final_norm"], x, cfg)
@@ -163,7 +185,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, positions=None):
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device="cuda") -> List[dict]:
     """One ``{"k", "v"}`` cache of (batch, max_len, Hkv, Dh) per layer."""
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     return [A.init_attn_cache(cfg, batch, max_len, device=device)
             for _ in range(cfg.n_layers)]
 
@@ -176,7 +198,7 @@ def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,
     The logits are read at position ``lengths - 1`` instead of the pad
     tail; with a causal mask no real token attends a pad.
     """
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     positions = _default_positions(tokens) if positions is None else positions
     x = embed_inputs(params, tokens, cfg, positions)
     caches = []
@@ -196,7 +218,7 @@ def lm_decode(params, token, pos, caches: List[dict], cfg: ModelConfig):
     """One decode step. token: (B,) int; pos: scalar or (B,) absolute
     positions. Returns (logits (B, V), caches), the caches updated in
     place."""
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     b = token.shape[0]
     pos = A.pos_vector(pos, b, token.device)
     x = embed_inputs(params, token[:, None], cfg, pos[:, None])

@@ -1,4 +1,5 @@
-"""repro_torch.nn — scope-tagged operator library (the dense-LM slice).
+"""repro_torch.nn — scope-tagged operator library (dense LMs, encoders,
+vision).
 
 Every semantic operator runs under a tag ``ng:<group>:<name>`` pushed on a
 tag stack, with an inner per-invocation ``c<N>`` marker, as
@@ -7,7 +8,8 @@ timed profile (``repro_torch.core.graph``) read the stack to attribute each
 aten op to the paper's operator groups.
 
 A backend switch selects the implementation of the kernel-backed ops
-(the norms, ``swiglu``, the fused ops, prefill and decode attention):
+(the norms, ``swiglu``, the fused ops, prefill and decode attention,
+``nms``):
 
     None    (default) the hand-written kernels for CUDA tensors, the plain
             PyTorch code for CPU tensors
@@ -32,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import itertools
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -202,6 +204,12 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
+@tagged(OpGroup.ACTIVATION, "sigmoid")
+def sigmoid(x):
+    """Plain sigmoid in f32 (detection class scores)."""
+    return torch.sigmoid(x.float()).to(x.dtype)
+
+
 @tagged(OpGroup.ACTIVATION, "swiglu")
 def swiglu(gate, up):
     """SiLU(gate) * up — fused Activation + Elem-wise mul."""
@@ -314,6 +322,22 @@ def scale(x, factor):
     return x * factor
 
 
+@tagged(OpGroup.ELEMENTWISE, "box_decode")
+def box_decode(raw, anchors):
+    """Anchor-relative box decode: raw (..., 4) offsets -> xyxy (..., 4).
+
+    ``anchors`` are (..., 4) as (cx, cy, w, h): shift the centers, exp the
+    clipped log-sizes, convert to corners, in f32."""
+    rf = raw.float()
+    af = anchors.float()
+    cx = af[..., 0] + rf[..., 0] * af[..., 2]
+    cy = af[..., 1] + rf[..., 1] * af[..., 3]
+    w = af[..., 2] * torch.exp(torch.clamp(rf[..., 2], -4.0, 4.0))
+    h = af[..., 3] * torch.exp(torch.clamp(rf[..., 3], -4.0, 4.0))
+    out = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+    return out.to(raw.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Fused operators (paper §6). Each is ONE operator under one ng:fused: tag
 # and, on the kernel backend, one kernel launch. The plain backend calls
@@ -404,3 +428,101 @@ def linear(x, w, b=None):
 @tagged(OpGroup.GEMM, "einsum")
 def einsum(spec: str, *operands):
     return torch.einsum(spec, *operands)
+
+
+
+@tagged(OpGroup.GEMM, "conv2d")
+def conv2d(x, w, b=None, stride: int = 1, padding: str = "VALID"):
+    """Strided 2D convolution: NCHW input x OIHW kernel -> NHWC output
+    (channels last, so the vision models feed it straight into the
+    token-major encoder stack). GEMM-group work in the paper's taxonomy;
+    ``F.conv2d`` computes it, as XLA does outside any Pallas kernel in the
+    JAX package, accumulating in f32."""
+    if padding != "VALID":
+        raise ValueError(f"conv2d: padding {padding!r} not ported (VALID only)")
+    y = F.conv2d(x, w.to(x.dtype), stride=stride).permute(0, 2, 3, 1)
+    y = y.contiguous()
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# RoI selection
+# ---------------------------------------------------------------------------
+
+@tagged(OpGroup.ROI, "nms")
+def nms(boxes, scores, iou_threshold: float = 0.5,
+        score_threshold: float = 0.0):
+    """Greedy NMS keep mask (N,) over (N, 4) xyxy boxes, torchvision
+    semantics: the nms kernel on the card, the plain version otherwise."""
+    if use_kernels(boxes):
+        return _kernels().nms(boxes, scores, iou_threshold=iou_threshold,
+                              score_threshold=score_threshold)
+    return ref.nms(boxes, scores, iou_threshold=iou_threshold,
+                   score_threshold=score_threshold)
+
+
+# ---------------------------------------------------------------------------
+# Interpolation
+# ---------------------------------------------------------------------------
+
+@tagged(OpGroup.INTERPOLATION, "interpolate_bilinear")
+def interpolate_bilinear(x, out_hw: Tuple[int, int]):
+    """Bilinear resize of NCHW, align_corners=False (torch's default).
+
+    The two row gathers are hoisted (each output row pair is gathered once
+    and read by both column corners), the lerp runs in f32 and the result
+    is cast back to ``x.dtype``, as ``repro.nn.interpolate_bilinear``."""
+    _, _, h, w = x.shape
+    oh, ow = out_hw
+    y0, y1, x0, x1, wy, wx = ref.bilinear_taps(h, w, oh, ow, x.device)
+    rows0 = x[:, :, y0].float()                     # (N, C, OH, W)
+    rows1 = x[:, :, y1].float()
+    top = rows0[..., x0] * (1 - wx) + rows0[..., x1] * wx
+    bot = rows1[..., x0] * (1 - wx) + rows1[..., x1] * wx
+    return (top * (1 - wy) + bot * wy).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Pooling / windowed reductions over NHWC (Reduction group)
+# ---------------------------------------------------------------------------
+
+def _pool_nchw(x, window: int, stride: Optional[int], padding: str,
+               fill: float):
+    """``x`` (N, H, W, C) as an NCHW view, padded as ``padding`` asks
+    (``"SAME"``: XLA's split, the odd cell at the end), and the stride."""
+    s = window if stride is None else stride
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        pads = []
+        for n in (xc.shape[3], xc.shape[2]):
+            total = max((-(-n // s) - 1) * s + window - n, 0)
+            pads += [total // 2, total - total // 2]
+        xc = F.pad(xc, pads, value=fill)
+    elif padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r}")
+    return xc, s
+
+
+@tagged(OpGroup.REDUCTION, "max_pool2d")
+def max_pool2d(x, window: int = 2, stride: Optional[int] = None,
+               padding: str = "VALID"):
+    """2D max pool over NHWC (windowed reduction)."""
+    xc, s = _pool_nchw(x, window, stride, padding, float("-inf"))
+    return F.max_pool2d(xc, window, s).permute(0, 2, 3, 1)
+
+
+@tagged(OpGroup.REDUCTION, "avg_pool2d")
+def avg_pool2d(x, window: int = 2, stride: Optional[int] = None,
+               padding: str = "VALID"):
+    """2D average pool over NHWC; f32 accumulation, result in ``x.dtype``
+    (padding counts as zeros, as XLA's reduce_window sum does)."""
+    xc, s = _pool_nchw(x.float(), window, stride, padding, 0.0)
+    return F.avg_pool2d(xc, window, s).permute(0, 2, 3, 1).to(x.dtype)
+
+
+@tagged(OpGroup.REDUCTION, "global_avg_pool")
+def global_avg_pool(x, axes: Tuple[int, ...] = (1, 2)):
+    """Mean over the spatial axes, in f32 — the classifier-head pooling."""
+    return torch.mean(x.float(), dim=axes).to(x.dtype)

@@ -147,7 +147,7 @@ class Engine:
                  fused: bool = False):
         self.cfg = cfg
         self.fused = fused
-        self.device = params["embed"].device
+        self.device = params["final_norm"]["scale"].device
         self.params = cast_params(params, cfg.activation_dtype)
         self.max_batch = max_batch
         self.max_len = max_len

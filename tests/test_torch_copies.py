@@ -54,7 +54,8 @@ def test_model_config_fields_pinned():
     assert fields(ModelConfig) == fields(JModelConfig)
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl", "bert-base",
+                                  "vit-b16", "vit-b16-cls", "detector-vit-s"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_llama_config_copy_pinned(cut, arch):
     want = jget_config(arch)
@@ -65,8 +66,21 @@ def test_llama_config_copy_pinned(cut, arch):
 
 
 def test_unknown_config_lists_known():
-    with pytest.raises(KeyError, match="gpt2-xl.*llama2-7b"):
-        get_config("bert-base")
+    with pytest.raises(KeyError, match="bert-base.*gpt2-xl.*llama2-7b"):
+        get_config("stablelm-3b")
+
+
+@pytest.mark.parametrize("arch", ["vit-b16-cls", "detector-vit-s", "gpt2-xl"])
+def test_vision_config_properties_pinned(arch):
+    from repro.models.common import ModelConfig as J
+    for cut in (False, True):
+        got, want = get_config(arch), jget_config(arch)
+        if cut:
+            got, want = reduced(got), jreduced(want)
+        for prop in ("is_vision", "is_detector", "patch_grid"):
+            assert getattr(got, prop) == getattr(want, prop)
+            assert isinstance(getattr(ModelConfig, prop), property) and \
+                isinstance(getattr(J, prop), property)
 
 
 def _imports(path: pathlib.Path):
@@ -93,6 +107,12 @@ def test_aten_fallback_and_kernel_rule():
     assert ttax.classify("aten.view")[0] is ttax.OpGroup.MEMORY
     assert ttax.classify("repro_torch.decode_core")[0] is ttax.OpGroup.FUSED
     assert ttax.classify("aten.never_seen")[0] is ttax.OpGroup.OTHER
+    # the vision ops' aten names
+    assert ttax.classify("aten.upsample_bilinear2d")[0] is \
+        ttax.OpGroup.INTERPOLATION
+    for pool in ("max_pool2d_with_indices", "avg_pool2d", "max_pool2d"):
+        assert ttax.classify(f"aten.{pool}")[0] is ttax.OpGroup.REDUCTION
+    assert ttax.classify("aten.convolution")[0] is ttax.OpGroup.GEMM
     # a tag wins over the op name
     assert ttax.classify("aten.mm", "ng:activation:swiglu/c9") == \
         (ttax.OpGroup.ACTIVATION, "swiglu")
@@ -155,7 +175,8 @@ def test_bridge_raises_on_an_unknown_entry_and_carries_every_other():
 
 
 @pytest.mark.parametrize("unported", [dict(ffn="geglu"), dict(qk_norm=True),
-                                      dict(pos_emb="sinusoidal")])
+                                      dict(pos_emb="sinusoidal"),
+                                      dict(input_mode="audio")])
 def test_unported_features_still_raise(unported):
     cfg = reduced(get_config("gpt2-xl")).replace(**unported)
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -16,6 +16,7 @@ from repro_torch import nn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
+from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -31,6 +32,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # f32 convolutions in f32
     return torch.Generator("cuda").manual_seed(0)
 
 
@@ -81,6 +83,56 @@ def test_attention_core_on_card(card, case, dt):
     got = _launched("attention_core",
                     lambda: ops.attention_core(q, k, v, q_offset=off))
     _assert_close(got, ref.attention(q, k, v, q_offset=off), dt)
+
+
+@pytest.mark.parametrize("case", [(1, 197, 197, 12, 12, 64, 64),   # vit stub
+                                  (2, 128, 128, 12, 12, 64, 64),   # bert
+                                  (2, 64, 256, 6, 6, 64, 64),      # refine
+                                  (1, 37, 301, 4, 2, 64, 32),      # GQA, Dv != Dk
+                                  (1, 21, 23, 2, 2, 34, 18)])      # scalar staging
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_full_on_card(card, case, dt):
+    b, sq, skv, hq, hkv, dk, dv = case
+    q = _randn(card, (b, sq, hq, dk), dt)
+    k, v = _randn(card, (b, skv, hkv, dk), dt), _randn(card, (b, skv, hkv, dv), dt)
+    got = _launched("attention_full", lambda: ops.attention_full(q, k, v))
+    _assert_close(got, ref.attention(q, k, v, causal=False), dt)
+
+
+def _boxes(gen, n, span=60.0):
+    xy = torch.rand(n, 2, generator=gen, device="cuda") * span
+    wh = torch.rand(n, 2, generator=gen, device="cuda") * 12 + 1
+    return torch.cat([xy, xy + wh], 1), torch.rand(n, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("n", [1, 37, 256, 1000, 4096])
+@pytest.mark.parametrize("kind", ["random", "duplicate_scores", "score_threshold"])
+def test_nms_on_card(card, n, kind):
+    boxes, scores = _boxes(card, n)
+    score_thr = 0.4 if kind == "score_threshold" else 0.0
+    if kind == "duplicate_scores":
+        scores = torch.round(scores * 3) / 3
+    got = _launched("nms", lambda: ops.nms(boxes, scores, 0.5, score_thr))
+    assert torch.equal(got, ref.nms(boxes, scores, 0.5, score_thr))
+
+
+def test_nms_on_card_at_the_threshold(card):
+    # f32 IoU exactly 0.5 (kept), one ulp above (suppressed), and pairs a
+    # third of a width apart whose IoU rounds to either side of 0.5
+    s = np.nextafter(np.float32(1 / 3), np.float32(0))
+    exact = np.array([[10, 0, 13, 1], [11, 0, 14, 1], [0, 0, 1, 1],
+                      [s, 0, np.float32(s + 1), 1]], np.float32)
+    rng = np.random.default_rng(0)
+    x, y, w, h = rng.uniform(5, 40, (4, 512))
+    off = np.arange(512) * 100.0
+    a = np.stack([off + x, y, off + x + w, y + h], -1)
+    pairs = np.stack([a, a + np.stack([w / 3, 0 * w, w / 3, 0 * w], -1)], 1)
+    for boxes in (exact, pairs.reshape(-1, 4).astype(np.float32)):
+        b = torch.from_numpy(boxes).cuda()
+        sc = torch.linspace(0.99, 0.5, len(boxes), device="cuda")
+        got = _launched("nms", lambda: ops.nms(b, sc, 0.5))
+        assert torch.equal(got, ref.nms(b, sc, 0.5))
+    assert got.sum() not in (len(boxes) // 2, len(boxes))
 
 
 @pytest.mark.parametrize("hq,hkv,lens", [(32, 32, [1, 200, 512, 0]),
@@ -152,6 +204,11 @@ def test_kernels_raise_above_what_they_take(card):
     q = _randn(card, (1, 4, 2, 192), torch.float32)
     with pytest.raises(ValueError, match="head dims"):
         ops.attention_core(q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention_full(q, q, q)
+    with pytest.raises(ValueError, match="boxes above"):
+        ops.nms_sorted(_randn(card, (9000, 4), torch.float32),
+                       torch.ones(9000, dtype=torch.bool, device="cuda"))
     with pytest.raises(ValueError, match="width"):
         ops.layer_norm(_randn(card, (1, 40000), torch.float32),
                        _randn(card, (40000,), torch.float32),
@@ -211,3 +268,45 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.parametrize("arch,fused", [("bert-base", False), ("bert-base", True),
+                                        ("vit-b16", False)])
+def test_reduced_encoder_kernel_path_matches_plain_path(card, arch, fused):
+    cfg = reduced(get_config(arch))
+    params = init_lm(card, cfg)
+    if cfg.input_mode == "tokens":
+        x = torch.randint(0, cfg.vocab_size, (2, 37), generator=card,
+                          device="cuda")
+    else:
+        x = _randn(card, (2, 37, cfg.d_model), torch.float32)
+    with nn.backend("torch"), nn.fuse(fused):
+        want = lm_forward(params, x, cfg)
+    ops.reset_launches()
+    with nn.fuse(fused):
+        got = lm_forward(params, x, cfg)
+    assert ops.launches["attention_full"] == cfg.n_layers
+    assert ops.launches["attention_core"] == 0
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["vit-b16-cls", "detector-vit-s"])
+def test_reduced_vision_kernel_path_matches_plain_path(card, arch):
+    cfg = reduced(get_config(arch))
+    params = init_vision(card, cfg)
+    imgs = _randn(card, (2, 3, cfg.image_size, cfg.image_size), torch.float32)
+    with nn.backend("torch"):
+        want = vision_forward(params, imgs, cfg)
+    ops.reset_launches()
+    got = vision_forward(params, imgs, cfg)
+    assert ops.launches["attention_full"] == cfg.n_layers + cfg.is_detector
+    assert ops.launches["nms"] == (2 if cfg.is_detector else 0)
+    if not cfg.is_detector:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    boxes, scores, keep = got
+    for i in range(2):      # the kernel against the plain NMS, same boxes
+        assert torch.equal(keep[i], ref.nms(boxes[i].float(), scores[i], 0.5,
+                                            cfg.det_score_threshold))

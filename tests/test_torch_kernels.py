@@ -199,6 +199,140 @@ def test_ref_twin_matches_jax_oracle(name):
                                    rtol=1e-5)
 
 
+# (B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset): full mask, Sq != Skv allowed;
+# q_offset must have no effect
+FULL_CASES = [
+    (2, 37, 37, 4, 4, 32, 32, 0),      # ragged q and kv tiles
+    (2, 20, 70, 4, 4, 32, 32, 0),      # cross-attention, Sq < Skv
+    (1, 37, 61, 4, 2, 64, 32, 0),      # GQA 4/2, Dv != Dk, odd Sq / Skv
+    (1, 13, 40, 4, 4, 32, 32, 27),     # a q_offset the mask ignores
+]
+
+
+@pytest.mark.parametrize("case", FULL_CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_full_matches_pallas(case, dt):
+    b, sq, skv, hq, hkv, dk, dv, q_offset = case
+    rng = np.random.default_rng(8)
+    qj, qt = _pair(rng, (b, sq, hq, dk), dt)
+    kj, kt = _pair(rng, (b, skv, hkv, dk), dt)
+    vj, vt = _pair(rng, (b, skv, hkv, dv), dt)
+    want = T.attention_core(qj, kj, vj, causal=False, q_offset=q_offset,
+                            block_q=32, block_k=32, interpret=True)
+    got = ops.attention_full(qt, kt, vt)
+    assert got.shape == (b, sq, hq, dv) and got.dtype == TORCH_DT[dt]
+    _close(got, want, dt)
+    # the plain version against the JAX oracle, the offset passed to both
+    oracle = jref.attention(qj, kj, vj, causal=False, q_offset=q_offset)
+    _close(ref.attention(qt, kt, vt, q_offset=q_offset, causal=False),
+           oracle, dt)
+    _close(got, T.get("full")(qj, kj, vj, interpret=True), dt)
+
+
+def _random_boxes(rng, n, span=60.0):
+    centers = rng.uniform(size=(n, 2)) * span
+    wh = rng.uniform(size=(n, 2)) * 12 + 1
+    return (np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+            .astype(np.float32), rng.uniform(size=n).astype(np.float32))
+
+
+def threshold_pairs(rng, n_pairs: int = 512):
+    """Pairs of equal boxes shifted by a third of their width, so that
+    their IoU is 1/2 up to rounding: each pair's f32 IoU lands within a
+    few ulps of the threshold, on either side. Pairs lie 100 px apart and
+    never touch another pair."""
+    x, y = rng.uniform(0, 40, (2, n_pairs))
+    w, h = rng.uniform(5, 50, (2, n_pairs))
+    ox = (np.arange(n_pairs) % 32) * 100.0
+    oy = (np.arange(n_pairs) // 32) * 100.0
+    a = np.stack([ox + x, oy + y, ox + x + w, oy + y + h], -1)
+    b = a + np.stack([w / 3, 0 * w, w / 3, 0 * w], -1)
+    boxes = np.stack([a, b], 1).reshape(-1, 4).astype(np.float32)
+    scores = np.linspace(0.99, 0.5, 2 * n_pairs).astype(np.float32)
+    return boxes, scores
+
+
+def exact_threshold_pairs():
+    """Two pairs: one whose f32 IoU is exactly 0.5 (kept: IoU must be
+    *above* the threshold to suppress) and one whose f32 IoU is one ulp
+    above 0.5 (suppressed)."""
+    s = np.nextafter(np.float32(1 / 3), np.float32(0))
+    boxes = np.array([[10, 0, 13, 1], [11, 0, 14, 1],
+                      [0, 0, 1, 1], [s, 0, np.float32(s + 1), 1]], np.float32)
+    return boxes, np.array([0.9, 0.8, 0.7, 0.6], np.float32)
+
+
+def _nms_case(name):
+    rng = np.random.default_rng(9)
+    if name.startswith("random"):
+        return (*_random_boxes(rng, int(name.split("-")[1])), 0.5, 0.0)
+    if name == "zero_area":
+        boxes, scores = _random_boxes(rng, 64)
+        boxes[:2] = [[5, 5, 5, 5], [9, 9, 3, 3]]
+        return boxes, scores, 0.5, 0.0
+    if name == "duplicate_scores":
+        return (_random_boxes(rng, 96)[0],
+                np.array([0.5, 0.9, 0.1] * 32, np.float32), 0.5, 0.0)
+    if name == "all_suppressed":
+        boxes = (np.array([10, 10, 20, 20], np.float32)
+                 + rng.uniform(size=(72, 4)).astype(np.float32) * 0.1)
+        return boxes, np.linspace(0.9, 0.1, 72).astype(np.float32), 0.3, 0.0
+    if name == "none_suppressed":
+        off = np.arange(40, dtype=np.float32) * 30
+        boxes = np.stack([off, off, off + 10, off + 10], -1)
+        return boxes, rng.uniform(0.25, 0.75, 40).astype(np.float32), 0.5, 0.0
+    if name == "threshold_above_one":
+        return (*_random_boxes(rng, 64), 1.5, 0.0)
+    if name == "score_threshold":
+        return (*_random_boxes(rng, 200), 0.5, 0.4)
+    if name == "near_threshold_pairs":
+        return (*threshold_pairs(rng), 0.5, 0.0)
+    return (*exact_threshold_pairs(), 0.5, 0.0)
+
+
+NMS_CASES = ["random-1", "random-37", "random-130", "random-383",
+             "random-1000", "zero_area", "duplicate_scores", "all_suppressed",
+             "none_suppressed", "threshold_above_one", "score_threshold",
+             "near_threshold_pairs", "exact_threshold_pairs"]
+
+
+@pytest.mark.parametrize("name", NMS_CASES)
+def test_nms_matches_pallas(name):
+    boxes, scores, thr, score_thr = _nms_case(name)
+    want = np.asarray(jops.nms(jnp.asarray(boxes), jnp.asarray(scores),
+                               iou_threshold=thr, score_threshold=score_thr,
+                               interpret=True))
+    bt, st = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = ops.nms(bt, st, iou_threshold=thr, score_threshold=score_thr)
+    assert got.dtype == torch.bool and got.shape == (len(boxes),)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ref.nms(bt, st, iou_threshold=thr, score_threshold=score_thr).numpy(),
+        np.asarray(jref.nms(jnp.asarray(boxes), jnp.asarray(scores),
+                            iou_threshold=thr, score_threshold=score_thr)))
+    if name == "exact_threshold_pairs":
+        iou = ref.iou_matrix(bt)
+        assert iou[0, 1] == 0.5
+        assert iou[2, 3] == np.nextafter(np.float32(0.5), np.float32(1))
+        assert got.tolist() == [True, True, True, False]
+    if name == "near_threshold_pairs":      # both sides of the threshold
+        assert 0 < int(got.sum()) - len(boxes) // 2 < len(boxes) // 2
+    if name == "all_suppressed":
+        assert int(got.sum()) == 1
+    if name == "none_suppressed":
+        assert bool(got.all())
+
+
+@pytest.mark.parametrize("hw,out_hw", [((4, 4), (8, 8)), ((5, 7), (12, 9)),
+                                       ((14, 14), (4, 6))])
+def test_interpolate_bilinear_oracle_matches_jax(hw, out_hw):
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 3, *hw)).astype(np.float32)
+    want = jref.interpolate_bilinear(jnp.asarray(x), out_hw)
+    got = ref.interpolate_bilinear(torch.from_numpy(x), out_hw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+
+
 def test_cpu_branch_launches_nothing():
     ops.reset_launches()
     x = torch.randn(3, 64)
@@ -208,12 +342,16 @@ def test_cpu_branch_launches_nothing():
     ops.fused_add_rms_norm(x, x, torch.ones(64))
     ops.fused_add_layer_norm(x, x, torch.ones(64), torch.zeros(64))
     ops.rope(x.reshape(1, 3, 1, 64), torch.zeros(1, 3, dtype=torch.int32))
-    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 8
+    q = x.reshape(1, 3, 1, 64)
+    ops.attention_full(q, q, q)
+    ops.nms(torch.rand(5, 4).cumsum(-1), torch.rand(5))
+    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 10
     assert all(n == 0 for n in ops.launches.values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix",
-                                 "residual_shape", "positions", "fraction"])
+                                 "residual_shape", "positions", "fraction",
+                                 "nms_operands", "full_heads"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     x = torch.randn(4, 64)
     w = torch.ones(64)
@@ -239,7 +377,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             ops.rope(x.reshape(1, 4, 1, 64), torch.zeros(1, 4, dtype=torch.int64))
         with pytest.raises(ValueError):
             ops.rope(x.reshape(1, 4, 1, 64), torch.zeros(1, 3, dtype=torch.int32))
-    else:
+    elif bad == "fraction":
         with pytest.raises(ValueError):
             ops.rope(x.reshape(1, 4, 1, 64), torch.zeros(1, 4, dtype=torch.int32),
                      fraction=1.5)
+    elif bad == "nms_operands":
+        with pytest.raises(TypeError):
+            ops.nms_sorted(x.double(), torch.ones(4, dtype=torch.bool))
+        with pytest.raises(ValueError):
+            ops.nms_sorted(x[:, :4].contiguous(), torch.ones(3, dtype=torch.bool))
+    else:
+        q = x.reshape(1, 4, 4, 16)
+        with pytest.raises(ValueError):       # Hq 4 over Hkv 3
+            ops.attention_full(q, q[:, :, :3].contiguous(),
+                               q[:, :, :3].contiguous())

@@ -25,6 +25,11 @@ POS = np.array([[0, 1, 2, 3, 4], [7, 8, 9, 10, 11]], np.int32)
 S0, S1 = W[:, 0].copy(), W[:, 1].copy()       # contiguous (d,) scale, bias
 IDS = np.array([[3, 0, 9], [1, 1, 4]], np.int64)
 TABLE = RNG.standard_normal((10, 6)).astype(np.float32)
+IMG = RNG.standard_normal((2, 3, 12, 16)).astype(np.float32)      # NCHW
+KER = RNG.standard_normal((8, 3, 4, 4)).astype(np.float32)        # OIHW
+GRID = RNG.standard_normal((2, 6, 7, 5)).astype(np.float32)       # NHWC
+RAW = RNG.standard_normal((2, 9, 4)).astype(np.float32) * 3
+ANCHORS = np.abs(RNG.standard_normal((9, 4))).astype(np.float32) * 8 + 1
 
 # name: (port call, JAX call), each on its own framework's arrays
 CASES = {
@@ -56,6 +61,35 @@ CASES = {
     "relu": (lambda t: tnn.relu(t(X3)), lambda j: jnn.relu(j(X3))),
     "swiglu": (lambda t: tnn.swiglu(t(X3), t(X3 * 0.5)),
                lambda j: jnn.swiglu(j(X3), j(X3 * 0.5))),
+    # the vision ops
+    "sigmoid": (lambda t: tnn.sigmoid(t(X3 * 3)), lambda j: jnn.sigmoid(j(X3 * 3))),
+    "box_decode": (lambda t: tnn.box_decode(t(RAW), t(ANCHORS)),
+                   lambda j: jnn.box_decode(j(RAW), j(ANCHORS))),
+    "conv2d": (lambda t: tnn.conv2d(t(IMG), t(KER), t(W[:8, 0].copy()), stride=4),
+               lambda j: jnn.conv2d(j(IMG), j(KER), j(W[:8, 0].copy()), stride=4)),
+    "conv2d_stride_1": (lambda t: tnn.conv2d(t(IMG), t(KER)),
+                        lambda j: jnn.conv2d(j(IMG), j(KER))),
+    "interpolate_bilinear_up": (
+        lambda t: tnn.interpolate_bilinear(t(IMG), (24, 32)),
+        lambda j: jnn.interpolate_bilinear(j(IMG), (24, 32))),
+    "interpolate_bilinear_off_grid": (
+        lambda t: tnn.interpolate_bilinear(t(IMG), (7, 23)),
+        lambda j: jnn.interpolate_bilinear(j(IMG), (7, 23))),
+    "max_pool2d": (lambda t: tnn.max_pool2d(t(GRID), window=2),
+                   lambda j: jnn.max_pool2d(j(GRID), window=2)),
+    "max_pool2d_same": (
+        lambda t: tnn.max_pool2d(t(GRID), window=3, stride=1, padding="SAME"),
+        lambda j: jnn.max_pool2d(j(GRID), window=3, stride=1, padding="SAME")),
+    "max_pool2d_same_even": (
+        lambda t: tnn.max_pool2d(t(GRID), window=2, stride=2, padding="SAME"),
+        lambda j: jnn.max_pool2d(j(GRID), window=2, stride=2, padding="SAME")),
+    "avg_pool2d": (lambda t: tnn.avg_pool2d(t(GRID), window=2),
+                   lambda j: jnn.avg_pool2d(j(GRID), window=2)),
+    "avg_pool2d_same": (
+        lambda t: tnn.avg_pool2d(t(GRID), window=3, stride=2, padding="SAME"),
+        lambda j: jnn.avg_pool2d(j(GRID), window=3, stride=2, padding="SAME")),
+    "global_avg_pool": (lambda t: tnn.global_avg_pool(t(GRID)),
+                        lambda j: jnn.global_avg_pool(j(GRID))),
 }
 
 
