@@ -48,3 +48,12 @@ mut nms_ge nms.cu 's/if (iou > thr) keep_s\[j\] = 0;/if (iou >= thr) keep_s[j] =
 # NMS with plain operators, which nvcc contracts into FMAs
 mut nms_fma nms.cu \
   's/return __fmul_rn(a, b);/return a * b;/; s/return __fadd_rn(a, b);/return a + b;/; s/return __fsub_rn(a, b);/return a - b;/; s/return __fdiv_rn(a, b);/return a \/ b;/'
+# the window fragment letting in the key exactly `window` positions back
+mut window_le attention.cu \
+  's/visible = visible \&\& qpos - kpos < window;/visible = visible \&\& qpos - kpos <= window;/'
+# the window fragment starting its KV loop one tile late
+mut window_late_start attention.cu \
+  's/max(0, q_offset + q0 - window + 1) \/ kBK \* kBK : 0;/max(0, q_offset + q0 - window + 1) \/ kBK * kBK + kBK : 0;/'
+# GeGLU without the cubic term of its tanh approximation
+mut geglu_no_cubic swiglu.cu \
+  's/tanhf(kSqrt2OverPi \* (g + 0.044715f \* g \* g \* g))/tanhf(kSqrt2OverPi * g)/'

@@ -1,12 +1,16 @@
 """Weight bridge: the JAX package's param and cache pytrees, given as numpy,
 into the port's dicts of tensors.
 
-``repro.models.transformer.init_lm`` keeps each pattern position's blocks
-stacked along a leading layer dim when ``cfg.scan_layers`` (the default,
-kept by ``reduced``): ``params["scan"][j]`` leaves are ``(n_rep, ...)``,
-and layer ``r * len(pattern) + j`` is slice ``r`` of position ``j``. The
-port's params hold one dict per layer (``params["layers"]``) in that
-order; ``init_lm_cache``'s stacked caches unstack the same way. Every
+``repro.models.transformer.init_lm`` splits the layers into ``lead``
+(unstacked leaders), ``scan`` and ``trail`` (the unstacked remainder of a
+partial pattern: gemma3-27b's 62 layers are 10 repeats of 6 and 2 more).
+It keeps each pattern position's blocks stacked along a leading layer dim
+when ``cfg.scan_layers`` (the default, kept by ``reduced``):
+``params["scan"][j]`` leaves are ``(n_rep, ...)``, and layer
+``len(lead) + r * len(pattern) + j`` is slice ``r`` of position ``j``. The
+port's params hold one dict per layer (``params["layers"]``) in layer
+order, lead, then scan, then trail; ``init_lm_cache``'s caches unstack the
+same way (a ring's int32 ``"pos"`` side-car crosses as it is). Every
 other top-level entry (``embed``, absent where the config takes
 embeddings; the learned position table ``pos``, ``final_norm``, ``head``)
 is carried as it is, and an entry this module does not know raises
@@ -57,11 +61,14 @@ def _unstack(stacked: List[Any], cfg: ModelConfig) -> List[Any]:
     return layers
 
 
-def _check_layout(tree: dict, cfg: ModelConfig) -> None:
-    if tree.get("lead") or tree.get("trail") \
-            or cfg.n_rep * len(cfg.block_pattern) != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: only configs whose layers are whole "
-                         "pattern repeats are bridged")
+def _layers(tree: dict, cfg: ModelConfig) -> List[Any]:
+    """Every layer's tree in layer order: lead, the unstacked scan, trail."""
+    layers = [*tree.get("lead", []), *_unstack(tree["scan"], cfg),
+              *tree.get("trail", [])]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree for "
+                         f"{cfg.n_layers}")
+    return layers
 
 
 #: top-level entries of ``init_lm``'s tree carried as they are
@@ -76,11 +83,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if unknown:
         raise ValueError(f"{cfg.name}: params entries the bridge does not "
                          f"know: {unknown}")
-    _check_layout(tree, cfg)
     out = {k: _map(lambda a: _tensor(a, device), tree[k])
            for k in _CARRIED if k in tree}
     out["layers"] = [_map(lambda a: _tensor(a, device), layer)
-                     for layer in _unstack(tree["scan"], cfg)]
+                     for layer in _layers(tree, cfg)]
     return out
 
 
@@ -108,6 +114,9 @@ def vision_params_from_jax(tree: dict, cfg: ModelConfig,
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
     """The port's per-layer caches from ``init_lm_cache`` / ``lm_prefill``'s
     cache tree (numpy)."""
-    _check_layout(tree, cfg)
+    unknown = sorted(set(tree) - set(_STACKS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: cache entries the bridge does not "
+                         f"know: {unknown}")
     return [_map(lambda a: _tensor(a, device), layer)
-            for layer in _unstack(tree["scan"], cfg)]
+            for layer in _layers(tree, cfg)]

@@ -5,8 +5,9 @@ zoo's entry; a test pins them equal); ``reduced(cfg)`` returns the same
 tiny same-family config ``repro.configs.reduced`` does, for CPU tests.
 
 The paper's four models (``repro/configs/paper_zoo.py``: gpt2-xl,
-llama2-7b, bert-base and the ``vit-b16`` embeddings stub) run through the
-LM stack; the vision family (``vit-b16-cls``, ``repro/configs/vit_b16.py``,
+llama2-7b, bert-base and the ``vit-b16`` embeddings stub) and gemma3-27b
+(``repro/configs/gemma3_27b.py``) run through the LM stack; the vision
+family (``vit-b16-cls``, ``repro/configs/vit_b16.py``,
 and ``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
 ``repro_torch.models.vision``.
 """
@@ -53,6 +54,34 @@ _CONFIGS: Dict[str, ModelConfig] = {
         ffn="swiglu",
         causal=True,
         tie_embeddings=False,
+    ),
+    # Gemma 3 27B (repro/configs/gemma3_27b.py): 5:1 local:global layers
+    # (window 1024), GQA 32/16 of 128, qk-norm, pre+post zero-centred
+    # RMSNorms, GeGLU, sqrt(d)-scaled tied embeddings
+    "gemma3-27b": ModelConfig(
+        remat_policy="proj",
+        name="gemma3-27b",
+        family="dense",
+        n_layers=62,
+        d_model=5376,
+        n_heads=32,
+        n_kv_heads=16,
+        head_dim=128,
+        d_ff=21504,
+        vocab_size=262144,
+        block_pattern=("local", "local", "local", "local", "local", "attn"),
+        window_size=1024,
+        pos_emb="rope",
+        norm="rmsnorm",
+        post_norm=True,
+        zero_centered_norm=True,
+        qk_norm=True,
+        ffn="geglu",
+        causal=True,
+        tie_embeddings=True,
+        scale_embeddings=True,
+        loss_chunk=512,
+        fsdp=True,
     ),
     "bert-base": ModelConfig(
         name="bert-base",

@@ -86,7 +86,8 @@ def estimate_flops(prim: str, group: OpGroup, in_shapes, out_shapes) -> float:
     if prim in _GEMM_FLOPS:
         return _GEMM_FLOPS[prim](in_shapes)
     if prim in ("repro_torch.attention_core", "repro_torch.attention_full",
-                "repro_torch.decode_core"):
+                "repro_torch.attention_window", "repro_torch.decode_core"):
+        # every (q, k) pair of the shapes: the masks are not read
         (b, sq, hq, dk), (_, skv, _, _), (_, _, _, dv) = in_shapes[:3]
         return 2.0 * b * hq * sq * skv * (dk + dv)
     if group in (OpGroup.ELEMENTWISE, OpGroup.NORMALIZATION,

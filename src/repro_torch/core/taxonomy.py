@@ -119,6 +119,8 @@ _reg(
     "le", "gt", "ge", "logical_and", "logical_or", "logical_not",
     "bitwise_and", "bitwise_or", "bitwise_not", "sin", "cos", "reciprocal",
     "masked_fill", "_assert_async", "lerp",
+    # the ring cache's slot arithmetic (floor mod, as jnp.mod)
+    "remainder",
 )
 _reg(
     OpGroup.REDUCTION,

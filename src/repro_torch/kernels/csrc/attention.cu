@@ -1,14 +1,16 @@
-// Flash attention with an online softmax (prefill / forward), causal and
-// full masks.
+// Flash attention with an online softmax (prefill / forward): causal,
+// sliding-window and full masks.
 //
 // Replaces the TPU kernel `_template_kernel` (shared body
 // `_online_softmax_step`) reached through `attention_core` in
 // src/repro/kernels/attn_template.py (pallas_call at :275): its causal
-// fragment (the decoder LMs' prefill) and its full fragment (spec "full":
-// the encoders' self-attention, and the detector's query refinement
-// through `kops.attn_full_template`, where Sq != Skv). One kernel body,
-// instantiated twice over the compile-time mask parameter CAUSAL; the
-// window fragment is not ported yet.
+// fragment (the decoder LMs' prefill), its window fragment (spec "window",
+// :431: the sliding-window `local` layers' prefill, causal and
+// `qpos - kpos < window`) and its full fragment (spec "full": the
+// encoders' self-attention, and the detector's query refinement through
+// `kops.attn_full_template`, where Sq != Skv). One kernel body,
+// instantiated three times over the compile-time mask kind MASK; the
+// window's span is a runtime argument.
 //
 // q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv) -> o (B,Sq,Hq,Dv),
 // read and written in the JAX layout, so the wrapper transposes nothing.
@@ -21,10 +23,14 @@
 //   * one CTA of 256 threads per (b*Hq, 64-row q tile); the TPU grid's
 //     sequential KV axis becomes a loop inside the CTA, over 64-key tiles
 //     staged in shared memory. Causal, the loop stops at the causal limit
-//     of the tile, so the masked upper triangle is never loaded; full, it
-//     runs to Skv and masks only the ragged last tile (Skv 196 and 197 are
-//     not multiples of 64). q_offset has no effect on the full mask, as in
-//     the JAX template;
+//     of the tile, so the masked upper triangle is never loaded; window,
+//     it also starts at the first tile any row of the q tile can see
+//     (q_offset + q0 - window + 1, rounded down to a tile), so a 2048-token
+//     prefill with a 1024 window visits at most 17 of 32 tiles; the TPU
+//     grid's walk over every tile is not carried over. Full, it runs to
+//     Skv and masks only the ragged last tile (Skv 196 and 197 are not
+//     multiples of 64). q_offset has no effect on the full mask, as in the
+//     JAX template;
 //   * tiles are staged with 16-byte loads all in flight together
 //     (common.cuh stage_rows), where the head dims allow it;
 //   * register tiling: thread t owns 4 query rows (t/16) and every 16th
@@ -35,8 +41,11 @@
 //   * GQA is an index: the KV head is h / (Hq/Hkv), nothing is replicated;
 //   * shared-memory rows are padded by one float so the column walks hit
 //     distinct banks;
-//   * NEG_INF is the finite -1e30 of the JAX kernels, and a row that saw
-//     no key (Skv == 0) leaves the epilogue as exact zeros.
+//   * NEG_INF is the finite -1e30 of the JAX kernels. A tile in which a
+//     row sees no key adds exp(0) terms while its max is still NEG_INF;
+//     the first visible key rescales them by exp(NEG_INF - m) = 0, as in
+//     the TPU body. A row that saw no key at all (Skv == 0, a window past
+//     the keys) leaves the epilogue as exact zeros.
 // mma/wgmma tiles, TMA staging and a split over KV come in later work.
 #include "common.cuh"
 
@@ -50,6 +59,11 @@ constexpr int kGroup = 16;     // threads per row group (one half warp)
 constexpr int kDMax = 128;     // largest Dk and Dv taken
 constexpr int kSCols = kBK / kGroup;    // score columns per thread
 constexpr int kOCols = kDMax / kGroup;  // output columns per thread
+
+// the mask fragments (MASK): causal, causal within a window, full
+constexpr int kCausal = 0;
+constexpr int kWindow = 1;
+constexpr int kFull = 2;
 
 size_t smem_bytes(int dk, int dv) {
   return sizeof(float) *
@@ -70,12 +84,12 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <typename T, bool VEC, bool CAUSAL>
+template <typename T, bool VEC, int MASK>
 __global__ void __launch_bounds__(kThreads)
     attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
-                       float scale) {
+                       int window, float scale) {
   extern __shared__ float smem[];
   const int ldq = Dk + 1, ldk = Dk + 1, ldp = kBK + 1;
   float* Qs = smem;              // kBQ x ldq
@@ -105,12 +119,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int q_last = min(q0 + kBQ, Sq) - 1;  // last real row
-  const int kv_end = CAUSAL ? min(Skv, q_offset + q_last + 1)  // causal limit
-                            : Skv;
+  const int kv_end = MASK == kFull ? Skv
+                                   : min(Skv, q_offset + q_last + 1);  // causal limit
+  // window: the first tile the tile's first row (the earliest) can see
+  const int kv_begin =
+      MASK == kWindow ? max(0, q_offset + q0 - window + 1) / kBK * kBK : 0;
   const int64_t kv_stride_k = static_cast<int64_t>(Hkv) * Dk;
   const int64_t kv_stride_v = static_cast<int64_t>(Hkv) * Dv;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and Q is stored)
     const int valid = min(kBK, Skv - k0);
     const int64_t row0 = static_cast<int64_t>(b) * Skv + k0;
@@ -146,7 +163,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kSCols; ++j) {
         const int kpos = k0 + cg + kGroup * j;
         bool visible = kpos < Skv;  // the ragged last KV tile
-        if constexpr (CAUSAL) visible = visible && qpos >= kpos;
+        if constexpr (MASK != kFull) visible = visible && qpos >= kpos;
+        if constexpr (MASK == kWindow) visible = visible && qpos - kpos < window;
         s[i][j] = visible ? s[i][j] * scale : repro::kNegInf;
         mt = fmaxf(mt, s[i][j]);
       }
@@ -200,53 +218,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool VEC, bool CAUSAL>
+template <typename T, bool VEC, int MASK>
 int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
-                int q_offset, float scale, cudaStream_t stream) {
+                int q_offset, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T, VEC, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_kernel<T, VEC, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + kBQ - 1) / kBQ);
-  attn_kernel<T, VEC, CAUSAL><<<grid, kThreads, smem, stream>>>(
+  attn_kernel<T, VEC, MASK><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, Dk, Dv,
-      q_offset, scale);
+      q_offset, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool CAUSAL>
+template <typename T, int MASK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
-           float scale, cudaStream_t stream) {
+           int window, float scale, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = Dk % V == 0 && Dv % V == 0 && repro::aligned16(q) &&
                    repro::aligned16(k) && repro::aligned16(v);
-  return vec ? launch_impl<T, true, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
-                                            Dk, Dv, q_offset, scale, stream)
-             : launch_impl<T, false, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
-                                             Dk, Dv, q_offset, scale, stream);
+  return vec ? launch_impl<T, true, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,
+                                          Dv, q_offset, window, scale, stream)
+             : launch_impl<T, false, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,
+                                           Dv, q_offset, window, scale, stream);
 }
 
-template <bool CAUSAL>
+template <int MASK>
 int entry(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-          int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, float scale,
-          int dtype, int device, void* stream) {
+          int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, int window,
+          float scale, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
       Dk <= 0 || Dk > kDMax || Dv <= 0 || Dv > kDMax || q_offset < 0 ||
-      (Sq + kBQ - 1) / kBQ > 65535)
+      window <= 0 || (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                                 q_offset, scale, s);
+    return launch<float, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                               q_offset, window, scale, s);
   if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16, CAUSAL>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,
-                                         Dv, q_offset, scale, s);
+    return launch<__nv_bfloat16, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                                       q_offset, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -258,8 +276,19 @@ extern "C" int repro_attention_causal(const void* q, const void* k,
                                       int Skv, int Hq, int Hkv, int Dk, int Dv,
                                       int q_offset, float scale, int dtype,
                                       int device, void* stream) {
-  return entry<true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, scale,
-                     dtype, device, stream);
+  return entry<kCausal>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, 1,
+                        scale, dtype, device, stream);
+}
+
+// window: causal, and query row i sees only keys at q_offset + i - kpos <
+// window (the sliding-window `local` layers)
+extern "C" int repro_attention_window(const void* q, const void* k,
+                                      const void* v, void* o, int B, int Sq,
+                                      int Skv, int Hq, int Hkv, int Dk, int Dv,
+                                      int q_offset, int window, float scale,
+                                      int dtype, int device, void* stream) {
+  return entry<kWindow>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
+                        window, scale, dtype, device, stream);
 }
 
 // full: every key is visible (KV padding only); Sq != Skv allowed
@@ -268,6 +297,6 @@ extern "C" int repro_attention_full(const void* q, const void* k,
                                     int Skv, int Hq, int Hkv, int Dk, int Dv,
                                     float scale, int dtype, int device,
                                     void* stream) {
-  return entry<false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, scale, dtype,
-                      device, stream);
+  return entry<kFull>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, 1, scale,
+                      dtype, device, stream);
 }

@@ -31,8 +31,8 @@ from . import rope as _rope
 from . import swiglu as _glu
 
 KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
-           "fused_add_layer_norm", "rope", "swiglu", "attention_core",
-           "decode_core", "attention_full", "nms")
+           "fused_add_layer_norm", "rope", "swiglu", "geglu", "attention_core",
+           "attention_window", "decode_core", "attention_full", "nms")
 
 #: launches of each kernel since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -193,18 +193,22 @@ def _(x, positions, base=10000.0, fraction=1.0):
 
 
 # ---------------------------------------------------------------------------
-# swiglu
+# swiglu, geglu
 # ---------------------------------------------------------------------------
+
+def _check_glu(name: str, gate, up) -> bool:
+    on_card = _on_card(name, gate, up)
+    _check_dtype(name, gate, up)
+    if gate.shape != up.shape:
+        raise ValueError(f"{name}: shapes {tuple(gate.shape)} and "
+                         f"{tuple(up.shape)}")
+    return on_card
+
 
 @torch.library.custom_op("repro_torch::swiglu", mutates_args=())
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``silu(gate) * up`` in f32, rounded once to the operands' dtype."""
-    on_card = _on_card("swiglu", gate, up)
-    _check_dtype("swiglu", gate, up)
-    if gate.shape != up.shape:
-        raise ValueError(f"swiglu: shapes {tuple(gate.shape)} and "
-                         f"{tuple(up.shape)}")
-    if not on_card:
+    if not _check_glu("swiglu", gate, up):
         return ref.swiglu(gate, up)
     launches["swiglu"] += 1
     return _glu.swiglu(gate, up)
@@ -215,8 +219,23 @@ def _(gate, up):
     return torch.empty_like(gate)
 
 
+@torch.library.custom_op("repro_torch::geglu", mutates_args=())
+def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``gelu_tanh(gate) * up`` in f32, rounded once to the operands'
+    dtype."""
+    if not _check_glu("geglu", gate, up):
+        return ref.geglu(gate, up)
+    launches["geglu"] += 1
+    return _glu.geglu(gate, up)
+
+
+@geglu.register_fake
+def _(gate, up):
+    return torch.empty_like(gate)
+
+
 # ---------------------------------------------------------------------------
-# attention (causal and full) and decode
+# attention (causal, window and full) and decode
 # ---------------------------------------------------------------------------
 
 def _check_qkv(name: str, q, k, v) -> None:
@@ -259,6 +278,33 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @attention_core.register_fake
 def _(q, k, v, q_offset=0, scale=None):
+    return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
+@torch.library.custom_op("repro_torch::attention_window", mutates_args=())
+def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int, q_offset: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Sliding-window causal GQA attention: as :func:`attention_core`, and
+    query row i (at position ``q_offset + i``) sees only the keys ``kpos``
+    with ``q_offset + i - kpos < window``."""
+    on_card = _on_card("attention_window", q, k, v)
+    _check_dtype("attention_window", q, k, v)
+    _check_qkv("attention_window", q, k, v)
+    if q_offset < 0 or window <= 0:
+        raise ValueError(f"attention_window: q_offset {q_offset} < 0 or "
+                         f"window {window} <= 0")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if not on_card:
+        return ref.attention(q, k, v, q_offset=q_offset, scale=scale,
+                             window=window)
+    _check_kernel_dims("attention_window", q, v)
+    launches["attention_window"] += 1
+    return _attn.attention_window(q, k, v, window, q_offset, scale)
+
+
+@attention_window.register_fake
+def _(q, k, v, window, q_offset=0, scale=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 

@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 #: finite, so ``exp(m_prev - m_new)`` never meets ``-inf - -inf``
 NEG_INF = -1e30
@@ -78,16 +79,26 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return (gf * torch.sigmoid(gf) * up.float()).to(gate.dtype)
 
 
+def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``gelu_tanh(gate) * up`` in f32, rounded once to ``gate``'s dtype:
+    the function of ``repro.kernels.swiglu._geglu_kernel``."""
+    gf = gate.float()
+    return (F.gelu(gf, approximate="tanh") * up.float()).to(gate.dtype)
+
+
 def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
-              causal: bool = True) -> torch.Tensor:
-    """Naive full-matrix GQA attention (the causal and full fragments of
-    ``repro.kernels.ref.attention``).
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Naive full-matrix GQA attention (the causal, window and full
+    fragments of ``repro.kernels.ref.attention``).
 
     q: (B,Sq,Hq,Dk); k: (B,Skv,Hkv,Dk); v: (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv).
     ``causal``: query row i sits at position ``q_offset + i`` and sees keys
-    up to it. ``causal=False`` is the full mask (encoders, cross-attention
-    with ``Sq != Skv``): every key is visible and ``q_offset`` has no
-    effect. A query row with no visible key yields exact zeros.
+    up to it; ``window`` further limits it to keys with
+    ``qpos - kpos < window`` (the sliding window of the ``local`` layers).
+    ``causal=False`` is the full mask (encoders, cross-attention with
+    ``Sq != Skv``): every key is visible and ``q_offset`` has no effect. A
+    query row with no visible key yields exact zeros.
     """
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -97,10 +108,12 @@ def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
     qf = q.reshape(b, sq, hkv, g, d).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) * scale
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
     if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)
-        kpos = torch.arange(skv, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :]
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
     mb = mask[None, None, None]                    # (1,1,1,Sq,Skv)
     s = torch.where(mb, s, NEG_INF)
     p = torch.where(mb.any(dim=-1, keepdim=True), torch.softmax(s, dim=-1),

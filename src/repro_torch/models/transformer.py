@@ -2,8 +2,13 @@
 
 The port of ``repro.models.transformer`` for the configs the port runs:
 pre-norm blocks (RMSNorm or LayerNorm) of MHA/GQA attention and a dense
-FFN, with RoPE (Llama-2), learned positions (GPT-2, BERT, the ViT stub)
-or none (the vision backbone). Decoders attend causally; encoders
+FFN, with RoPE (Llama-2, Gemma 3), learned positions (GPT-2, BERT, the
+ViT stub) or none (the vision backbone). Each layer's kind comes from
+``cfg.layer_kinds()``: ``"attn"`` (global) or ``"local"`` (sliding-window
+attention over a ring cache, Gemma 3's 5:1 pattern). Gemma 3 adds
+qk-norm, post-norms around each sub-block (``cfg.post_norm``), zero-centred
+norm scales, GeGLU and sqrt(d)-scaled tied embeddings. Decoders attend
+causally; encoders
 (``cfg.causal`` False: bert-base, the ``vit-b16`` stub) with the full
 mask, through ``lm_forward`` only: the JAX package serves no encoder, so
 ``lm_prefill``, ``lm_decode``, ``init_lm_cache`` and the engine reject
@@ -27,8 +32,10 @@ the caches in place and returns them.
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,20 +46,24 @@ from repro_torch.models import moe as M
 from repro_torch.models.common import ModelConfig, dense_init
 
 
+#: the attention block kinds: global (full cache) and sliding-window (ring)
+ATTN_KINDS = ("attn", "local")
+
+
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     """Raise for a config that uses a part of the JAX zoo not ported yet;
     with ``serving`` (prefill, decode, caches, the engine) also for an
     encoder, which the JAX package does not serve either."""
+    kinds = set(cfg.layer_kinds())
     unported = {
-        "block kinds other than 'attn'": set(cfg.layer_kinds()) != {"attn"},
+        f"block kinds {sorted(kinds - set(ATTN_KINDS))}":
+            not kinds <= set(ATTN_KINDS),
         f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
         f"ffn {cfg.ffn!r}": cfg.ffn not in M.FFN_KINDS,
         f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned",
                                                         "none"),
         "MoE": cfg.n_experts > 0,
         "MLA": cfg.mla,
-        "qk_norm": cfg.qk_norm,
-        "post_norm / scale_embeddings": cfg.post_norm or cfg.scale_embeddings,
         "softcaps": bool(cfg.attn_logit_softcap or cfg.final_logit_softcap),
         f"input_mode {cfg.input_mode!r}": cfg.input_mode not in ("tokens",
                                                                  "embeddings"),
@@ -94,10 +105,14 @@ def _add_norm(p, a, x, cfg: ModelConfig):
 
 def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
     dev = generator.device
-    return {"norm1": _init_norm(cfg, dev),
-            "mixer": A.init_attention(generator, cfg),
-            "norm2": _init_norm(cfg, dev),
-            "ffn": M.init_ffn(generator, cfg)}
+    p = {"norm1": _init_norm(cfg, dev),
+         "mixer": A.init_attention(generator, cfg),
+         "norm2": _init_norm(cfg, dev),
+         "ffn": M.init_ffn(generator, cfg)}
+    if cfg.post_norm:
+        p["post_norm1"] = _init_norm(cfg, dev)
+        p["post_norm2"] = _init_norm(cfg, dev)
+    return p
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -119,39 +134,64 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
-def block_forward(params, x, cfg: ModelConfig, positions):
-    h = _apply_norm(params["norm1"], x, cfg)
-    a = A.attn_forward(params["mixer"], h, cfg, positions)
+def _block_rest(params, a, x, cfg: ModelConfig):
+    """The block after its mixer: (post-norm,) add + norm, FFN
+    (, post-norm), residual add."""
+    if cfg.post_norm:
+        a = _apply_norm(params["post_norm1"], a, cfg)
     h, x = _add_norm(params["norm2"], a, x, cfg)
     f = M.ffn_forward(params["ffn"], h, cfg)
+    if cfg.post_norm:
+        f = _apply_norm(params["post_norm2"], f, cfg)
     return nn.residual_add(x, f)
 
 
-def block_prefill(params, x, cfg: ModelConfig, positions, max_len: int):
+def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
     h = _apply_norm(params["norm1"], x, cfg)
-    a, cache = A.attn_prefill(params["mixer"], h, cfg, positions, max_len)
-    h, x = _add_norm(params["norm2"], a, x, cfg)
-    f = M.ffn_forward(params["ffn"], h, cfg)
-    return nn.residual_add(x, f), cache
+    a = A.attn_forward(params["mixer"], h, cfg, kind, positions)
+    return _block_rest(params, a, x, cfg)
 
 
-def block_decode(params, x, cfg: ModelConfig, cache, pos):
+def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
+                  max_len: int, lengths=None):
     h = _apply_norm(params["norm1"], x, cfg)
-    a, cache = A.attn_decode(params["mixer"], h, cfg, cache, pos)
-    h, x = _add_norm(params["norm2"], a, x, cfg)
-    f = M.ffn_forward(params["ffn"], h, cfg)
-    return nn.residual_add(x, f), cache
+    a, cache = A.attn_prefill(params["mixer"], h, cfg, kind, positions,
+                              max_len, lengths=lengths)
+    return _block_rest(params, a, x, cfg), cache
+
+
+def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
+    h = _apply_norm(params["norm1"], x, cfg)
+    a, cache = A.attn_decode(params["mixer"], h, cfg, kind, cache, pos)
+    return _block_rest(params, a, x, cfg), cache
+
+
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (nearest even), as the JAX package's
+    ``jnp.asarray(value, dtype)``: sqrt(5376) = 73.32 is 73.5 in bf16. On
+    the host, so no tensor op enters a capture or the card's stream."""
+    if dtype == torch.float16:
+        return float(np.float16(value))
+    f = np.float32(value)
+    if dtype == torch.bfloat16:
+        bits = int(f.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+        f = np.uint32(bits).view(np.float32)
+    return float(f)
 
 
 def embed_inputs(params, inputs, cfg: ModelConfig, positions):
     """Tokens (B, S) int -> (B, S, D), or precomputed embeddings (B, S, D)
-    passed through, in the activation dtype; plus the learned position
-    rows where the config has them."""
+    passed through, in the activation dtype; scaled by sqrt(d_model)
+    (rounded to that dtype first, as JAX) where the config says so; plus
+    the learned position rows where the config has them."""
     if cfg.input_mode == "tokens":
         x = nn.embedding_lookup(params["embed"], inputs)
         x = x.to(cfg.activation_dtype)
     else:      # precomputed modality-frontend embeddings (the ViT stub)
         x = inputs.to(cfg.activation_dtype)
+    if cfg.scale_embeddings:
+        x = nn.scale(x, _rounded(math.sqrt(cfg.d_model), x.dtype))
     if cfg.pos_emb == "learned":
         with nn.scope(OpGroup.MEMORY, "pos_learned"):
             x = x + F.embedding(positions, params["pos"]).to(x.dtype)
@@ -176,18 +216,20 @@ def lm_forward(params, inputs, cfg: ModelConfig, positions=None):
     check_supported(cfg)
     positions = _default_positions(inputs) if positions is None else positions
     x = embed_inputs(params, inputs, cfg, positions)
-    for p in params["layers"]:
-        x = block_forward(p, x, cfg, positions)
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        x = block_forward(p, x, cfg, kind, positions)
     h = _apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params, h, cfg)
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device="cuda") -> List[dict]:
-    """One ``{"k", "v"}`` cache of (batch, max_len, Hkv, Dh) per layer."""
+    """One cache per layer: ``{"k", "v"}`` of (batch, max_len, Hkv, Dh)
+    for a global layer, a ring with its ``"pos"`` side-car for a local
+    one (``attention.init_attn_cache``)."""
     check_supported(cfg, serving=True)
-    return [A.init_attn_cache(cfg, batch, max_len, device=device)
-            for _ in range(cfg.n_layers)]
+    return [A.init_attn_cache(cfg, kind, batch, max_len, device=device)
+            for kind in cfg.layer_kinds()]
 
 
 def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,
@@ -196,14 +238,16 @@ def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,
 
     ``lengths`` (B,): true prompt length per row of a right-padded batch.
     The logits are read at position ``lengths - 1`` instead of the pad
-    tail; with a causal mask no real token attends a pad.
+    tail; with a causal mask no real token attends a pad. The local
+    layers fill their rings from each row's true prompt tail.
     """
     check_supported(cfg, serving=True)
     positions = _default_positions(tokens) if positions is None else positions
     x = embed_inputs(params, tokens, cfg, positions)
     caches = []
-    for p in params["layers"]:
-        x, c = block_prefill(p, x, cfg, positions, max_len)
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        x, c = block_prefill(p, x, cfg, kind, positions, max_len,
+                             lengths=lengths)
         caches.append(c)
     h = _apply_norm(params["final_norm"], x, cfg)
     if lengths is None:
@@ -222,7 +266,7 @@ def lm_decode(params, token, pos, caches: List[dict], cfg: ModelConfig):
     b = token.shape[0]
     pos = A.pos_vector(pos, b, token.device)
     x = embed_inputs(params, token[:, None], cfg, pos[:, None])
-    for i, p in enumerate(params["layers"]):
-        x, caches[i] = block_decode(p, x, cfg, caches[i], pos)
+    for i, (p, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
+        x, caches[i] = block_decode(p, x, cfg, kind, caches[i], pos)
     h = _apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params, h, cfg)[:, 0], caches

@@ -9,7 +9,8 @@ aten op to the paper's operator groups.
 
 A backend switch selects the implementation of the kernel-backed ops
 (the norms, ``swiglu``, the fused ops, prefill and decode attention,
-``nms``):
+``nms``; unfused ``geglu`` is the plain op chain on every backend, as in
+the JAX package):
 
     None    (default) the hand-written kernels for CUDA tensors, the plain
             PyTorch code for CPU tensors
@@ -22,7 +23,8 @@ A backend switch selects the implementation of the kernel-backed ops
 A second, orthogonal switch, :func:`fuse` (``repro.nn.fuse``), routes the
 fusable call sites through single fused operators tagged
 ``ng:fused:<name>``: ``add_rms_norm`` / ``add_layer_norm`` (residual add +
-the norm after it), ``swiglu``, ``apply_rope`` and the decode attention
+the norm after it), ``swiglu``, ``geglu``, ``apply_rope`` and the decode
+attention
 (``fused_attn_decode``). On the kernel backend each fused op is one kernel
 launch; on the plain backend the same fused math runs untagged under the
 fused tag (the ``kernels/ref.py`` twins), so both attribute it to the
@@ -220,6 +222,17 @@ def swiglu(gate, up):
     return (gate * torch.sigmoid(gate.float()).to(gate.dtype)) * up
 
 
+@tagged(OpGroup.ACTIVATION, "geglu")
+def geglu(gate, up):
+    """GELU-tanh(gate) * up in the gate's dtype. Unfused it is the plain op
+    chain on every backend (the JAX package's unfused ``geglu`` reaches no
+    kernel); under :func:`fuse`, one fused operator (the geglu kernel on
+    the card)."""
+    if _FUSION:
+        return _fused_geglu(gate, up)
+    return F.gelu(gate, approximate="tanh") * up
+
+
 # ---------------------------------------------------------------------------
 # Logit computation
 # ---------------------------------------------------------------------------
@@ -389,6 +402,14 @@ def _fused_swiglu(gate, up):
     if use_kernels(gate):
         return _kernels().swiglu(gate, up)
     return ref.swiglu(gate, up)
+
+
+@tagged(OpGroup.FUSED, "fused_geglu")
+def _fused_geglu(gate, up):
+    if use_kernels(gate):
+        return _kernels().geglu(gate, up)
+    # JAX's jnp fallback: the activation in f32, rounded, times ``up``
+    return F.gelu(gate.float(), approximate="tanh").to(gate.dtype) * up
 
 
 @tagged(OpGroup.FUSED, "fused_rope")

@@ -5,7 +5,8 @@ The port of ``repro.serving.Engine`` (greedy decoding). A slot table of
 
 * admission is per slot: each request is prefilled alone, right-padded to
   a power-of-two bucket, with a length mask picking the last real token's
-  logits, and its cache rows are copied into the slot;
+  logits, and its cache rows (every leaf: a local layer's ring and its
+  position side-car too) are copied into the slot;
 * decode runs one step for the whole slot table with a per-slot position
   vector ``pos: (B,)``, so sequences of different depths coexist; a dead
   slot decodes a pad token at position 0 and its output is discarded;
@@ -13,7 +14,7 @@ The port of ``repro.serving.Engine`` (greedy decoding). A slot table of
   FIFO queue at the next step;
 * ``EngineStats`` counts throughput and per-request latency;
 * ``fused=True`` runs prefill and decode under ``nn.fuse()``: the fused
-  add+norm, SwiGLU, rope and decode-attention operators. The switch is
+  add+norm, SwiGLU or GeGLU, rope and decode-attention operators. The switch is
   process-global, so the engine sets it around its own model calls only.
 
 Where the JAX engine casts f32 params to the activation dtype inside every
@@ -209,10 +210,11 @@ class Engine:
                     or req.max_new_tokens <= 1
                     or plen >= self.max_len)
         if live:
-            # copy the single-row caches into the slot, charged to prefill
+            # copy every leaf of the single-row caches into the slot (a
+            # ring's "pos" side-car included), charged to prefill
             for shared, c in zip(self._caches, one):
-                shared["k"][slot] = c["k"][0]
-                shared["v"][slot] = c["v"][0]
+                for name, t in c.items():
+                    shared[name][slot] = t[0]
         self.stats.prefill_s += self.clock() - t0
         self.stats.prefill_tokens += plen
 

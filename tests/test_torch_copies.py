@@ -55,7 +55,8 @@ def test_model_config_fields_pinned():
 
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl", "bert-base",
-                                  "vit-b16", "vit-b16-cls", "detector-vit-s"])
+                                  "vit-b16", "vit-b16-cls", "detector-vit-s",
+                                  "gemma3-27b"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_llama_config_copy_pinned(cut, arch):
     want = jget_config(arch)
@@ -174,7 +175,8 @@ def test_bridge_raises_on_an_unknown_entry_and_carries_every_other():
                                device="cpu")
 
 
-@pytest.mark.parametrize("unported", [dict(ffn="geglu"), dict(qk_norm=True),
+@pytest.mark.parametrize("unported", [dict(n_experts=8, top_k=2),
+                                      dict(attn_logit_softcap=50.0),
                                       dict(pos_emb="sinusoidal"),
                                       dict(input_mode="audio")])
 def test_unported_features_still_raise(unported):

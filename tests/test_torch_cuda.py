@@ -85,6 +85,35 @@ def test_attention_core_on_card(card, case, dt):
     _assert_close(got, ref.attention(q, k, v, q_offset=off), dt)
 
 
+# (B, Sq, Skv, Hq, Hkv, D, q_offset, window): windows shorter than a tile,
+# one tile, one key past it, gemma3's 1024 at 2048 tokens (32 heads over
+# 16), a window longer than the sequence, Skv not a multiple of 64, an offset
+@pytest.mark.parametrize("case", [(2, 100, 100, 4, 4, 64, 0, 1),
+                                  (1, 130, 130, 8, 4, 128, 0, 63),
+                                  (1, 130, 130, 4, 4, 128, 0, 64),
+                                  (2, 197, 197, 4, 2, 64, 0, 65),
+                                  (1, 2048, 2048, 32, 16, 128, 0, 1024),
+                                  (1, 37, 37, 4, 4, 64, 0, 1000),
+                                  (1, 13, 140, 4, 2, 64, 127, 70),
+                                  (1, 21, 21, 2, 2, 34, 0, 5)])  # scalar staging
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_window_on_card(card, case, dt):
+    b, sq, skv, hq, hkv, d, off, w = case
+    q = _randn(card, (b, sq, hq, d), dt)
+    k, v = _randn(card, (b, skv, hkv, d), dt), _randn(card, (b, skv, hkv, d), dt)
+    got = _launched("attention_window",
+                    lambda: ops.attention_window(q, k, v, w, q_offset=off))
+    _assert_close(got, ref.attention(q, k, v, q_offset=off, window=w), dt)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 21504), (2, 37, 257), (1, 13), (1, 1)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_geglu_on_card(card, shape, dt):
+    g, u = _randn(card, shape, dt, 3.0), _randn(card, shape, dt)
+    got = _launched("geglu", lambda: ops.geglu(g, u))
+    _assert_close(got, ref.geglu(g, u), dt)
+
+
 @pytest.mark.parametrize("case", [(1, 197, 197, 12, 12, 64, 64),   # vit stub
                                   (2, 128, 128, 12, 12, 64, 64),   # bert
                                   (2, 64, 256, 6, 6, 64, 64),      # refine
@@ -259,6 +288,40 @@ def test_engine_on_card_matches_engine_on_cpu(card, arch, fused):
     ops.reset_launches()
     on_card = serve(params)
     assert ops.launches["decode_core"] > 0
+    assert on_card == serve(cpu)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_reduced_gemma3_kernel_path_matches_plain_path(card, fused):
+    """Past the reduced window of 64: 5 local layers through the window
+    kernel, the global one through the causal kernel; the engine on the card
+    gives the CPU engine's tokens with prompts that cross the window."""
+    cfg = reduced(get_config("gemma3-27b"))
+    params = init_lm(card, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=card,
+                         device="cuda")
+    with nn.backend("torch"), nn.fuse(fused):
+        want = lm_forward(params, toks, cfg)
+    ops.reset_launches()
+    with nn.fuse(fused):
+        got = lm_forward(params, toks, cfg)
+    assert ops.launches["attention_window"] == 5
+    assert ops.launches["attention_core"] == 1
+    assert ops.launches["geglu"] == (cfg.n_layers if fused else 0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (100, 70, 5)]
+
+    def serve(p):
+        eng = Engine(cfg, p, max_batch=2, max_len=128, fused=fused)
+        uids = [eng.add_request(x, max_new_tokens=8) for x in prompts]
+        done = {r.uid: r.output for r in eng.run()}
+        return [done[u] for u in uids]
+
+    cpu = _to(params, "cpu")
+    on_card = serve(params)
     assert on_card == serve(cpu)
 
 

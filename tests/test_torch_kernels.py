@@ -5,6 +5,7 @@ against its ``repro.kernels.ref`` oracle. Tolerances are
 ``tests/test_kernels.py``'s ATOL (f32 2e-5, bf16 3e-2): both sides compute
 in f32 and round once."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +61,26 @@ def test_swiglu_matches_pallas(shape, dt):
     _close(got, want, dt)
 
 
+@pytest.mark.parametrize("shape", [(4, 128), (2, 37, 257), (3, 1001), (1, 1)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_geglu_matches_pallas(shape, dt):
+    rng = np.random.default_rng(9)
+    gj, gt = _pair(rng, shape, dt, scale=3.0)
+    uj, ut = _pair(rng, shape, dt)
+    want = jops.geglu(gj, uj, interpret=True)
+    got = ops.geglu(gt, ut)
+    assert got.dtype == TORCH_DT[dt] and got.shape == gt.shape
+    _close(got, want, dt)
+    _close(ref.geglu(gt, ut), jref_geglu(gj, uj), dt)
+
+
+def jref_geglu(gate, up):
+    """The function of ``_geglu_kernel``, for the plain twin's check."""
+    g = gate.astype(jnp.float32)
+    return (jax.nn.gelu(g, approximate=True) * up.astype(jnp.float32)
+            ).astype(gate.dtype)
+
+
 # (B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset)
 ATTN_CASES = [
     (2, 37, 37, 4, 4, 32, 32, 0),      # seq 37: ragged q and kv tiles
@@ -100,6 +121,39 @@ def test_decode_core_matches_pallas(hq, hkv, dt):
     assert got.shape == (b, 1, hq, d) and got.dtype == TORCH_DT[dt]
     _close(got, want, dt)
     assert not got[3].float().abs().any(), "lengths 0 must give exact zeros"
+
+
+# (B, Sq, Skv, Hq, Hkv, D, q_offset, window): windows shorter than a
+# tile, of one tile, a key past it, longer than the sequence; GQA; an offset
+WINDOW_CASES = [
+    (2, 70, 70, 4, 4, 32, 0, 1),
+    (1, 70, 70, 8, 2, 32, 0, 8),
+    (1, 130, 130, 4, 2, 64, 0, 64),
+    (2, 100, 100, 4, 4, 32, 0, 65),
+    (1, 13, 40, 4, 2, 32, 27, 8),
+    (1, 37, 37, 4, 4, 32, 0, 1000),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_window_matches_pallas(case, dt):
+    b, sq, skv, hq, hkv, d, q_offset, window = case
+    rng = np.random.default_rng(10)
+    qj, qt = _pair(rng, (b, sq, hq, d), dt)
+    kj, kt = _pair(rng, (b, skv, hkv, d), dt)
+    vj, vt = _pair(rng, (b, skv, hkv, d), dt)
+    want = jops.flash_attention(qj, kj, vj, window=window, q_offset=q_offset,
+                                block_q=32, block_k=32, interpret=True)
+    got = ops.attention_window(qt, kt, vt, window, q_offset=q_offset)
+    assert got.shape == (b, sq, hq, d) and got.dtype == TORCH_DT[dt]
+    _close(got, want, dt)
+    # the plain version against the JAX oracle
+    _close(ref.attention(qt, kt, vt, q_offset=q_offset, window=window),
+           jref.attention(qj, kj, vj, window=window, q_offset=q_offset), dt)
+    if window >= q_offset + sq:        # a window past every key is causal
+        _close(got, T.get("causal")(qj, kj, vj, q_offset=q_offset,
+                                    interpret=True), dt)
 
 
 NORM_SHAPES = [(4, 128), (2, 33, 257), (1, 7, 3, 64), (2, 5, 1600)]
@@ -344,14 +398,17 @@ def test_cpu_branch_launches_nothing():
     ops.rope(x.reshape(1, 3, 1, 64), torch.zeros(1, 3, dtype=torch.int32))
     q = x.reshape(1, 3, 1, 64)
     ops.attention_full(q, q, q)
+    ops.attention_window(q, q, q, 2)
+    ops.geglu(x, x)
     ops.nms(torch.rand(5, 4).cumsum(-1), torch.rand(5))
-    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 10
+    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 12
     assert all(n == 0 for n in ops.launches.values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix",
                                  "residual_shape", "positions", "fraction",
-                                 "nms_operands", "full_heads"])
+                                 "nms_operands", "full_heads", "window",
+                                 "glu_shapes"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     x = torch.randn(4, 64)
     w = torch.ones(64)
@@ -386,6 +443,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             ops.nms_sorted(x.double(), torch.ones(4, dtype=torch.bool))
         with pytest.raises(ValueError):
             ops.nms_sorted(x[:, :4].contiguous(), torch.ones(3, dtype=torch.bool))
+    elif bad == "window":
+        q = x.reshape(1, 4, 4, 16)
+        with pytest.raises(ValueError):
+            ops.attention_window(q, q, q, 0)
+        with pytest.raises(ValueError):
+            ops.attention_window(q, q, q, 4, q_offset=-1)
+    elif bad == "glu_shapes":
+        with pytest.raises(ValueError):
+            ops.geglu(x, x[:2])
+        with pytest.raises(TypeError):
+            ops.geglu(x, x.double())
     else:
         q = x.reshape(1, 4, 4, 16)
         with pytest.raises(ValueError):       # Hq 4 over Hkv 3

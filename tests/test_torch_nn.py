@@ -61,6 +61,8 @@ CASES = {
     "relu": (lambda t: tnn.relu(t(X3)), lambda j: jnn.relu(j(X3))),
     "swiglu": (lambda t: tnn.swiglu(t(X3), t(X3 * 0.5)),
                lambda j: jnn.swiglu(j(X3), j(X3 * 0.5))),
+    "geglu": (lambda t: tnn.geglu(t(X3 * 3), t(X3 * 0.5)),
+              lambda j: jnn.geglu(j(X3 * 3), j(X3 * 0.5))),
     # the vision ops
     "sigmoid": (lambda t: tnn.sigmoid(t(X3 * 3)), lambda j: jnn.sigmoid(j(X3 * 3))),
     "box_decode": (lambda t: tnn.box_decode(t(RAW), t(ANCHORS)),
@@ -144,6 +146,8 @@ FUSED_SITES = {
         "ng:fused:fused_add_layer_norm"),
     "swiglu": (lambda t: tnn.swiglu(t(X3), t(X3)),
                lambda j: jnn.swiglu(j(X3), j(X3)), "ng:fused:fused_swiglu"),
+    "geglu": (lambda t: tnn.geglu(t(X3 * 3), t(X3)),
+              lambda j: jnn.geglu(j(X3 * 3), j(X3)), "ng:fused:fused_geglu"),
     "apply_rope": (lambda t: tnn.apply_rope(t(X4), t(POS)),
                    lambda j: jnn.apply_rope(j(X4), j(POS)),
                    "ng:fused:fused_rope"),
@@ -179,7 +183,7 @@ def test_tagged_ops_push_tag_and_call_marker():
     assert tnn.scope_path() == ""
 
 
-@pytest.mark.parametrize("ffn", ["gelu", "relu", "silu", "swiglu"])
+@pytest.mark.parametrize("ffn", ["gelu", "relu", "silu", "swiglu", "geglu"])
 @pytest.mark.parametrize("bias", [False, True])
 def test_ffn_forward_matches_jax(ffn, bias):
     jcfg = jreduced(jget_config("gpt2-xl")).replace(ffn=ffn, ffn_bias=bias)
