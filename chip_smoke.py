@@ -9,13 +9,15 @@ Phases, each printing JSON lines:
 1. device  - requires CUDA; prints the card's name and power limit (as
              ``nvidia-smi --query-gpu=name,power.limit`` gives them) and
              builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
-2. kernels - holds each of the twelve kernels against its plain PyTorch
+2. kernels - holds each of the fourteen kernels against its plain PyTorch
              version on the card, in bf16 and f32, at the main paths' shapes
              (llama2-7b; gpt2-xl's 25 heads of 64; gemma3-27b's 2048-token
              window prefill over 16 KV heads, its GeGLU rows and its
              qk-norm; the encoders' and the detector's full-mask attention;
-             the detector's NMS) and odd ones; NMS keep masks must be
-             identical;
+             the detector's NMS; the Table-2 dequant row; the §4.5
+             cross-entropy site and gemma3's 262144-token vocabulary) and
+             odd ones; NMS keep masks and the dequant kernel's ``r`` must
+             be identical;
 3. serve   - for each of llama2-7b, gpt2-xl and gemma3-27b at full width
              and depth in bf16 (random weights from a seeded generator on
              the card), the continuous-batching ``Engine`` unfused and fused
@@ -32,6 +34,13 @@ Phases, each printing JSON lines:
              on the kernel path, unfused and fused, for the three models,
              and gemma3-27b unfused at seq 2048, where its window bites: the
              measured GEMM / NonGEMM split;
+   qdq     - for llama2-7b and gpt2-xl, the paper's §4.4 2x2 on one eager
+             ``lm_forward`` (b1 s16, bf16): ``bf16`` / ``fused`` /
+             ``int8-qdq`` / ``int8-qdq+fused`` (``nn.fake_quant("int8")``:
+             both operands of every GEMM site round-trip through int8),
+             each a measured split with its QDQ share; the QDQ kernel path
+             against the QDQ plain path and QDQ fused against QDQ unfused,
+             under the anchored logit rule;
    encode  - bert-base (b1 and b8, s128) and the vit-b16 embeddings stub
              (b1, s197) through ``lm_forward`` at full width and depth in
              bf16, unfused and fused: launches, the kernel path's logits
@@ -44,6 +53,15 @@ Phases, each printing JSON lines:
              NMS kernel against the plain NMS on the kernel path's own
              boxes, and a measured profile of each (batch 1) in which the
              detector must show RoI, Interpolation and Reduction time;
+             then vit-b16-cls at b1 under ``int8-qdq``, unfused and fused
+             (``conv2d``'s QDQ), checked and profiled the same way;
+   micro   - the Table-2 NonGEMM micro-benchmark (``core/microbench``,
+             f32): one line per operator, the fused dequant row through its
+             kernel;
+   kernel_sites - the §4.5 kernel-site table (``bench/sections``): per
+             site the eager chain's bytes against the kernel's, and the
+             kernel against its plain version (the cross-entropy site
+             through softmax_xent);
 5. timing  - kernel, plain version, one PyTorch library call computing the
              same function (where there is one) and the card's bound, at the
              main paths' shapes.
@@ -56,6 +74,7 @@ before that line is printed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -146,7 +165,28 @@ SOURCES = {
                        "src/repro/kernels/attn_template.py:170"),
     "nms": ("src/repro_torch/kernels/csrc/nms.cu",
             "src/repro/kernels/nms.py:25"),
+    "dequant_add_rms_norm": ("src/repro_torch/kernels/csrc/norms.cu",
+                             "src/repro/kernels/norms.py:125"),
+    "softmax_xent": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
+                     "src/repro/kernels/softmax_xent.py:26"),
 }
+#: the served models the qdq phase measures (gemma3-27b is left out: weight
+#: QDQ makes f32 temporaries of its 262144 x 5376 tied embedding, 5.6 GB
+#: each, beside 54 GB of weights)
+QDQ_ARCHS = ("llama2-7b", "gpt2-xl")
+#: JAX's variant labels (core/workload.py ``Workload.variant``) of the 2x2:
+#: (label, fake-quant mode, fused)
+QDQ_VARIANTS = (("bf16", None, False), ("fused", None, True),
+                ("int8-qdq", "int8", False), ("int8-qdq+fused", "int8", True))
+# softmax_xent's output is f32 whatever the logits' dtype, from the same
+# logits on both sides: JAX's sweep tolerance (tests/test_kernels.py)
+XENT_TOL = {"bfloat16": (1e-5, 1e-5), "float32": (1e-5, 1e-5)}
+# the dequant kernel in bf16: y may differ from the plain version's by an
+# ulp only where the f32 row statistic's summation order tips a rounding
+# (~1e-7 relative against a bf16 ulp of 2^-8: a few elements in 1e5); a
+# kernel that normalised the unrounded r (off by up to half an ulp of r)
+# tips a large share
+Y_BITS_DIFFER_MAX = 0.01
 ENCODERS = (("bert-base", ((1, 128), (8, 128))), ("vit-b16", ((1, 197),)))
 VISION = ("vit-b16-cls", "detector-vit-s")
 VISION_BATCH, VISION_FORWARDS = 8, 8
@@ -193,43 +233,6 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-
-class Timer:
-    """Device time of one call in ms (median over runs), each run timed by
-    ``graph.time_once`` as the per-op profile times an op (device time
-    only, the empty event pair subtracted), with the L2 cache flushed
-    before each run: the main path finds its operands cold, with GBs of
-    weights passing between two launches of one layer's kernel.
-
-    :meth:`eager` is the other view: host clock over back-to-back calls,
-    synchronised once — what a call costs the eager serving loop, host
-    dispatch included."""
-
-    def __init__(self, torch, graph, iters: int = 20, warmup: int = 3):
-        self.torch, self.graph = torch, graph
-        self.floor = graph.empty_event_seconds()
-        self.iters, self.warmup = iters, warmup
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn) -> float:
-        for _ in range(self.warmup):
-            fn()
-        ts = []
-        for _ in range(self.iters):
-            self.flush.zero_()
-            ts.append(self.graph.time_once(fn, (), {}, self.floor)[1])
-        return statistics.median(ts) * 1e3
-
-    def eager(self, fn, n: int = 100) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n * 1e3
-
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -400,6 +403,38 @@ def check_kernels(torch, ops, ref, gen):
             compare("attention_full", ops.attention_full(q, k, v),
                     ref.attention(q, k, v, causal=False), dtname,
                     f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} dv={dv}")
+        # dequant_add_rms_norm: the reference sweep's shapes, the Table-2
+        # row and a decode step's
+        for shape in [(4, 128), (2, 33, 257), (1, 7, 3, 64), (1, 10, 4096),
+                      (4, 1, 4096)]:
+            for zc in (False, True):
+                q = torch.randint(-127, 128, shape, generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                qs = torch.full((), 0.031, device="cuda")
+                res, w = randn(shape, dt, 4.0), randn(shape[-1:], dt)
+                (y, r), (wy, wr) = (f.dequant_add_rms_norm(
+                    q, qs, res, w, zero_centered=zc) for f in (ops, ref))
+                case = f"q,res{list(shape)} zero_centered={zc}"
+                compare("dequant_add_rms_norm", y, wy, dtname, case)
+                exact("dequant_add_rms_norm", r, wr, dtname, case)
+                if dt == torch.bfloat16:
+                    frac = float((y != wy).float().mean())
+                    emit(phase="kernels", kernel="dequant_add_rms_norm",
+                         case=case, dtype=dtname, y_bits_differ_frac=frac,
+                         limit=Y_BITS_DIFFER_MAX)
+                    if frac > Y_BITS_DIFFER_MAX:
+                        fail(f"dequant_add_rms_norm {case}: {frac} of y "
+                             "differs from the plain version's bits")
+        # softmax_xent: the reference sweep's shapes, the §4.5 site and
+        # gemma3-27b's vocabulary
+        for rows, vocab in [(7, 1000), (32, 50304), (3, 130), (256, 32000),
+                            (8, 262144)]:
+            logits = randn((rows, vocab), dt, 5.0)
+            labels = torch.randint(0, vocab, (rows,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            compare("softmax_xent", ops.softmax_xent(logits, labels),
+                    ref.softmax_xent(logits, labels), dtname,
+                    f"logits[{rows},{vocab}]", XENT_TOL)
     for case, (boxes, scores, thr, score_thr) in nms_cases(np.random.default_rng(SEED)):
         bt = torch.from_numpy(boxes).cuda()
         st = torch.from_numpy(scores).cuda()
@@ -476,7 +511,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     full-mask ones and gemma3-27b's GeGLU prefill on lines of their own."""
     import torch.nn.functional as F
 
-    timer = Timer(torch, graph)
+    timer = graph.Timer()
     dt = torch.bfloat16
 
     def randn(shape):
@@ -627,6 +662,31 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         lambda: ops.nms_sorted(boxes, valid, thr),
         lambda: ref.nms_sorted(boxes, valid, thr), None,
         16 * n + 2 * n, 13 * sum(n - 1 - i for i in kept))
+    # dequant_add_rms_norm: the Table-2 row (the micro phase's path) in bf16
+    shape, d = (1, 10, 4096), 4096
+    q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                      dtype=torch.int8)
+    qs = torch.full((), 0.02, device="cuda")
+    res, w = randn(shape), randn((d,))
+    n = q.numel()
+    out["dequant_add_rms_norm"] = entry(
+        "q[1,10,4096] int8, res[1,10,4096] bf16 (Table-2 micro row)",
+        lambda: ops.dequant_add_rms_norm(q, qs, res, w),
+        lambda: ref.dequant_add_rms_norm(q, qs, res, w), None,
+        n + 3 * 2 * n + 2 * d + 4, 6 * n)
+    # softmax_xent: the §4.5 site, (256, 32000) f32; the library call is
+    # F.cross_entropy per row
+    logits = torch.randn((256, 32000), generator=gen, device="cuda")
+    labels = torch.randint(0, 32000, (256,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels64 = labels.long()
+    n = logits.numel()
+    out["softmax_xent"] = entry(
+        "logits[256,32000] f32, labels int32 (§4.5 kernel site)",
+        lambda: ops.softmax_xent(logits, labels),
+        lambda: ref.softmax_xent(logits, labels),
+        lambda: F.cross_entropy(logits, labels64, reduction="none"),
+        4 * n + 4 * 256 + 4 * 256, 5 * n)
     for name, tm in extra.items():
         emit(phase="timing", kernel=name, **{k: v for k, v in tm.items()
                                              if k != "bound"},
@@ -663,19 +723,9 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
 
     bad = []
 
-    def dist(a, b) -> float:
-        return float((a.float() - b.float()).abs().max())
-
     def check(step, vs, lk, lt, l32, **info):
-        diff = dist(lk, lt)
-        info.update(kernel_vs_f32=dist(lk, l32), against_vs_f32=dist(lt, l32))
-        lim = max(LOGIT_ATOL, F32_ANCHOR * info["against_vs_f32"])
-        emit(phase="serve", model=cfg.name, fused=fused, step=step,
-             against=f"{vs[0]} fused={vs[1]}", max_abs_diff=diff,
-             max_abs_logit=float(lt.float().abs().max()), atol=lim,
-             same_argmax=bool((lk.argmax(-1) == lt.argmax(-1)).all()), **info)
-        if not (math.isfinite(diff) and diff <= lim):
-            bad.append(f"{step} vs {vs} {info}: {diff} (limit {lim})")
+        check_anchored("serve", step, bad, lk, lt, l32, model=cfg.name,
+                       fused=fused, against=f"{vs[0]} fused={vs[1]}", **info)
 
     rows = []
     for p in prompts:
@@ -774,6 +824,83 @@ def profile(torch, nn, ops, params, cfg, fused: bool, rng, seq: int = 16):
     if per != want:
         fail(f"profile: {name}: launched {per} per forward, expected {want}")
     emit_profile("profile", prof, wall_ms, per)
+
+
+def qdq_share(prof) -> dict:
+    """Device ms and share of the QDQ ops of a profile: the quantization
+    group (quantize, dequantize) and, under fusion, the ``fused_qdq`` site,
+    to which fusion moves the same launches."""
+    fused_qdq = prof.op_seconds.get(("fused", "fused_qdq"), 0.0)
+    quant = prof.group_seconds.get("quantization", 0.0)
+    t = quant + fused_qdq
+    return dict(qdq_ms=round(t * 1e3, 4),
+                qdq_frac=round(t / prof.total_seconds, 4),
+                quantization_group_frac=round(quant / prof.total_seconds, 4),
+                fused_qdq_ms=round(fused_qdq * 1e3, 4))
+
+
+def check_anchored(phase, what, bad, got, vs, anchor, **info):
+    """The anchored logit rule (PERF.md §2): ``got`` may lie at most
+    F32_ANCHOR times the reference path ``vs``'s distance from the
+    f32-activation run ``anchor`` from ``vs``, LOGIT_ATOL at the least.
+    Prints the reading; appends a failure to ``bad``."""
+    diff, ref_vs_anchor = _max_diff(got, vs), _max_diff(vs, anchor)
+    lim = max(LOGIT_ATOL, F32_ANCHOR * ref_vs_anchor)
+    emit(phase=phase, check=what, max_abs_diff=diff,
+         mean_abs_diff=float((got.float() - vs.float()).abs().mean()),
+         kernel_vs_f32=_max_diff(got, anchor), against_vs_f32=ref_vs_anchor,
+         atol=lim, max_abs_logit=float(vs.float().abs().max()),
+         same_argmax=bool((got.argmax(-1) == vs.argmax(-1)).all()),
+         finite=bool(got.float().isfinite().all()), **info)
+    if not (math.isfinite(diff) and diff <= lim):
+        bad.append(f"{what} {info}: {diff} (limit {lim})")
+
+
+def qdq(torch, nn, ops, fwd, args32, args, per_forward, name, launches,
+        paths_only: bool = False):
+    """Phase ``qdq`` for one model: ``fwd(*args)`` (``args32``: the same
+    with f32 activations) under ``nn.fake_quant("int8")`` on the kernel
+    path against the plain path, fused against unfused, under the anchored
+    logit rule; then (not with ``paths_only``) the measured 2x2 of
+    QDQ_VARIANTS. ``per_forward(fused)``: the kernel launches of one
+    forward, which QDQ does not change."""
+    out = {}
+    with nn.fake_quant("int8"):
+        for backend, fused in (("cuda", False), ("torch", False),
+                               ("cuda", True)):
+            ops.reset_launches()
+            with nn.backend(backend), nn.fuse(fused):
+                out[backend, fused] = fwd(*args)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in ops.launches.items() if v}
+            want = per_forward(fused) if backend == "cuda" else {}
+            if got != want:
+                fail(f"qdq: {name} {backend} fused={fused} launched {got}, "
+                     f"expected {want}")
+            for k, n in got.items():
+                launches[k] += n
+        with nn.backend("torch"), nn.fuse(False):
+            l32 = fwd(*args32)
+    bad = []
+    plain, unfused = out["torch", False], out["cuda", False]
+    check_anchored("qdq", "int8-qdq kernel vs plain", bad, unfused, plain,
+                   l32, model=name)
+    check_anchored("qdq", "int8-qdq+fused vs int8-qdq", bad, out["cuda", True],
+                   unfused, l32, model=name)
+    if bad:
+        fail(f"qdq: {name} logits past their limits: " + "; ".join(bad))
+    if paths_only:
+        return
+    for label, mode, fused in QDQ_VARIANTS:
+        with nn.fake_quant(mode):
+            prof, wall, per = measured(torch, nn, ops, fwd, args,
+                                       f"{name} {label}", fused)
+        if per != per_forward(fused):
+            fail(f"qdq: {name} {label} launched {per} per forward")
+        share = qdq_share(prof)
+        emit_profile("qdq", prof, wall, per, variant=label, **share)
+        if (share["qdq_ms"] > 0) != (mode is not None):
+            fail(f"qdq: {name} {label}: QDQ time {share['qdq_ms']} ms")
 
 
 def emit_profile(phase, prof, wall_ms, per_forward, **info):
@@ -1050,6 +1177,25 @@ def vision(torch, nn, ops, arch, launches, paths_only: bool = False):
     return nms_inputs
 
 
+def qdq_vision(torch, nn, ops, launches, paths_only: bool = False):
+    """Phase ``qdq`` for vit-b16-cls at b1 (224 px): the patch ``conv2d``
+    and every ``linear`` under ``nn.fake_quant("int8")``, as for the
+    served models."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.vision import init_vision, vision_forward
+
+    cfg = get_config("vit-b16-cls").replace(dtype="bfloat16",
+                                            param_dtype="bfloat16")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    params = init_vision(gen, cfg)
+    imgs = torch.randn((1, cfg.n_channels, cfg.image_size, cfg.image_size),
+                       generator=gen, device="cuda")
+    qdq(torch, nn, ops, vision_forward,
+        (params, imgs, cfg.replace(dtype="float32")), (params, imgs, cfg),
+        lambda fused: encoder_launches(cfg, fused),
+        f"vit-b16-cls b-1 {cfg.image_size}px bf16", launches, paths_only)
+
+
 # ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
@@ -1125,6 +1271,14 @@ def main(argv=None) -> int:
         if not args.paths_only:
             for seq, fused in PROFILES.get(arch, ((16, False), (16, True))):
                 profile(torch, nn, ops, params, cfg, fused, rng, seq)
+        if arch in QDQ_ARCHS:
+            toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                 (1, 16))).cuda()
+            qdq(torch, nn, ops, lm_forward,
+                (params, toks, cfg.replace(dtype="float32")),
+                (params, toks, cfg),
+                lambda fused, c=cfg: per_forward_launches(c, fused),
+                f"{arch} b-1 s-16 bf16", launches, args.paths_only)
         # the last step of the 4 slots serving the first 4 requests, cut off
         # at their 16th token
         decode_lengths[arch] = [n + NEW_TOKENS - 1 for n in plens[:4]]
@@ -1143,8 +1297,31 @@ def main(argv=None) -> int:
     for arch in VISION:
         nms_inputs = vision(torch, nn, ops, arch, launches,
                             args.paths_only) or nms_inputs
+    qdq_vision(torch, nn, ops, launches, args.paths_only)
     if args.paths_only:
         return 0
+
+    # -- phase micro: the Table-2 suite, f32 ----------------------------------
+    from repro_torch.core.microbench import run_suite
+    ops.reset_launches()
+    rows = run_suite(repeats=20)
+    for r in rows:
+        emit(phase="micro", **dataclasses.asdict(r))
+        if not (r.device == "cuda" and r.device_us > 0 and r.eager_us > 0):
+            fail(f"micro: {r.name}: no device time measured ({r})")
+    for k, n in ops.launches.items():
+        launches[k] += n
+
+    # -- phase kernel_sites: the §4.5 table -----------------------------------
+    from repro_torch.bench.sections import section_kernels
+    ops.reset_launches()
+    sites = section_kernels("cuda")
+    for row in sites:
+        emit(phase="kernel_sites", **row)
+    for k, n in ops.launches.items():
+        launches[k] += n
+    if len(sites) != 6 or not all(r["allclose"] for r in sites):
+        fail(f"kernel_sites: a kernel disagrees with its plain version: {sites}")
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the main paths: {missing}")

@@ -57,3 +57,9 @@ mut window_late_start attention.cu \
 # GeGLU without the cubic term of its tanh approximation
 mut geglu_no_cubic swiglu.cu \
   's/tanhf(kSqrt2OverPi \* (g + 0.044715f \* g \* g \* g))/tanhf(kSqrt2OverPi * g)/'
+# the dequant epilogue normalising the unrounded sum instead of the rounded r
+mut dequant_unrounded_r norms.cu \
+  's/for (int j = 0; j < V; ++j) v\[j\] = repro::to_f(repro::from_f<T>(v\[j\]));/for (int j = 0; j < V; ++j) v[j] = kDequant ? v[j] : repro::to_f(repro::from_f<T>(v[j]));/'
+# softmax_xent without the mask of the last tile's columns past the vocabulary
+mut xent_no_tail_mask softmax_xent.cu \
+  's/const float xv = in_vocab ? repro::to_f(row\[c\]) : repro::kNegInf;/const float xv = repro::to_f(row[c]);/'

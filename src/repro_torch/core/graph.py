@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import statistics
 import time
 from typing import Callable, List, Optional
 
@@ -156,6 +157,41 @@ def time_once(func, args, kwargs, floor: Optional[float]):
     t0 = time.perf_counter()
     out = func(*args, **kwargs)
     return out, time.perf_counter() - t0
+
+
+class Timer:
+    """Device time of one call in ms on the card (median over runs), each
+    run timed by :func:`time_once` as the per-op profile times an op
+    (device time only, the empty event pair subtracted), with the L2 cache
+    flushed before each run: a main path finds its operands cold, with GBs
+    of weights passing between two launches of one layer's kernel.
+
+    :meth:`eager` is the other view: host clock over back-to-back calls,
+    synchronised once — what a call costs an eager loop, host dispatch
+    included."""
+
+    def __init__(self, iters: int = 20, warmup: int = 3):
+        self.floor = empty_event_seconds()
+        self.iters, self.warmup = iters, warmup
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn) -> float:
+        for _ in range(self.warmup):
+            fn()
+        ts = []
+        for _ in range(self.iters):
+            self.flush.zero_()
+            ts.append(time_once(fn, (), {}, self.floor)[1])
+        return statistics.median(ts) * 1e3
+
+    def eager(self, fn, n: int = 100) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
 
 
 class _OpMode(TorchDispatchMode):

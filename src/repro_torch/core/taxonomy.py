@@ -107,7 +107,8 @@ _reg(
     "stack", "split", "split_with_sizes", "index", "index_select",
     "embedding", "gather", "scatter", "index_put", "index_put_", "copy_",
     "_to_copy", "clone", "contiguous", "empty", "empty_like", "zeros",
-    "zeros_like", "full", "full_like", "new_zeros", "new_empty", "arange",
+    "zeros_like", "full", "full_like", "new_zeros", "new_empty", "new_full",
+    "arange",
     "alias", "detach", "lift_fresh", "_unsafe_index_put", "slice_scatter",
     "fill_", "zero_", "as_strided", "unbind", "repeat", "flatten",
 )

@@ -28,11 +28,13 @@ from . import nms as _nms
 from . import norms as _norms
 from . import ref
 from . import rope as _rope
+from . import softmax_xent as _xent
 from . import swiglu as _glu
 
 KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
            "fused_add_layer_norm", "rope", "swiglu", "geglu", "attention_core",
-           "attention_window", "decode_core", "attention_full", "nms")
+           "attention_window", "decode_core", "attention_full", "nms",
+           "dequant_add_rms_norm", "softmax_xent")
 
 #: launches of each kernel since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -70,7 +72,8 @@ def _check_dtype(name: str, *tensors: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# row norms: rms_norm, fused_add_rms_norm, layer_norm, fused_add_layer_norm
+# row norms: rms_norm, fused_add_rms_norm, layer_norm, fused_add_layer_norm,
+# dequant_add_rms_norm
 # ---------------------------------------------------------------------------
 
 def _check_norm(name: str, x, residual, *vectors) -> bool:
@@ -155,6 +158,67 @@ def fused_add_layer_norm(x: torch.Tensor, residual: torch.Tensor,
 @fused_add_layer_norm.register_fake
 def _(x, residual, scale, bias, eps=1e-5):
     return torch.empty_like(x), torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::dequant_add_rms_norm", mutates_args=())
+def dequant_add_rms_norm(q: torch.Tensor, qscale: torch.Tensor,
+                         residual: torch.Tensor, scale: torch.Tensor,
+                         eps: float = 1e-6, zero_centered: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rms_norm(r), r)`` with ``r = q * qscale + residual`` rounded once
+    to the residual's dtype: ``q`` int8, ``qscale`` a 0-d f32 tensor on the
+    same device (the kernel reads it there), ``residual`` (q's shape) and
+    the (d,) ``scale`` of one float dtype."""
+    on_card = _on_card("dequant_add_rms_norm", q, qscale, residual, scale)
+    if q.dtype != torch.int8:
+        raise TypeError(f"dequant_add_rms_norm: q must be int8, got {q.dtype}")
+    if qscale.dtype != torch.float32 or qscale.dim() != 0:
+        raise TypeError(f"dequant_add_rms_norm: qscale must be a 0-d float32 "
+                        f"tensor, got {qscale.dtype} of shape "
+                        f"{tuple(qscale.shape)}")
+    _check_norm("dequant_add_rms_norm", residual, None, scale)
+    if residual.shape != q.shape:
+        raise ValueError(f"dequant_add_rms_norm: residual "
+                         f"{tuple(residual.shape)} for q {tuple(q.shape)}")
+    if not on_card:
+        return ref.dequant_add_rms_norm(q, qscale, residual, scale, eps=eps,
+                                        zero_centered=zero_centered)
+    launches["dequant_add_rms_norm"] += 1
+    return _norms.dequant_add_rms_norm(q, qscale, residual, scale, eps,
+                                       zero_centered)
+
+
+@dequant_add_rms_norm.register_fake
+def _(q, qscale, residual, scale, eps=1e-6, zero_centered=False):
+    return torch.empty_like(residual), torch.empty_like(residual)
+
+
+# ---------------------------------------------------------------------------
+# softmax_xent
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::softmax_xent", mutates_args=())
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row cross-entropy: logits (R, V) f32 or bf16, integer labels
+    (R,) in [0, V) -> (R,) f32. A label outside [0, V) picks nothing and
+    gives the row's logsumexp on the card (the plain version raises)."""
+    on_card = _on_card("softmax_xent", logits, labels)
+    _check_dtype("softmax_xent", logits)
+    if logits.dim() != 2 or labels.shape != logits.shape[:1]:
+        raise ValueError(f"softmax_xent: logits (R, V) and labels (R,), got "
+                         f"{tuple(logits.shape)} and {tuple(labels.shape)}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"softmax_xent: labels must be int32 or int64, got "
+                        f"{labels.dtype}")
+    if not on_card:
+        return ref.softmax_xent(logits, labels)
+    launches["softmax_xent"] += 1
+    return _xent.softmax_xent(logits, labels)
+
+
+@softmax_xent.register_fake
+def _(logits, labels):
+    return logits.new_empty(logits.shape[:1], dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

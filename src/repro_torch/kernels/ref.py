@@ -37,6 +37,17 @@ def fused_add_rms_norm(x, residual, scale, eps: float = 1e-6,
     return rms_norm(r, scale, eps=eps, zero_centered=zero_centered), r
 
 
+def dequant_add_rms_norm(q, qscale, residual, scale, eps: float = 1e-6,
+                         zero_centered: bool = False):
+    """``(rms_norm(r), r)`` with ``r = q * qscale + residual``: the int8
+    ``q`` dequantized by the scalar f32 ``qscale`` and added to the residual
+    in f32 (a multiply, then an add, each rounded in f32), the sum rounded
+    once to ``residual``'s dtype; the norm reads the rounded ``r``."""
+    qs = torch.as_tensor(qscale, dtype=torch.float32, device=q.device)
+    r = (q.float() * qs + residual.float()).to(residual.dtype)
+    return rms_norm(r, scale, eps=eps, zero_centered=zero_centered), r
+
+
 def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in f32 with the two-pass variance ``mean((x - mean)^2)``."""
     xf = x.float()
@@ -145,6 +156,16 @@ def decode_attention(q, k, v, lengths: torch.Tensor,
     p = torch.where(valid.any(dim=-1)[:, None, None, None], p, 0.0)
     o = torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(b, 1, hq, dv)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row cross-entropy, logits (R, V) of any float dtype and labels
+    (R,) integers in [0, V) -> (R,) f32: ``logsumexp(row) - row[label]``."""
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    picked = torch.gather(lf, -1, labels.long()[:, None])[:, 0]
+    return lse - picked
 
 
 def interpolate_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -29,6 +29,14 @@ attention
 launch; on the plain backend the same fused math runs untagged under the
 fused tag (the ``kernels/ref.py`` twins), so both attribute it to the
 ``fused`` group.
+
+A third switch, :func:`fake_quant` (``repro.nn.fake_quant``, the paper's
+§4.4 QDQ setting), round-trips both operands of every tagged GEMM site
+(``linear``, ``einsum``, ``conv2d``) through symmetric per-tensor int8
+(``quantize_int8`` then ``dequantize_int8``; under :func:`fuse` one
+``_fused_qdq`` op), with the JAX package's arithmetic: a true division by
+the scale, round half to even, clamp to [-127, 127]. The attention
+products are no ``nn.einsum`` and stay free of QDQ, as in JAX.
 """
 
 from __future__ import annotations
@@ -103,6 +111,35 @@ def fuse(enabled: bool = True):
         yield
     finally:
         set_fusion(prev)
+
+
+#: process-global fake-quant switch (None | "int8"): while set, every
+#: tagged GEMM site wraps its operands in simulated quantize/dequantize ops
+_FAKE_QUANT: Optional[str] = None
+
+_QUANT_MODES = ("int8",)
+
+
+def set_fake_quant(mode: Optional[str]) -> None:
+    global _FAKE_QUANT
+    if mode is not None and mode not in _QUANT_MODES:
+        raise ValueError(f"unknown fake-quant mode {mode!r}; "
+                         f"known: {_QUANT_MODES}")
+    _FAKE_QUANT = mode
+
+
+def get_fake_quant() -> Optional[str]:
+    return _FAKE_QUANT
+
+
+@contextlib.contextmanager
+def fake_quant(mode: Optional[str] = "int8"):
+    prev = get_fake_quant()
+    set_fake_quant(mode)
+    try:
+        yield
+    finally:
+        set_fake_quant(prev)
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +282,19 @@ def softmax(x, dim: int = -1):
     return (e / torch.sum(e, dim=dim, keepdim=True)).to(x.dtype)
 
 
+@tagged(OpGroup.LOGIT, "softmax_cross_entropy")
+def softmax_cross_entropy(logits, labels):
+    """Per-position CE, logits (..., V) in f32, integer labels (...): the
+    plain chain on every backend, as ``repro.nn.softmax_cross_entropy``
+    (the softmax_xent kernel is reached only through
+    ``kernels.ops.softmax_xent``, as the JAX package reaches its own)."""
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m.squeeze(-1)
+    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - label_logit
+
+
 # ---------------------------------------------------------------------------
 # Memory
 # ---------------------------------------------------------------------------
@@ -352,6 +402,54 @@ def box_decode(raw, anchors):
 
 
 # ---------------------------------------------------------------------------
+# Quantization (paper §4.4: QDQ operators around the GEMMs)
+# ---------------------------------------------------------------------------
+
+def _quantize_int8_impl(x):
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf))
+    # 127 as a tensor on x's device: a CUDA op given a host scalar divisor
+    # multiplies by its reciprocal, which differs from JAX's division in
+    # the last bit of some quotients (scripts/qdq_division_check.py)
+    scale = torch.clamp(amax, min=1e-8) / amax.new_full((), 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_int8_impl(q, scale, dtype=torch.float32):
+    return (q.float() * scale).to(dtype)
+
+
+@tagged(OpGroup.QUANT, "quantize")
+def quantize_int8(x):
+    """Simulated symmetric per-tensor int8 quantization: ``(q, scale)``, q
+    int8 and a 0-d f32 scale ``max(amax, 1e-8) / 127`` (absmax reduction,
+    divide, round half to even, clamp, cast)."""
+    return _quantize_int8_impl(x)
+
+
+@tagged(OpGroup.QUANT, "dequantize")
+def dequantize_int8(q, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_int8` (cast + scale multiply)."""
+    return _dequantize_int8_impl(q, scale, dtype)
+
+
+def fake_quant_int8(x):
+    """Round-trip ``x`` through the int8 grid (quantize -> dequantize), in
+    ``x``'s dtype; under :func:`fuse` one ``_fused_qdq`` op."""
+    if _FUSION:
+        return _fused_qdq(x)
+    q, s = quantize_int8(x)
+    return dequantize_int8(q, s, x.dtype)
+
+
+def _maybe_fake_quant(*operands):
+    if _FAKE_QUANT == "int8":
+        return tuple(fake_quant_int8(o) for o in operands)
+    return operands
+
+
+# ---------------------------------------------------------------------------
 # Fused operators (paper §6). Each is ONE operator under one ng:fused: tag
 # and, on the kernel backend, one kernel launch. The plain backend calls
 # the untagged kernels/ref.py twins, so no inner ng: tag shadows the fused
@@ -397,6 +495,27 @@ def add_layer_norm(x, residual, scale, bias, eps: float = 1e-5):
     return layer_norm(r, scale, bias, eps=eps), r
 
 
+@tagged(OpGroup.FUSED, "fused_dequant_add_rms_norm")
+def dequant_add_rms_norm(q, qscale, residual, scale, eps: float = 1e-6,
+                         zero_centered: bool = False):
+    """The fused QDQ epilogue ``(rms_norm(q * qscale + residual), r)``:
+    int8 ``q``, a 0-d f32 ``qscale``; one kernel launch on the card."""
+    if use_kernels(q):
+        return _kernels().dequant_add_rms_norm(q, qscale, residual, scale,
+                                               eps=eps,
+                                               zero_centered=zero_centered)
+    return ref.dequant_add_rms_norm(q, qscale, residual, scale, eps=eps,
+                                    zero_centered=zero_centered)
+
+
+@tagged(OpGroup.FUSED, "fused_qdq")
+def _fused_qdq(x):
+    """The int8 round-trip as one fused op: plain PyTorch on every backend
+    (the JAX package has no kernel for it either)."""
+    q, s = _quantize_int8_impl(x)
+    return _dequantize_int8_impl(q, s, x.dtype)
+
+
 @tagged(OpGroup.FUSED, "fused_swiglu")
 def _fused_swiglu(gate, up):
     if use_kernels(gate):
@@ -440,6 +559,7 @@ def fused_attn_decode(q, k, v, lengths, scale: Optional[float] = None):
 
 @tagged(OpGroup.GEMM, "linear")
 def linear(x, w, b=None):
+    x, w = _maybe_fake_quant(x, w)
     y = torch.matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
@@ -448,8 +568,9 @@ def linear(x, w, b=None):
 
 @tagged(OpGroup.GEMM, "einsum")
 def einsum(spec: str, *operands):
-    return torch.einsum(spec, *operands)
-
+    dt = operands[0].dtype
+    operands = _maybe_fake_quant(*operands)
+    return torch.einsum(spec, *operands).to(dt)
 
 
 @tagged(OpGroup.GEMM, "conv2d")
@@ -458,9 +579,11 @@ def conv2d(x, w, b=None, stride: int = 1, padding: str = "VALID"):
     (channels last, so the vision models feed it straight into the
     token-major encoder stack). GEMM-group work in the paper's taxonomy;
     ``F.conv2d`` computes it, as XLA does outside any Pallas kernel in the
-    JAX package, accumulating in f32."""
+    JAX package, accumulating in f32. Under :func:`fake_quant` both
+    operands round-trip through int8 first, ``w`` in its own dtype."""
     if padding != "VALID":
         raise ValueError(f"conv2d: padding {padding!r} not ported (VALID only)")
+    x, w = _maybe_fake_quant(x, w)
     y = F.conv2d(x, w.to(x.dtype), stride=stride).permute(0, 2, 3, 1)
     y = y.contiguous()
     if b is not None:

@@ -194,3 +194,21 @@ def test_backend_switch_validates_and_restores():
     assert tnn.get_backend() is None and not tnn.use_kernels(torch.zeros(1))
     with pytest.raises(ValueError):
         tnn.set_backend("pallas")
+
+
+@pytest.mark.parametrize("fn", ["quantize", "dequantize"])
+def test_untagged_qdq_chain_has_an_aten_group(fn):
+    # the QDQ chain's aten ops (abs, amax, new_full, div, round, clamp,
+    # _to_copy, mul) run outside a tag: none is left in OTHER
+    from repro_torch.core import capture
+    x = torch.randn(4, 8)
+    if fn == "quantize":
+        recs = capture(tnn._quantize_int8_impl, x)
+    else:
+        q, s = tnn._quantize_int8_impl(x)
+        recs = capture(tnn._dequantize_int8_impl, q, s, torch.bfloat16)
+    assert recs and all(r.group is not ttax.OpGroup.OTHER for r in recs), \
+        [(r.prim, r.group) for r in recs]
+    for prim in ("abs", "amax", "max", "div", "round", "clamp", "_to_copy",
+                 "new_full", "mul"):
+        assert ttax.classify(f"aten.{prim}")[0] is not ttax.OpGroup.OTHER

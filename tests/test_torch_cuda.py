@@ -229,6 +229,93 @@ def test_rope_on_card(card, case, dt):
     _assert_close(got, ref.rope(x, p, fraction=fraction), dt)
 
 
+DEQUANT_SHAPES = [(4, 128), (2, 33, 257), (1, 7, 3, 64), (1, 10, 4096),
+                  (4, 1, 4096)]
+
+
+@pytest.mark.parametrize("shape", DEQUANT_SHAPES)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("zero_centered", [False, True])
+def test_dequant_add_rms_norm_on_card(card, shape, dt, zero_centered):
+    q = torch.randint(-127, 128, shape, generator=card, device="cuda",
+                      dtype=torch.int8)
+    qs = torch.full((), 0.031, device="cuda")
+    res = _randn(card, shape, dt, 4.0)
+    w = _randn(card, shape[-1:], dt)
+    y, r = _launched("dequant_add_rms_norm", lambda: ops.dequant_add_rms_norm(
+        q, qs, res, w, zero_centered=zero_centered))
+    want_y, want_r = ref.dequant_add_rms_norm(q, qs, res, w,
+                                              zero_centered=zero_centered)
+    _assert_close(y, want_y, dt)
+    assert torch.equal(r, want_r)   # a multiply, an add, rounded once, both sides
+
+
+def test_dequant_reads_its_scale_on_the_card(card):
+    q = torch.randint(-127, 128, (3, 64), generator=card, device="cuda",
+                      dtype=torch.int8)
+    qs = torch.full((), 0.5, device="cuda")
+    res = torch.zeros(3, 64, device="cuda")
+    w = torch.ones(64, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a host read of qs would raise
+    try:
+        _, r1 = ops.dequant_add_rms_norm(q, qs, res, w)
+        qs.fill_(0.25)                        # changed on the card only
+        _, r2 = ops.dequant_add_rms_norm(q, qs, res, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(r1, q.float() * 0.5) and torch.equal(r2, q.float() * 0.25)
+
+
+@pytest.mark.parametrize("rows,vocab", [(7, 1000), (32, 50304), (3, 130),
+                                        (256, 32000), (2, 262144), (1, 1),
+                                        (5, 4099)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_softmax_xent_on_card(card, rows, vocab, dt):
+    logits = _randn(card, (rows, vocab), dt, 5.0)
+    labels = torch.randint(0, vocab, (rows,), generator=card, device="cuda",
+                           dtype=torch.int32)
+    got = _launched("softmax_xent", lambda: ops.softmax_xent(logits, labels))
+    # f32 out on both sides, from the same logits: JAX's sweep tolerance
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (rows,)
+    torch.testing.assert_close(got, ref.softmax_xent(logits, labels),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_softmax_xent_label_outside_the_vocab_picks_nothing(card):
+    logits = _randn(card, (4, 1000), torch.float32, 5.0)
+    labels = torch.tensor([-1, 1000, 1023, 3], device="cuda")
+    got = ops.softmax_xent(logits, labels)
+    lse = torch.logsumexp(logits, dim=-1)
+    torch.testing.assert_close(got[:3], lse[:3], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[3], lse[3] - logits[3, 3], atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_new_kernels_reject_what_they_do_not_take(card):
+    x = _randn(card, (4, 64), torch.float32)
+    w = torch.ones(64, device="cuda")
+    qs = torch.full((), 0.1, device="cuda")
+    q = torch.zeros(4, 64, dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError, match="int8"):
+        ops.dequant_add_rms_norm(x, qs, x, w)
+    with pytest.raises(TypeError, match="0-d float32"):
+        ops.dequant_add_rms_norm(q, qs.reshape(1), x, w)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.dequant_add_rms_norm(q, qs.cpu(), x, w)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        ops.dequant_add_rms_norm(q, qs, x, w.bfloat16())
+    with pytest.raises(TypeError, match="labels"):
+        ops.softmax_xent(x, torch.zeros(4, device="cuda"))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.softmax_xent(x.half(), torch.zeros(4, dtype=torch.int64,
+                                               device="cuda"))
+    with pytest.raises(ValueError, match=r"\(R, V\)"):
+        ops.softmax_xent(x[None], torch.zeros(1, dtype=torch.int64,
+                                              device="cuda"))
+
+
 def test_kernels_raise_above_what_they_take(card):
     q = _randn(card, (1, 4, 2, 192), torch.float32)
     with pytest.raises(ValueError, match="head dims"):

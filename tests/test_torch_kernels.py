@@ -230,7 +230,50 @@ def test_rope_matches_pallas(case, dt):
     _close(got, want, dt)
 
 
+@pytest.mark.parametrize("shape", [(4, 128), (2, 33, 257), (1, 7, 3, 64)])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("zero_centered", [False, True])
+def test_dequant_add_rms_norm_matches_pallas(shape, dt, zero_centered):
+    # the reference sweep (tests/test_kernels.py) at its tolerance, for y
+    # and for r
+    rng = np.random.default_rng(11)
+    q = rng.integers(-127, 128, shape).astype(np.int8)
+    rj, rt = _pair(rng, shape, dt, scale=4.0)
+    wj, wt = _pair(rng, (shape[-1],), dt)
+    want = jops.dequant_add_rms_norm(jnp.asarray(q), jnp.float32(0.031), rj, wj,
+                                     zero_centered=zero_centered,
+                                     interpret=True)
+    got = ops.dequant_add_rms_norm(torch.from_numpy(q),
+                                   torch.tensor(0.031, dtype=torch.float32),
+                                   rt, wt, zero_centered=zero_centered)
+    for g, w in zip(got, want):
+        assert g.dtype == TORCH_DT[dt] and g.shape == rt.shape
+        _close(g, w, dt)
+
+
+@pytest.mark.parametrize("r,v,bv", [(7, 1000, 256), (32, 50304, 2048),
+                                    (3, 130, 64)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_softmax_xent_matches_pallas(r, v, bv, dt):
+    # the reference sweep (tests/test_kernels.py): rtol = atol = 1e-5 on the
+    # f32 losses, from logits of either dtype
+    rng = np.random.default_rng(12)
+    lj, lt = _pair(rng, (r, v), dt, scale=5.0)
+    labels = rng.integers(0, v, r).astype(np.int32)
+    want = jops.softmax_xent(lj, jnp.asarray(labels), block_vocab=bv,
+                             interpret=True)
+    got = ops.softmax_xent(lt, torch.from_numpy(labels))
+    assert got.dtype == torch.float32 and got.shape == (r,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 REF_TWINS = {
+    "dequant_add_rms_norm": lambda m, x, r, w, b: m.dequant_add_rms_norm(
+        (x * 40).round().clip(-127, 127).to(torch.int8) if m is ref else
+        (x * 40).round().clip(-127, 127).astype(jnp.int8), 0.031, r, w),
+    "softmax_xent": lambda m, x, r, w, b: m.softmax_xent(
+        x.reshape(10, 32) * 5, (b[:10] % 32)),
     "layer_norm": lambda m, x, r, w, b: m.layer_norm(x, w, b),
     "fused_add_layer_norm": lambda m, x, r, w, b: m.fused_add_layer_norm(x, r, w, b),
     "fused_add_rms_norm": lambda m, x, r, w, b: m.fused_add_rms_norm(x, r, w),
@@ -244,7 +287,7 @@ def test_ref_twin_matches_jax_oracle(name):
     rng = np.random.default_rng(7)
     x, r = (rng.standard_normal((2, 5, 32)).astype(np.float32) for _ in "xr")
     w, b = (rng.standard_normal(32).astype(np.float32) for _ in "wb")
-    if name == "rope":
+    if name in ("rope", "softmax_xent"):
         b = rng.integers(0, 2048, 32).astype(np.int32)
     want = REF_TWINS[name](jref, *map(jnp.asarray, (x, r, w, b)))
     got = REF_TWINS[name](ref, *map(torch.from_numpy, (x, r, w, b)))
@@ -401,14 +444,18 @@ def test_cpu_branch_launches_nothing():
     ops.attention_window(q, q, q, 2)
     ops.geglu(x, x)
     ops.nms(torch.rand(5, 4).cumsum(-1), torch.rand(5))
-    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 12
+    ops.dequant_add_rms_norm(torch.zeros(3, 64, dtype=torch.int8),
+                             torch.tensor(0.5), x, torch.ones(64))
+    ops.softmax_xent(x, torch.zeros(3, dtype=torch.int32))
+    assert set(ops.launches) == set(ops.KERNELS) and len(ops.KERNELS) == 14
     assert all(n == 0 for n in ops.launches.values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "device_mix",
                                  "residual_shape", "positions", "fraction",
                                  "nms_operands", "full_heads", "window",
-                                 "glu_shapes"])
+                                 "glu_shapes", "dequant_operands",
+                                 "xent_operands"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     x = torch.randn(4, 64)
     w = torch.ones(64)
@@ -449,6 +496,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             ops.attention_window(q, q, q, 0)
         with pytest.raises(ValueError):
             ops.attention_window(q, q, q, 4, q_offset=-1)
+    elif bad == "dequant_operands":
+        q = torch.zeros(4, 64, dtype=torch.int8)
+        qs = torch.tensor(0.1)
+        with pytest.raises(TypeError, match="int8"):
+            ops.dequant_add_rms_norm(x, qs, x, w)
+        with pytest.raises(TypeError, match="0-d float32"):
+            ops.dequant_add_rms_norm(q, qs.double(), x, w)
+        with pytest.raises(TypeError, match="0-d float32"):
+            ops.dequant_add_rms_norm(q, qs.reshape(1), x, w)
+        with pytest.raises(ValueError, match="residual"):
+            ops.dequant_add_rms_norm(q, qs, x[:2], w)
+        with pytest.raises(TypeError, match="mixed dtypes"):
+            ops.dequant_add_rms_norm(q, qs, x, w.bfloat16())
+    elif bad == "xent_operands":
+        with pytest.raises(TypeError, match="labels"):
+            ops.softmax_xent(x, torch.zeros(4))
+        with pytest.raises(ValueError, match=r"\(R, V\)"):
+            ops.softmax_xent(x, torch.zeros(3, dtype=torch.int64))
+        with pytest.raises(TypeError, match="dtype"):
+            ops.softmax_xent(x.half(), torch.zeros(4, dtype=torch.int64))
     elif bad == "glu_shapes":
         with pytest.raises(ValueError):
             ops.geglu(x, x[:2])

@@ -30,6 +30,8 @@ KER = RNG.standard_normal((8, 3, 4, 4)).astype(np.float32)        # OIHW
 GRID = RNG.standard_normal((2, 6, 7, 5)).astype(np.float32)       # NHWC
 RAW = RNG.standard_normal((2, 9, 4)).astype(np.float32) * 3
 ANCHORS = np.abs(RNG.standard_normal((9, 4))).astype(np.float32) * 8 + 1
+LABELS = RNG.integers(0, 24, (2, 5)).astype(np.int32)
+Q8 = RNG.integers(-127, 128, (2, 5, 24)).astype(np.int8)
 
 # name: (port call, JAX call), each on its own framework's arrays
 CASES = {
@@ -92,6 +94,9 @@ CASES = {
         lambda j: jnn.avg_pool2d(j(GRID), window=3, stride=2, padding="SAME")),
     "global_avg_pool": (lambda t: tnn.global_avg_pool(t(GRID)),
                         lambda j: jnn.global_avg_pool(j(GRID))),
+    "softmax_cross_entropy": (
+        lambda t: tnn.softmax_cross_entropy(t(X3 * 4), t(LABELS)),
+        lambda j: jnn.softmax_cross_entropy(j(X3 * 4), j(LABELS))),
 }
 
 
@@ -119,6 +124,11 @@ PAIR_CASES = {
                                      t(W[:, 1])),
         lambda j: jnn.add_layer_norm(j(X3), j(X3[::-1].copy()), j(W[:, 0]),
                                      j(W[:, 1]))),
+    "dequant_add_rms_norm": (
+        lambda t: tnn.dequant_add_rms_norm(t(Q8), t(np.array(0.031, np.float32)), t(X3),
+                                           t(W[:, 0])),
+        lambda j: jnn.dequant_add_rms_norm(j(Q8), j(np.array(0.031, np.float32)), j(X3),
+                                           j(W[:, 0]))),
 }
 
 
@@ -201,3 +211,90 @@ def test_ffn_forward_matches_jax(ffn, bias):
         got = tmoe.ffn_forward(p, torch.from_numpy(x), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# QDQ (paper §4.4): bit-exact against the JAX ops run eagerly (no jax.jit)
+# ---------------------------------------------------------------------------
+
+def _qdq_input(kind, dt):
+    rng = np.random.default_rng(5)
+    a = {"randn": rng.standard_normal((64, 257)),
+         "wide": rng.standard_normal((33, 100)) * np.logspace(-3, 3, 100),
+         "ties": np.arange(-300, 300).reshape(20, 30) / 2.0,
+         "zeros": np.zeros((4, 8))}[kind].astype(np.float32)
+    return jnp.asarray(a).astype(dt), torch.from_numpy(a).to(
+        {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt])
+
+
+@pytest.mark.parametrize("kind", ["randn", "wide", "ties", "zeros"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_quantize_int8_bit_exact_against_jax(kind, dt):
+    jx, tx = _qdq_input(kind, dt)
+    jq, js = jnn.quantize_int8(jx)
+    tq, ts = tnn.quantize_int8(tx)
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32 and ts.dim() == 0
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert ts.numpy().tobytes() == np.asarray(js, np.float32).tobytes()
+    if kind == "zeros":          # the 1e-8 floor of the scale
+        assert float(ts) == float(np.float32(1e-8) / np.float32(127.0))
+    # the round trip, in x's dtype, unfused and as the one fused op
+    want = np.asarray(jnn.fake_quant_int8(jx).astype(jnp.float32))
+    for fused in (False, True):
+        with tnn.fuse(fused):
+            got = tnn.fake_quant_int8(tx)
+        assert got.dtype == tx.dtype
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def _sites(recs):
+    return {(r.group.value, r.op_site) for r in recs
+            if r.prim != "aten.lift_fresh"}
+
+
+def test_qdq_ops_are_tagged_as_in_jax():
+    x = torch.from_numpy(X3)
+    assert _sites(capture(tnn.fake_quant_int8, x)) == {
+        ("quantization", "quantize"), ("quantization", "dequantize")}
+    with tnn.fuse():
+        assert _sites(capture(tnn.fake_quant_int8, x)) == {("fused", "fused_qdq")}
+    assert (tnn.quantize_int8.op_tag, tnn.dequantize_int8.op_tag,
+            tnn._fused_qdq.op_tag) == ("ng:quantization:quantize",
+                                       "ng:quantization:dequantize",
+                                       "ng:fused:fused_qdq")
+    assert _sites(capture(tnn.dequant_add_rms_norm, torch.from_numpy(Q8),
+                          torch.tensor(0.5), x, torch.ones(24))) == {
+        ("fused", "fused_dequant_add_rms_norm")}
+
+
+def test_fake_quant_state_restored_on_error():
+    assert tnn.get_fake_quant() is None
+    with pytest.raises(RuntimeError, match="boom"):
+        with tnn.fake_quant("int8"):
+            assert tnn.get_fake_quant() == "int8"
+            raise RuntimeError("boom")
+    assert tnn.get_fake_quant() is None
+    with pytest.raises(ValueError, match="int4"):
+        tnn.set_fake_quant("int4")
+    with tnn.fake_quant(None):
+        assert tnn.get_fake_quant() is None
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("name", ["linear", "einsum", "conv2d"])
+def test_gemm_site_under_fake_quant_matches_jax(name, fused):
+    port, jax_op = CASES[name]
+    with tnn.fake_quant(), jnn.fake_quant(), tnn.fuse(fused), jnn.fuse(fused):
+        recs = capture(lambda: port(torch.from_numpy))
+        got = port(torch.from_numpy)
+        want = jax_op(jnp.asarray)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    # both operands round-trip: two quantize calls (or two fused_qdq) a site
+    site = "ng:fused:fused_qdq/" if fused else "ng:quantization:quantize/"
+    calls = {r.scope.split(site, 1)[1].split("/")[0] for r in recs
+             if site in r.scope}
+    assert len(calls) == 2
+    with tnn.backend("torch"):
+        plain = port(torch.from_numpy)
+    assert not torch.equal(plain, got)     # QDQ off again, and it did act
