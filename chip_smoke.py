@@ -16,8 +16,10 @@ Phases, each printing JSON lines:
              qk-norm; the encoders' and the detector's full-mask attention;
              the detector's NMS; the Table-2 dequant row; the §4.5
              cross-entropy site and gemma3's 262144-token vocabulary) and
-             odd ones; NMS keep masks and the dequant kernel's ``r`` must
-             be identical;
+             odd ones (attention head dims 34, 48, 80, 96, Sq = 1, a causal
+             q_offset with Sq < Skv; decode over 4096 keys in 64 splits and
+             lengths on and one past a split boundary); NMS keep masks and
+             the dequant kernel's ``r`` must be identical;
 3. serve   - for each of llama2-7b, gpt2-xl and gemma3-27b at full width
              and depth in bf16 (random weights from a seeded generator on
              the card), the continuous-batching ``Engine`` unfused and fused
@@ -64,7 +66,9 @@ Phases, each printing JSON lines:
              through softmax_xent);
 5. timing  - kernel, plain version, one PyTorch library call computing the
              same function (where there is one) and the card's bound, at the
-             main paths' shapes.
+             main paths' shapes, gemma3-27b's global causal prefill and ring
+             decode included; the attention rows name the body that ran
+             (``mma bf16`` on the tensor cores, ``fma f32``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -247,7 +251,15 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns {kernel: max abs error over its cases}."""
+    from repro_torch.kernels import attn_template
+
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def split_chunk(b, hkv, t):
+        """Keys per split of decode_core's plan on this card."""
+        return attn_template.decode_chunk(
+            t, attn_template.decode_splits(b, hkv, t, sms))
 
     def randn(shape, dt, scale=1.0, mean=0.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
@@ -367,12 +379,21 @@ def check_kernels(torch, ops, ref, gen):
                 (1, 100, 100, 8, 2, 128, 128, 0),     # GQA 8/2
                 (2, 35, 35, 4, 4, 48, 16, 0),         # Dv != Dk
                 (1, 13, 40, 4, 2, 32, 32, 27),        # q_offset
-                (1, 21, 21, 2, 2, 34, 18, 0)]:        # scalar tile staging
+                (1, 21, 21, 2, 2, 34, 18, 0),         # scalar tile staging
+                (1, 50, 50, 4, 4, 80, 80, 0),         # head dims that are
+                (1, 70, 70, 4, 2, 96, 96, 0),         # multiples of 16, no pow2
+                (2, 1, 70, 4, 2, 128, 128, 69),       # Sq = 1
+                (1, 100, 300, 8, 4, 128, 128, 200)]:  # q_offset, Sq < Skv
             q = randn((b, sq, hq, dk), dt)
             k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dv), dt)
             compare("attention_core", ops.attention_core(q, k, v, q_offset=off),
                     ref.attention(q, k, v, q_offset=off), dtname,
                     f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} dv={dv} q_offset={off}")
+        # the split over the cache: chunk C of this card's plan for one
+        # row of one KV head over 4096 keys (the most splits) and for
+        # gemma3's rings; lengths on a split boundary and one past it
+        c1 = split_chunk(1, 1, 4096)
+        c4 = split_chunk(4, 16, 1024)
         for b, t, hq, hkv, dk, dv, lens in [
                 (4, 512, 32, 32, 128, 128, [1, 200, 512, 0]),   # llama, a dead slot
                 (4, 512, 25, 25, 64, 64, [186, 512, 0, 72]),    # gpt2-xl
@@ -380,13 +401,18 @@ def check_kernels(torch, ops, ref, gen):
                 (4, 2048, 32, 16, 128, 128, [1516, 1116, 1031, 53]),  # gemma3
                 (3, 100, 8, 2, 64, 64, [0, 37, 100]),           # GQA 8/2
                 (2, 70, 4, 4, 48, 16, [70, 5]),                 # Dv != Dk
-                (2, 30, 4, 2, 34, 18, [30, 7])]:                # scalar staging
+                (2, 30, 4, 2, 34, 18, [30, 7]),                 # scalar staging
+                (1, 4096, 1, 1, 128, 128, [4096]),              # most splits
+                (1, 4096, 8, 1, 128, 128, [c1 + 1]),
+                (1, 4096, 8, 1, 64, 64, [c1]),
+                (4, 1024, 32, 16, 128, 128, [c4, c4 + 1, 2 * c4, 0])]:
             q = randn((b, 1, hq, dk), dt)
             k, v = randn((b, t, hkv, dk), dt), randn((b, t, hkv, dv), dt)
             n = torch.tensor(lens, dtype=torch.int32, device="cuda")
             got = ops.decode_core(q, k, v, n)
             compare("decode_core", got, ref.decode_attention(q, k, v, n), dtname,
-                    f"q{[b, 1, hq, dk]} kv{[b, t, hkv]} dv={dv} lengths={lens}")
+                    f"q{[b, 1, hq, dk]} kv{[b, t, hkv]} dv={dv} lengths={lens} "
+                    f"n_split={attn_template.decode_splits(b, hkv, t, sms)}")
             if 0 in lens and got[lens.index(0)].float().abs().any():
                 fail("decode_core: lengths 0 must give exact zeros")
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
@@ -397,7 +423,9 @@ def check_kernels(torch, ops, ref, gen):
                 (8, 128, 128, 12, 12, 64, 64),     # bert-base b8
                 (2, 256, 1024, 6, 6, 64, 64),      # detector refinement
                 (1, 37, 301, 4, 2, 64, 32),        # GQA, Dv != Dk, odd
-                (1, 21, 23, 2, 2, 34, 18)]:        # scalar tile staging
+                (1, 21, 23, 2, 2, 34, 18),         # scalar tile staging
+                (1, 50, 70, 4, 4, 80, 80),         # head 80
+                (1, 1, 96, 4, 2, 96, 96)]:         # Sq = 1, head 96
             q = randn((b, sq, hq, dk), dt)
             k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dv), dt)
             compare("attention_full", ops.attention_full(q, k, v),
@@ -508,8 +536,12 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     operations are bounded by the f32 rate; attention's products could run
     on the tensor cores, so theirs by the bf16 rate. Returns the kernels
     line's entries and prints the gpt2-xl attention shapes, the other
-    full-mask ones and gemma3-27b's GeGLU prefill on lines of their own."""
+    full-mask ones, gemma3-27b's GeGLU prefill, global causal prefill and
+    ring decode on lines of their own. The attention rows name the body
+    that ran (``mma bf16`` or ``fma f32``, attn_template.body)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import attn_template
 
     timer = graph.Timer()
     dt = torch.bfloat16
@@ -517,11 +549,17 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    def entry(shape, kernel, plain, library, nbytes, flops, peak="float32"):
-        return dict(shape=shape, ms=timer(kernel), eager_ms=timer.eager(kernel),
-                    plain_ms=timer(plain),
-                    library_ms=None if library is None else timer(library),
-                    bound=bound_ms(nbytes, flops, peak))
+    def entry(shape, kernel, plain, library, nbytes, flops, peak="float32",
+              body=None):
+        row = dict(shape=shape, ms=timer(kernel), eager_ms=timer.eager(kernel),
+                   plain_ms=timer(plain),
+                   library_ms=None if library is None else timer(library),
+                   bound=bound_ms(nbytes, flops, peak))
+        if body is not None:
+            row["body"] = body
+        return row
+
+    body = attn_template.body(dt)
 
     out = {}
     # row-wise kernels: the decode step's (4 slots, 1 token) rows
@@ -595,7 +633,36 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         lambda: ref.attention(q, k, v, window=w),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band),
         2 * b * s * dh * (2 * hq + 2 * hkv), 2 * b * hq * visible * 2 * dh,
-        "bfloat16")
+        "bfloat16", body)
+    # attention_core: gemma3-27b's global layers at the same bucket; the
+    # library call is causal SDPA over the KV heads repeated to 32
+    visible = s * (s + 1) // 2
+    extra["attention_core gemma3"] = entry(
+        f"q[1,{s},{hq},{dh}] kv[1,{s},{hkv},{dh}] bf16 causal "
+        "(gemma3-27b global prefill, 2048 bucket)",
+        lambda: ops.attention_core(q, k, v), lambda: ref.attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        2 * b * s * dh * (2 * hq + 2 * hkv), 2 * b * hq * visible * 2 * dh,
+        "bfloat16", body)
+    # decode_core: gemma3-27b's ring decode, its 4 slots' local caches of
+    # depth 1024 at the serve run's lengths (min(pos + 1, 1024))
+    b, t = 4, 1024
+    lens_l = [min(n, t) for n in decode_lengths["gemma3-27b"]]
+    q1 = randn((b, 1, hq, dh))
+    k1, v1 = randn((b, t, hkv, dh)), randn((b, t, hkv, dh))
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None])[:, None, None, :]
+    qt1 = q1.transpose(1, 2).contiguous()
+    kt1, vt1 = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+                for a in (k1, v1))
+    kv = sum(lens_l)
+    extra["decode_core gemma3 ring"] = entry(
+        f"q[4,1,{hq},{dh}] kv[4,{t},{hkv},{dh}] bf16 lengths={lens_l} "
+        "(gemma3-27b ring decode)",
+        lambda: ops.decode_core(q1, k1, v1, lens),
+        lambda: ref.decode_attention(q1, k1, v1, lens),
+        lambda: F.scaled_dot_product_attention(qt1, kt1, vt1, attn_mask=mask),
+        2 * (2 * b * hq * dh + 2 * kv * hkv * dh), 4 * kv * hq * dh, "bfloat16")
 
     for arch, (h, dh) in (("llama2-7b", (32, 128)), ("gpt2-xl", (25, 64))):
         # attention_core: the serve phase's largest prefill bucket
@@ -607,7 +674,8 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             f"q,k,v[1,256,{h},{dh}] bf16 causal ({arch} prefill bucket)",
             lambda: ops.attention_core(q, k, v), lambda: ref.attention(q, k, v),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            4 * b * s * h * dh * 2, 2 * b * h * visible * 2 * dh, "bfloat16")
+            4 * b * s * h * dh * 2, 2 * b * h * visible * 2 * dh, "bfloat16",
+            body)
         # decode_core: the 4-slot cache of depth 512 at the serve run's lengths
         b, t = 4, 512
         lens_l = decode_lengths[arch]
@@ -645,7 +713,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             lambda: ref.attention(q, k, v, causal=False),
             lambda: F.scaled_dot_product_attention(qt, kt, vt),
             2 * b * h * dh * (2 * sq + 2 * skv),
-            2 * b * h * sq * skv * 2 * dh, "bfloat16")
+            2 * b * h * sq * skv * 2 * dh, "bfloat16", body)
         if key == "attention_full":
             out[key] = row
         else:
@@ -1340,7 +1408,8 @@ def main(argv=None) -> int:
             "max_abs_err": worst[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"], "eager_ms": tm["eager_ms"],
-            "shape": tm["shape"]})
+            "shape": tm["shape"], **({"body": tm["body"]} if "body" in tm
+                                     else {})})
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,20 +40,26 @@ mut rope_fast_sincos rope.cu \
 # rope dividing by half instead of multiplying by its reciprocal
 mut rope_true_division rope.cu \
   's/__fmul_rn(-static_cast<float>(i), inv_half)/__fdiv_rn(-static_cast<float>(i), static_cast<float>(half))/'
-# the full fragment without the mask of the ragged last KV tile
+# the bf16 body without the mask of the ragged last KV tile
 mut full_no_tail_mask attention.cu \
-  's/bool visible = kpos < Skv;  \/\/ the ragged last KV tile/bool visible = true;/'
+  's/bool vis = kpos < Skv;  \/\/ the KV tail/bool vis = true;  \/\/ the KV tail/'
 # NMS suppressing at an IoU equal to the threshold
 mut nms_ge nms.cu 's/if (iou > thr) keep_s\[j\] = 0;/if (iou >= thr) keep_s[j] = 0;/'
 # NMS with plain operators, which nvcc contracts into FMAs
 mut nms_fma nms.cu \
   's/return __fmul_rn(a, b);/return a * b;/; s/return __fadd_rn(a, b);/return a + b;/; s/return __fsub_rn(a, b);/return a - b;/; s/return __fdiv_rn(a, b);/return a \/ b;/'
-# the window fragment letting in the key exactly `window` positions back
+# the bf16 body's window letting in the key exactly `window` positions back
 mut window_le attention.cu \
-  's/visible = visible \&\& qpos - kpos < window;/visible = visible \&\& qpos - kpos <= window;/'
-# the window fragment starting its KV loop one tile late
+  's/vis = vis \&\& qpos - kpos < window;/vis = vis \&\& qpos - kpos <= window;/'
+# the bf16 body's window starting its KV loop one tile late
 mut window_late_start attention.cu \
-  's/max(0, q_offset + q0 - window + 1) \/ kBK \* kBK : 0;/max(0, q_offset + q0 - window + 1) \/ kBK * kBK + kBK : 0;/'
+  's/const int lo = first_key - first_key % kTK;/const int lo = first_key - first_key % kTK + kTK;/'
+# the bf16 body skipping the causal mask on the diagonal tile
+mut attn_diag_unmasked attention.cu \
+  's/const bool diag = MASK != kFull \&\& k0/const bool diag = false \&\& k0/'
+# decode's merge adding the splits' accumulators without e^(m_s - m)
+mut decode_combine_no_rescale decode.cu \
+  's/a += w \* __ldcg(pa + s \* GD + oi);/a += __ldcg(pa + s * GD + oi);/'
 # GeGLU without the cubic term of its tanh approximation
 mut geglu_no_cubic swiglu.cu \
   's/tanhf(kSqrt2OverPi \* (g + 0.044715f \* g \* g \* g))/tanhf(kSqrt2OverPi * g)/'

@@ -51,6 +51,29 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// One 16-byte asynchronous copy from device to shared memory (sm_80+).
+// With `fill` false nothing is read and the 16 bytes are zeroed: the
+// ragged tail of a tile and the zero padding of its head dim. `src` must
+// be a valid address either way.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = fill ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // V consecutive elements at p, widened to f32. With V * sizeof(T) == 16
 // one 16-byte load (p must be 16-byte aligned); V == 1 is the scalar path.
 template <typename T, int V>

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import nn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import attn_template as attn  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
 from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
@@ -74,7 +75,11 @@ def test_swiglu_on_card(card, shape, dt):
                                   (1, 100, 100, 8, 2, 128, 128, 0),
                                   (2, 35, 35, 4, 4, 48, 16, 0),
                                   (1, 13, 40, 4, 2, 32, 32, 27),
-                                  (1, 21, 21, 2, 2, 34, 18, 0)])  # scalar staging
+                                  (1, 21, 21, 2, 2, 34, 18, 0),   # scalar staging
+                                  (1, 50, 50, 4, 4, 80, 80, 0),   # 80 and 96: multiples
+                                  (1, 70, 70, 4, 2, 96, 96, 0),   # of 16, no power of 2
+                                  (2, 1, 70, 4, 2, 128, 128, 69),  # Sq = 1
+                                  (1, 100, 300, 8, 4, 128, 128, 200)])  # Sq < Skv
 @pytest.mark.parametrize("dt", DTYPES)
 def test_attention_core_on_card(card, case, dt):
     b, sq, skv, hq, hkv, dk, dv, off = case
@@ -118,7 +123,9 @@ def test_geglu_on_card(card, shape, dt):
                                   (2, 128, 128, 12, 12, 64, 64),   # bert
                                   (2, 64, 256, 6, 6, 64, 64),      # refine
                                   (1, 37, 301, 4, 2, 64, 32),      # GQA, Dv != Dk
-                                  (1, 21, 23, 2, 2, 34, 18)])      # scalar staging
+                                  (1, 21, 23, 2, 2, 34, 18),       # scalar staging
+                                  (1, 50, 70, 4, 4, 80, 80),       # head 80
+                                  (1, 1, 96, 4, 2, 96, 96)])       # Sq = 1, head 96
 @pytest.mark.parametrize("dt", DTYPES)
 def test_attention_full_on_card(card, case, dt):
     b, sq, skv, hq, hkv, dk, dv = case
@@ -174,6 +181,55 @@ def test_decode_core_on_card(card, hq, hkv, lens, dt):
     got = _launched("decode_core", lambda: ops.decode_core(q, k, v, n))
     _assert_close(got, ref.decode_attention(q, k, v, n).to(dt), dt)
     assert not got[lens.index(0)].any()
+
+
+def _split_plan(b, hkv, t):
+    n = attn.decode_splits(b, hkv, t, torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count)
+    return n, attn.decode_chunk(t, n)
+
+
+# (B, T, Hq, Hkv, D): one row over 4096 keys (the most splits, one tile
+# each), gemma3's ring rows (32 heads over 16), llama's 32 heads
+@pytest.mark.parametrize("case", [(1, 4096, 1, 1, 128), (1, 4096, 8, 1, 64),
+                                  (4, 1024, 32, 16, 128), (3, 700, 32, 32, 128)])
+@pytest.mark.parametrize("where", ["boundary", "past_boundary", "one", "all"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_core_split_on_card(card, case, where, dt):
+    b, t, hq, hkv, d = case
+    n_split, chunk = _split_plan(b, hkv, t)
+    lens = {"boundary": chunk, "past_boundary": min(chunk + 1, t), "one": 1,
+            "all": t}[where]
+    lens = ([lens, t, 0, 37] * b)[:b]
+    q = _randn(card, (b, 1, hq, d), dt)
+    k, v = _randn(card, (b, t, hkv, d), dt), _randn(card, (b, t, hkv, d), dt)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = _launched("decode_core", lambda: ops.decode_core(q, k, v, n))
+    _assert_close(got, ref.decode_attention(q, k, v, n).to(dt), dt)
+    if 0 in lens:
+        assert not got[lens.index(0)].any()
+
+
+@pytest.mark.parametrize("b,hkv,t", [(4, 16, 1024), (64, 32, 256)])
+def test_decode_reads_lengths_on_the_card(card, b, hkv, t):
+    # split (b, hkv = 4, 16) and unsplit (64, 32): no host read of lengths
+    # or of anything else in the path
+    q = _randn(card, (b, 1, 2 * hkv, 64), torch.bfloat16)
+    k = _randn(card, (b, t, hkv, 64), torch.bfloat16)
+    v = _randn(card, (b, t, hkv, 64), torch.bfloat16)
+    n = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    short = torch.full((b,), 65, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a host read would raise
+    try:
+        o1 = ops.decode_core(q, k, v, n)
+        n.copy_(short)                        # changed on the card only
+        o2 = ops.decode_core(q, k, v, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    full = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    _assert_close(o1, ref.decode_attention(q, k, v, full).bfloat16(), torch.bfloat16)
+    _assert_close(o2, ref.decode_attention(q, k, v, short).bfloat16(), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
