@@ -18,8 +18,12 @@ Phases, each printing JSON lines:
              cross-entropy site and gemma3's 262144-token vocabulary) and
              odd ones (attention head dims 34, 48, 80, 96, Sq = 1, a causal
              q_offset with Sq < Skv; decode over 4096 keys in 64 splits and
-             lengths on and one past a split boundary); NMS keep masks and
-             the dequant kernel's ``r`` must be identical;
+             lengths on and one past a split boundary; row norms at
+             gemma3-27b's s2048 qk-norm and block norms, the Table-2
+             Segformer rows, bert-base at b8 and a partial last row group,
+             each naming the body of ``csrc/norms.cu`` it ran, every body
+             reached); NMS keep masks and the dequant kernel's ``r`` must be
+             identical;
 3. serve   - for each of llama2-7b, gpt2-xl and gemma3-27b at full width
              and depth in bf16 (random weights from a seeded generator on
              the card), the continuous-batching ``Engine`` unfused and fused
@@ -68,7 +72,9 @@ Phases, each printing JSON lines:
              same function (where there is one) and the card's bound, at the
              main paths' shapes, gemma3-27b's global causal prefill and ring
              decode included; the attention rows name the body that ran
-             (``mma bf16`` on the tensor cores, ``fma f32``).
+             (``mma bf16`` on the tensor cores, ``fma f32``); the row norms
+             at their wider shapes and an empty kernel, the launch floor
+             (``scripts/norm_timing.py``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -80,6 +86,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import statistics
@@ -251,7 +258,7 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns {kernel: max abs error over its cases}."""
-    from repro_torch.kernels import attn_template
+    from repro_torch.kernels import attn_template, norms
 
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -265,17 +272,19 @@ def check_kernels(torch, ops, ref, gen):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 + mean).to(dt)
 
-    def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False):
+    def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False,
+                body=None):
         """``rms_scaled``: atol times the plain output's RMS where that is
-        below 1 (the window fragment's cases, see the note at TOL)."""
+        below 1 (the window fragment's cases, see the note at TOL);
+        ``body``: the row norms' plan body, printed with the case."""
         torch.cuda.synchronize()
         atol, rtol = tol[dtname]
         err = (got.float() - want.float()).abs()
-        info = {}
+        info = {} if body is None else {"body": body}
         if rms_scaled:
             rms = float(want.float().square().mean().sqrt())
             atol *= min(1.0, rms)
-            info = dict(plain_rms=rms, max_abs_err_over_rms=float(err.max()) / rms)
+            info.update(plain_rms=rms, max_abs_err_over_rms=float(err.max()) / rms)
         lim = atol + rtol * want.float().abs()
         ok = bool((err <= lim).all()) and bool(torch.isfinite(got.float()).all())
         emit(phase="kernels", kernel=name, case=case, dtype=dtname,
@@ -284,46 +293,63 @@ def check_kernels(torch, ops, ref, gen):
             fail(f"{name} {case} {dtname}: kernel disagrees with plain version")
         worst[name] = max(worst[name], float(err.max()))
 
-    def exact(name, got, want, dtname, case):
+    def exact(name, got, want, dtname, case, body=None):
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         emit(phase="kernels", kernel=name, case=case, dtype=dtname,
-             residual_bit_identical=same)
+             residual_bit_identical=same, **({} if body is None else {"body": body}))
         if not same:
             fail(f"{name} {case} {dtname}: r = x + res differs from the plain "
                  "version's (one f32 add, rounded once, on both sides)")
 
     worst = dict.fromkeys(SOURCES, 0.0)
+    bodies = set()
+
+    def body(x, dt, *others):
+        """The body of csrc/norms.cu that a row norm on x runs."""
+        b = norms.plan_for(x, dt, *others).body
+        bodies.add(b)
+        return b
+
     for dtname, dt in dts.items():
-        # gemma3-27b's zero-centred norms (5376) and its qk-norm (128, off)
+        # gemma3-27b's zero-centred norms (5376) and its qk-norm (128, off),
+        # at the decode step and at s2048; a partial last row group (21
+        # rows of 128, 16 a CTA); the widest rows of body B (bf16) and of
+        # body C's 16-byte loads (f32)
         for shape, zc in [((4, 1, 4096), False), ((1, 256, 4096), False),
                           ((2, 33, 257), False), ((3, 7, 1000), True),
-                          ((4, 1, 5376), True), ((1, 37, 32, 128), False)]:
+                          ((4, 1, 5376), True), ((1, 37, 32, 128), False),
+                          ((3, 7, 128), False), ((1, 2048, 32, 128), False),
+                          ((1, 2048, 5376), True), ((2, 1, 16384), False)]:
             x, w = randn(shape, dt), randn(shape[-1:], dt)
+            bd = body(x, dt, w)
             compare("rms_norm", ops.rms_norm(x, w, zero_centered=zc),
                     ref.rms_norm(x, w, zero_centered=zc), dtname,
-                    f"x{list(shape)} zero_centered={zc}")
+                    f"x{list(shape)} zero_centered={zc}", body=bd)
             res = randn(shape, dt, 4.0)
             (y, r), (wy, wr) = (f.fused_add_rms_norm(x, res, w, zero_centered=zc)
                                 for f in (ops, ref))
             case = f"x,res{list(shape)} zero_centered={zc}"
-            compare("fused_add_rms_norm", y, wy, dtname, case)
-            exact("fused_add_rms_norm", r, wr, dtname, case)
-        # gpt2-xl's width; a row whose mean is far from zero (1e3 + N(0,1))
+            compare("fused_add_rms_norm", y, wy, dtname, case, body=bd)
+            exact("fused_add_rms_norm", r, wr, dtname, case, body=bd)
+        # gpt2-xl's width; a row whose mean is far from zero (1e3 + N(0,1));
+        # the Table-2 Segformer rows (32 wide) and bert-base at b8
         for shape, mean in [((4, 1, 1600), 0.0), ((1, 256, 1600), 3.0),
                             ((2, 33, 257), 0.0), ((3, 7, 1000), 0.0),
-                            ((2, 1600), 1e3)]:
+                            ((2, 1600), 1e3), ((2, 16384, 32), 0.0),
+                            ((8, 128, 768), 3.0)]:
             x = randn(shape, dt, mean=mean)
             w, b = randn(shape[-1:], dt), randn(shape[-1:], dt)
             tol = LARGE_MEAN_TOL if mean > 100 else TOL
             case = f"x{list(shape)} mean={mean}"
+            bd = body(x, dt, w, b)
             compare("layer_norm", ops.layer_norm(x, w, b),
-                    ref.layer_norm(x, w, b), dtname, case, tol)
+                    ref.layer_norm(x, w, b), dtname, case, tol, body=bd)
             res = randn(shape, dt, 4.0)
             (y, r), (wy, wr) = (f.fused_add_layer_norm(x, res, w, b)
                                 for f in (ops, ref))
-            compare("fused_add_layer_norm", y, wy, dtname, case, tol)
-            exact("fused_add_layer_norm", r, wr, dtname, case)
+            compare("fused_add_layer_norm", y, wy, dtname, case, tol, body=bd)
+            exact("fused_add_layer_norm", r, wr, dtname, case, body=bd)
         # (B, S, H, D, fraction, first position): llama decode and prefill,
         # partial rotary at 25 heads of 64, an odd head dim at 4091+, and
         # half 48, where -i / half and -i * (1 / half) differ in f32
@@ -443,8 +469,9 @@ def check_kernels(torch, ops, ref, gen):
                 (y, r), (wy, wr) = (f.dequant_add_rms_norm(
                     q, qs, res, w, zero_centered=zc) for f in (ops, ref))
                 case = f"q,res{list(shape)} zero_centered={zc}"
-                compare("dequant_add_rms_norm", y, wy, dtname, case)
-                exact("dequant_add_rms_norm", r, wr, dtname, case)
+                bd = body(q, dt, res, w)
+                compare("dequant_add_rms_norm", y, wy, dtname, case, body=bd)
+                exact("dequant_add_rms_norm", r, wr, dtname, case, body=bd)
                 if dt == torch.bfloat16:
                     frac = float((y != wy).float().mean())
                     emit(phase="kernels", kernel="dequant_add_rms_norm",
@@ -463,6 +490,9 @@ def check_kernels(torch, ops, ref, gen):
             compare("softmax_xent", ops.softmax_xent(logits, labels),
                     ref.softmax_xent(logits, labels), dtname,
                     f"logits[{rows},{vocab}]", XENT_TOL)
+    if bodies != set(norms.BODY_CODE):
+        fail(f"row norms: the cases reached the bodies {sorted(bodies)}, not "
+             f"all of {sorted(norms.BODY_CODE)}")
     for case, (boxes, scores, thr, score_thr) in nms_cases(np.random.default_rng(SEED)):
         bt = torch.from_numpy(boxes).cuda()
         st = torch.from_numpy(scores).cuda()
@@ -537,11 +567,13 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     on the tensor cores, so theirs by the bf16 rate. Returns the kernels
     line's entries and prints the gpt2-xl attention shapes, the other
     full-mask ones, gemma3-27b's GeGLU prefill, global causal prefill and
-    ring decode on lines of their own. The attention rows name the body
-    that ran (``mma bf16`` or ``fma f32``, attn_template.body)."""
+    ring decode, the row norms' wider shapes and the empty kernel on lines
+    of their own. The attention rows name the body that ran (``mma bf16``
+    or ``fma f32``, attn_template.body), the row norms theirs (``warp``,
+    ``cta`` or ``smem``, norms.row_norm_plan)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import attn_template
+    from repro_torch.kernels import attn_template, norms
 
     timer = graph.Timer()
     dt = torch.bfloat16
@@ -552,7 +584,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     def entry(shape, kernel, plain, library, nbytes, flops, peak="float32",
               body=None):
         row = dict(shape=shape, ms=timer(kernel), eager_ms=timer.eager(kernel),
-                   plain_ms=timer(plain),
+                   plain_ms=None if plain is None else timer(plain),
                    library_ms=None if library is None else timer(library),
                    bound=bound_ms(nbytes, flops, peak))
         if body is not None:
@@ -561,32 +593,15 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
 
     body = attn_template.body(dt)
 
-    out = {}
-    # row-wise kernels: the decode step's (4 slots, 1 token) rows
-    rows, d = 4, 4096
-    x, res, w = randn((rows, 1, d)), randn((rows, 1, d)), randn((d,))
-    out["rms_norm"] = entry(
-        "x[4,1,4096] bf16 (llama2-7b decode step)",
-        lambda: ops.rms_norm(x, w), lambda: ref.rms_norm(x, w),
-        (lambda: F.rms_norm(x, (d,), w, 1e-6)) if hasattr(F, "rms_norm") else None,
-        2 * (2 * rows * d) + 2 * d, 4 * rows * d)
-    out["fused_add_rms_norm"] = entry(
-        "x,res[4,1,4096] bf16 (llama2-7b fused decode step)",
-        lambda: ops.fused_add_rms_norm(x, res, w),
-        lambda: ref.fused_add_rms_norm(x, res, w), None,
-        2 * (4 * rows * d) + 2 * d, 5 * rows * d)
-    d = 1600
-    x, res, w, b = randn((rows, 1, d)), randn((rows, 1, d)), randn((d,)), randn((d,))
-    out["layer_norm"] = entry(
-        "x[4,1,1600] bf16 (gpt2-xl decode step)",
-        lambda: ops.layer_norm(x, w, b), lambda: ref.layer_norm(x, w, b),
-        lambda: F.layer_norm(x, (d,), w, b, 1e-5),
-        2 * (2 * rows * d) + 2 * 2 * d, 8 * rows * d)
-    out["fused_add_layer_norm"] = entry(
-        "x,res[4,1,1600] bf16 (gpt2-xl fused decode step)",
-        lambda: ops.fused_add_layer_norm(x, res, w, b),
-        lambda: ref.fused_add_layer_norm(x, res, w, b), None,
-        2 * (4 * rows * d) + 2 * 2 * d, 9 * rows * d)
+    # the row norms: the kernels line's five rows (the decode step's and
+    # the Table-2 dequant row), then gemma3-27b's qk-norm and block norms at
+    # s2048, the Table-2 Segformer row, bert-base at b8 and an empty
+    # kernel (the launch floor), on lines of their own
+    out, extra = {}, {}
+    for key, row in _norm_timing().time_row_norms(
+            torch, ops, ref, entry, gen, norms).items():
+        (out if key in SOURCES else extra)[key] = row
+    rows = 4
     h, dh = 32, 128
     q = randn((rows, 1, h, dh))
     pos = torch.tensor(decode_lengths["llama2-7b"], dtype=torch.int32,
@@ -602,7 +617,6 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         "gate,up[4,1,11008] bf16 (llama2-7b decode step)",
         lambda: ops.swiglu(g, u), lambda: ref.swiglu(g, u), None,
         3 * 2 * n, 6 * n)
-    extra = {}
     # geglu: gemma3-27b's fused decode step (the kernels line) and a
     # 2048-token prefill (a line of its own); ~10 f32 ops and a tanh each
     for key, rows_s in (("geglu", (4, 1)), ("geglu prefill", (1, 2048))):
@@ -730,18 +744,6 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         lambda: ops.nms_sorted(boxes, valid, thr),
         lambda: ref.nms_sorted(boxes, valid, thr), None,
         16 * n + 2 * n, 13 * sum(n - 1 - i for i in kept))
-    # dequant_add_rms_norm: the Table-2 row (the micro phase's path) in bf16
-    shape, d = (1, 10, 4096), 4096
-    q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                      dtype=torch.int8)
-    qs = torch.full((), 0.02, device="cuda")
-    res, w = randn(shape), randn((d,))
-    n = q.numel()
-    out["dequant_add_rms_norm"] = entry(
-        "q[1,10,4096] int8, res[1,10,4096] bf16 (Table-2 micro row)",
-        lambda: ops.dequant_add_rms_norm(q, qs, res, w),
-        lambda: ref.dequant_add_rms_norm(q, qs, res, w), None,
-        n + 3 * 2 * n + 2 * d + 4, 6 * n)
     # softmax_xent: the §4.5 site, (256, 32000) f32; the library call is
     # F.cross_entropy per row
     logits = torch.randn((256, 32000), generator=gen, device="cuda")
@@ -760,6 +762,15 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
                                              if k != "bound"},
              bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
     return out
+
+
+def _norm_timing():
+    """``scripts/norm_timing.py`` of this tree: the row norms' timed cases."""
+    spec = importlib.util.spec_from_file_location(
+        "norm_timing", REPO / "scripts" / "norm_timing.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ mut() {  # name, source file under csrc/, sed script
     return
   fi
   local d=$OUT/$1 src=src/repro_torch/kernels/csrc/$2
-  rm -rf "$d"; mkdir -p "$d"; cp -r "$R/chip_smoke.py" "$R/src" "$d/"
+  rm -rf "$d"; mkdir -p "$d"; cp -r "$R/chip_smoke.py" "$R/src" "$R/scripts" "$d/"
   sed -i "$3" "$d/$src"
   if cmp -s "$R/$src" "$d/$src"; then echo "mutation $1 NOT APPLIED"; return; fi
   diff "$R/$src" "$d/$src"
@@ -31,9 +31,15 @@ mut() {  # name, source file under csrc/, sed script
   echo "mutation $1: rc=$?"
   grep -E '"ok": false|RuntimeError' "$OUT/$1.txt" | head -3 | cut -c 1-400
 }
-# LayerNorm with the one-pass variance E[v^2] - E[v]^2
+# LayerNorm with the one-pass variance E[v^2] - E[v]^2 (bodies A and B)
 mut ln_one_pass norms.cu \
-  's/const float c = row\[i \* V + j\] - mean;/const float c = row[i * V + j];/; s/inv = rsqrtf(block_sum(acc2, red) \/ static_cast<float>(d) + eps);/inv = rsqrtf(block_sum(acc2, red) \/ static_cast<float>(d) - mean * mean + eps);/'
+  's/const float c = v\[k\]\[j\] - m1;/const float c = v[k][j];/; s/return make_float2(m1, rsqrtf(sum(acc2, 1) \/ static_cast<float>(d) + eps));/return make_float2(m1, rsqrtf(sum(acc2, 1) \/ static_cast<float>(d) - m1 * m1 + eps));/'
+# body A summing over the whole warp where a row's group is G < 32 lanes
+mut group_reduce_whole_warp norms.cu \
+  's/for (int o = G \/ 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, G);/for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, 32);/'
+# the lanes' last vectors read past the row (the K tail unpredicated)
+mut group_tail_unmasked norms.cu \
+  's/const bool in_row = c < n;  \/\/ the K tail/const bool in_row = true;  \/\/ the K tail/'
 # rope with the fast sin / cos intrinsics
 mut rope_fast_sincos rope.cu \
   's/cs\[i\] = cosf(theta);/cs[i] = __cosf(theta);/; s/cs\[half + i\] = sinf(theta);/cs[half + i] = __sinf(theta);/'
@@ -65,7 +71,7 @@ mut geglu_no_cubic swiglu.cu \
   's/tanhf(kSqrt2OverPi \* (g + 0.044715f \* g \* g \* g))/tanhf(kSqrt2OverPi * g)/'
 # the dequant epilogue normalising the unrounded sum instead of the rounded r
 mut dequant_unrounded_r norms.cu \
-  's/for (int j = 0; j < V; ++j) v\[j\] = repro::to_f(repro::from_f<T>(v\[j\]));/for (int j = 0; j < V; ++j) v[j] = kDequant ? v[j] : repro::to_f(repro::from_f<T>(v[j]));/'
+  's/for (int j = 0; j < V; ++j) v\[k\]\[j\] = repro::to_f(repro::from_f<T>(v\[k\]\[j\]));/for (int j = 0; j < V; ++j) v[k][j] = kDequant ? v[k][j] : repro::to_f(repro::from_f<T>(v[k][j]));/'
 # softmax_xent without the mask of the last tile's columns past the vocabulary
 mut xent_no_tail_mask softmax_xent.cu \
   's/const float xv = in_vocab ? repro::to_f(row\[c\]) : repro::kNegInf;/const float xv = repro::to_f(row[c]);/'

@@ -18,6 +18,7 @@ Build by hand (what :func:`build` runs, once per source)::
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -137,3 +138,10 @@ def stream_and_device(t: torch.Tensor):
     """(device index, current stream handle) for a launch on ``t``'s card."""
     dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
     return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: int) -> int:
+    """The card's SM count (read once; no host sync): the launch plans size
+    their grids by it."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count

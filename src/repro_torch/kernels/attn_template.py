@@ -25,7 +25,6 @@ partial softmaxes in a second pass.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -133,7 +132,7 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, t, hkv, dv = v.shape
     o = torch.empty((b, 1, hq, dv), dtype=v.dtype, device=q.device)
     dev, stream = _build.stream_and_device(q)
-    n_split = decode_splits(b, hkv, t, _sm_count(dev))
+    n_split = decode_splits(b, hkv, t, _build.sm_count(dev))
     chunk = decode_chunk(t, n_split)
     # held until the launch is enqueued: a tensor freed earlier could hand
     # its memory to the next allocation here
@@ -152,11 +151,6 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     _build.DTYPE_CODE[q.dtype], dev, stream),
                  "decode_core")
     return o
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev: int) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 _COUNTERS = {}

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import nn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import attn_template as attn  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import norms, ops, ref  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
 from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
@@ -268,6 +268,113 @@ def test_fused_add_norm_on_card(card, shape, dt, kind):
     (y, r), (want_y, want_r) = _launched(name, lambda: fn(ops)), fn(ref)
     _assert_close(y, want_y, dt)
     assert torch.equal(r, want_r)      # one f32 add, rounded once, both sides
+
+
+#: (shape, dtype, the body of csrc/norms.cu its plan picks): every body,
+#: G 4 / 8 / 16 / 32, K 1 to 8, idle tail lanes, a partial last row group
+ROW_NORM_BODIES = [((3, 16), torch.bfloat16, "warp"),           # G 4, lanes idle
+                   ((2, 16384, 32), torch.float32, "warp"),     # G 8
+                   ((3, 7, 128), torch.bfloat16, "warp"),       # G 16, 21 rows of 16
+                   ((1, 2048, 32, 128), torch.bfloat16, "warp"),
+                   ((5, 256), torch.bfloat16, "warp"),          # G 32
+                   ((8, 128, 768), torch.bfloat16, "cta"),      # K 1, 96 threads
+                   ((4, 1, 1600), torch.bfloat16, "cta"),       # K 1, 24 lanes idle
+                   ((3, 1024), torch.float32, "cta"),
+                   ((4, 1, 4096), torch.bfloat16, "cta"),       # K 2
+                   ((1, 2048, 5376), torch.bfloat16, "cta"),    # K 3, 224 threads
+                   ((2, 16384), torch.bfloat16, "cta"),         # K 8
+                   ((2, 8192), torch.float32, "cta"),
+                   ((2, 16384), torch.float32, "smem"),
+                   ((2, 33, 257), torch.bfloat16, "smem")]      # scalar loads
+
+
+def _row_norm_call(kind, x, res, w, b, q, qs):
+    """(kernel name, f(module)) of one row norm on the given operands."""
+    return {
+        "rms": ("rms_norm", lambda m: m.rms_norm(x, w)),
+        "rms_zero_centered": ("rms_norm", lambda m: m.rms_norm(x, w, zero_centered=True)),
+        "layer": ("layer_norm", lambda m: m.layer_norm(x, w, b)),
+        "fused_rms": ("fused_add_rms_norm", lambda m: m.fused_add_rms_norm(x, res, w)),
+        "fused_layer": ("fused_add_layer_norm",
+                        lambda m: m.fused_add_layer_norm(x, res, w, b)),
+        "dequant": ("dequant_add_rms_norm",
+                    lambda m: m.dequant_add_rms_norm(q, qs, res, w)),
+    }[kind]
+
+
+@pytest.mark.parametrize("shape,dt,body", ROW_NORM_BODIES)
+@pytest.mark.parametrize("kind", ["rms", "rms_zero_centered", "layer", "fused_rms",
+                                  "fused_layer", "dequant"])
+def test_row_norm_body_on_card(card, shape, dt, body, kind):
+    x, res = _randn(card, shape, dt) + 1.0, _randn(card, shape, dt, 4.0)
+    w, b = _randn(card, shape[-1:], dt), _randn(card, shape[-1:], dt)
+    q = torch.randint(-127, 128, shape, generator=card, device="cuda",
+                      dtype=torch.int8)
+    qs = torch.full((), 0.031, device="cuda")
+    assert norms.plan_for(q if kind == "dequant" else x, dt, res, w, b).body == body
+    name, fn = _row_norm_call(kind, x, res, w, b, q, qs)
+    got, want = _launched(name, lambda: fn(ops)), fn(ref)
+    if isinstance(got, tuple):
+        _assert_close(got[0], want[0], dt)
+        assert torch.equal(got[1], want[1])    # r: rounded once, both sides
+    else:
+        _assert_close(got, want, dt)
+
+
+@pytest.mark.parametrize("shape", [(2, 1600), (2, 4096), (2, 257), (3, 7, 128)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_layer_norm_far_from_zero_on_card(card, shape, dt):
+    """Rows of mean 1e3: each version's f32 mean carries ~2^-24 * 1e3 *
+    log2(d) of summation-order error, which the normalized row shows
+    unscaled (f32 atol 1e-3, chip_smoke.py's LARGE_MEAN_TOL); a one-pass
+    variance errs by ~0.1."""
+    x = _randn(card, shape, dt) + 1e3
+    w, b = _randn(card, shape[-1:], dt), _randn(card, shape[-1:], dt)
+    for name, fn in (("layer_norm", lambda m: m.layer_norm(x, w, b)),
+                     ("fused_add_layer_norm",
+                      lambda m: m.fused_add_layer_norm(x, torch.zeros_like(x), w, b)[0])):
+        got, want = _launched(name, lambda: fn(ops)), fn(ref)
+        torch.cuda.synchronize()
+        atol, rtol = (1e-3, 1e-5) if dt == torch.float32 else TOL[dt]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_row_norm_plan_without_a_host_sync(card):
+    """row_norm_plan reads shapes and pointers only: no launch of any body
+    waits on the card."""
+    ops_in = []
+    for shape, dt, _ in ROW_NORM_BODIES:
+        x = _randn(card, shape, dt)
+        w, b = _randn(card, shape[-1:], dt), _randn(card, shape[-1:], dt)
+        q = torch.randint(-127, 128, shape, generator=card, device="cuda",
+                          dtype=torch.int8)
+        ops_in.append((x, w, b, q, torch.full((), 0.5, device="cuda")))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a host read would raise
+    try:
+        for x, w, b, q, qs in ops_in:
+            ops.rms_norm(x, w)
+            ops.layer_norm(x, w, b)
+            ops.fused_add_rms_norm(x, x, w)
+            ops.fused_add_layer_norm(x, x, w, b)
+            ops.dequant_add_rms_norm(q, qs, x, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_a_plan_the_kernel_cannot_take_raises(card, monkeypatch):
+    x, w = _randn(card, (4, 1600), torch.bfloat16), _randn(card, (1600,), torch.bfloat16)
+    plan = norms.plan_for(x, torch.bfloat16, w)         # body B, 224 threads
+    warp = norms.body_plan("warp", 64, 256, torch.bfloat16, True, 132)
+    for bad in (plan._replace(lanes=192, threads=192), plan._replace(vecs=9),
+                plan._replace(threads=200, lanes=200), plan._replace(grid=1),
+                warp._replace(lanes=5), warp._replace(vecs=2),
+                plan._replace(body="smem", grid=1)):
+        monkeypatch.setattr(norms, "row_norm_plan", lambda *a, p=bad: p)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            ops.rms_norm(x, w)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", [(4, 1, 32, 128, 1.0, [[186], [144], [120], [72]]),

@@ -35,8 +35,10 @@ def _close(got, want, dt):
                                np.asarray(want, np.float32), atol=ATOL[dt])
 
 
+# (2, 64, 32): narrow rows, 8 lanes a row on the card; (1, 5, 16, 128): a
+# qk-norm, 16 lanes a row
 @pytest.mark.parametrize("shape", [(4, 128), (2, 33, 257), (1, 7, 3, 64),
-                                   (3, 4096)])
+                                   (3, 4096), (2, 64, 32), (1, 5, 16, 128)])
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("zero_centered", [False, True])
 def test_rms_norm_matches_pallas(shape, dt, zero_centered):
@@ -156,7 +158,8 @@ def test_attention_window_matches_pallas(case, dt):
                                     interpret=True), dt)
 
 
-NORM_SHAPES = [(4, 128), (2, 33, 257), (1, 7, 3, 64), (2, 5, 1600)]
+NORM_SHAPES = [(4, 128), (2, 33, 257), (1, 7, 3, 64), (2, 5, 1600), (2, 64, 32),
+               (1, 5, 16, 128)]
 
 
 def _norm_operands(rng, shape, dt, residual: bool, mean: float = 0.0):
