@@ -22,8 +22,13 @@ Phases, each printing JSON lines:
              gemma3-27b's s2048 qk-norm and block norms, the Table-2
              Segformer rows, bert-base at b8 and a partial last row group,
              each naming the body of ``csrc/norms.cu`` it ran, every body
-             reached); NMS keep masks and the dequant kernel's ``r`` must be
-             identical;
+             reached; rope at gemma3-27b's prefill, rows walked by a grid
+             stride with a ragged last step, a decode column near 4095,
+             rows in chunks and half 6144, each naming its plan; NMS at the
+             mask's word boundaries, 4663 and 8192 boxes, every third box
+             invalid, IoU pairs at exactly 0.5 and one ulp above, pairs
+             whose IoU an FMA would move across 0.5); NMS keep
+             masks and the dequant kernel's ``r`` must be identical;
 3. serve   - for each of llama2-7b, gpt2-xl and gemma3-27b at full width
              and depth in bf16 (random weights from a seeded generator on
              the card), the continuous-batching ``Engine`` unfused and fused
@@ -74,7 +79,9 @@ Phases, each printing JSON lines:
              decode included; the attention rows name the body that ran
              (``mma bf16`` on the tensor cores, ``fma f32``); the row norms
              at their wider shapes and an empty kernel, the launch floor
-             (``scripts/norm_timing.py``).
+             (``scripts/norm_timing.py``); rope at gemma3-27b's prefill q
+             and k, NMS at the Table-2 row and at 8192 boxes
+             (``scripts/rope_nms_timing.py``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -258,7 +265,7 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns {kernel: max abs error over its cases}."""
-    from repro_torch.kernels import attn_template, norms
+    from repro_torch.kernels import attn_template, norms, rope
 
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -273,14 +280,15 @@ def check_kernels(torch, ops, ref, gen):
                 + mean).to(dt)
 
     def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False,
-                body=None):
+                body=None, **extra):
         """``rms_scaled``: atol times the plain output's RMS where that is
         below 1 (the window fragment's cases, see the note at TOL);
-        ``body``: the row norms' plan body, printed with the case."""
+        ``body``: the row norms' plan body, printed with the case, as is
+        ``extra`` (rope's plan)."""
         torch.cuda.synchronize()
         atol, rtol = tol[dtname]
         err = (got.float() - want.float()).abs()
-        info = {} if body is None else {"body": body}
+        info = dict(extra) if body is None else dict(extra, body=body)
         if rms_scaled:
             rms = float(want.float().square().mean().sqrt())
             atol *= min(1.0, rms)
@@ -350,20 +358,34 @@ def check_kernels(torch, ops, ref, gen):
                                 for f in (ops, ref))
             compare("fused_add_layer_norm", y, wy, dtname, case, tol, body=bd)
             exact("fused_add_layer_norm", r, wr, dtname, case, body=bd)
-        # (B, S, H, D, fraction, first position): llama decode and prefill,
-        # partial rotary at 25 heads of 64, an odd head dim at 4091+, and
-        # half 48, where -i / half and -i * (1 / half) differ in f32
-        for b, s, h, d, frac, p0 in [(4, 1, 32, 128, 1.0, 186),
-                                     (1, 256, 32, 128, 1.0, 0),
-                                     (2, 7, 25, 64, 0.25, 500),
-                                     (1, 5, 3, 34, 1.0, 4091),
-                                     (1, 5, 3, 96, 1.0, 4091)]:
+        # (B, S, H, D, fraction, first position, positions as a (B, 1)
+        # column): llama decode and prefill, partial rotary at 25 heads of
+        # 64, an odd head dim at 4091+, and half 48, where -i / half and
+        # -i * (1 / half) differ in f32; gemma3-27b's q at a 2048-token
+        # prefill and k at 2049, whose last row group is ragged (rows
+        # walked by a grid stride); a decode column near 4095; rows of
+        # more vectors than a CTA's threads (in chunks); half at its 6144
+        # limit, scalar
+        for b, s, h, d, frac, p0, column in [(4, 1, 32, 128, 1.0, 186, False),
+                                             (1, 256, 32, 128, 1.0, 0, False),
+                                             (2, 7, 25, 64, 0.25, 500, False),
+                                             (3, 7, 25, 64, 0.25, 500, False),
+                                             (1, 5, 3, 34, 1.0, 4091, False),
+                                             (1, 5, 3, 96, 1.0, 4091, False),
+                                             (1, 2048, 32, 128, 1.0, 0, False),
+                                             (1, 2049, 16, 128, 1.0, 0, False),
+                                             (4, 1, 32, 128, 1.0, 4092, True),
+                                             (2, 3, 72, 256, 1.0, 7, False),
+                                             (1, 3, 2, 12289, 1.0, 4093, False)]:
             x = randn((b, s, h, d), dt)
-            pos = (p0 + torch.arange(s, dtype=torch.int32, device="cuda")
-                   )[None].expand(b, s)
-            compare("rope", ops.rope(x, pos, fraction=frac),
-                    ref.rope(x, pos, fraction=frac), dtname,
-                    f"x{[b, s, h, d]} fraction={frac} positions {p0}..{p0 + s - 1}")
+            ar = p0 + torch.arange(b if column else s, dtype=torch.int32,
+                                   device="cuda")
+            pos = ar[:, None] if column else ar[None].expand(b, s)
+            y = ops.rope(x, pos, fraction=frac)
+            compare("rope", y, ref.rope(x, pos, fraction=frac), dtname,
+                    f"x{[b, s, h, d]} fraction={frac} positions {p0}.."
+                    f"{int(ar[-1])}{' (B, 1)' if column else ''}",
+                    plan=rope.plan_for(x, frac, y)._asdict())
         for shape in [(4, 1, 11008), (1, 256, 11008), (2, 37, 257), (1, 13)]:
             g, u = randn(shape, dt, 3.0), randn(shape, dt)
             compare("swiglu", ops.swiglu(g, u), ref.swiglu(g, u), dtname,
@@ -509,6 +531,25 @@ def check_kernels(torch, ops, ref, gen):
         if case == "exact_threshold_pairs" and got.tolist() != [True, True,
                                                                  True, False]:
             fail("nms: IoU exactly 0.5 must keep, one ulp above suppress")
+        if case == "fma_sensitive_pairs" and got.tolist() != fma_pairs()[1].tolist():
+            fail("nms: a pair whose IoU an FMA would move across 0.5 fell the "
+                 "wrong way")
+    for case, (boxes, valid, thr, at, above) in nms_word_cases(
+            np.random.default_rng(SEED)):
+        bt, vt = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+        got = ops.nms_sorted(bt, vt, thr)
+        want = ref.nms_sorted(bt, vt, thr)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        emit(phase="kernels", kernel="nms", case=case, n=len(boxes),
+             iou_threshold=thr, valid=int(valid.sum()), kept=int(got.sum()),
+             plain_kept=int(want.sum()), identical=same)
+        if not same:
+            fail(f"nms {case}: keep mask differs from the plain version's in "
+                 f"{int((got != want).sum())} of {len(boxes)} boxes")
+        if not (got[at + 1] and not got[above + 1]):
+            fail(f"nms {case}: IoU exactly 0.5 must keep (box {at + 1}), one "
+                 f"ulp above suppress (box {above + 1})")
     return worst
 
 
@@ -544,6 +585,9 @@ def nms_cases(rng):
         np.array([[10, 0, 13, 1], [11, 0, 14, 1], [0, 0, 1, 1],
                   [s, 0, np.float32(s + 1), 1]], np.float32),
         np.array([0.9, 0.8, 0.7, 0.6], np.float32), 0.5, 0.0)
+    yield "fma_sensitive_pairs", (fma_pairs()[0],
+                                  np.linspace(0.9, 0.1, 2 * len(FMA_PAIRS),
+                                              dtype=np.float32), 0.5, 0.0)
     # 2048 pairs of equal boxes a third of their width apart: IoU 1/2 up
     # to rounding, so each pair's f32 IoU falls a few ulps either side
     x, y, w, h = rng.uniform(5, 40, (4, 2048))
@@ -553,6 +597,61 @@ def nms_cases(rng):
     yield "near_threshold_pairs", (pairs.reshape(-1, 4).astype(np.float32),
                                    np.linspace(0.99, 0.5, 4096, dtype=np.float32),
                                    0.5, 0.0)
+
+
+#: box pairs (a, b), a scored above b, whose f32 IoU falls on one side of
+#: 0.5 with every product and sum rounded on its own and on the other side
+#: where nvcc fuses a product into an FMA: the first four where
+#: (area_j + area_i) - iw * ih is fused, the others where area_j + area_i
+#: is fused with area_i's product (found by an exact search; the property
+#: is checked in tests/test_torch_rope_nms_design.py). True: b suppressed
+FMA_PAIRS = [
+    (("0x1.92b46ep+4", "0x1.49090ap+4", "0x1.a43a12p+5", "0x1.259f7ep+5"),
+     ("0x1.124f8p+5", "0x1.49090ap+4", "0x1.ed2f5cp+5", "0x1.259f7ep+5"), True),
+    (("0x1.44f968p+4", "0x1.16d42p+5", "0x1.4c8accp+5", "0x1.0b1662p+6"),
+     ("0x1.b65822p+4", "0x1.16d42p+5", "0x1.853a2ap+5", "0x1.0b1662p+6"), True),
+    (("0x1.17b464p+5", "0x1.a7d144p+4", "0x1.6f161ap+5", "0x1.161158p+6"),
+     ("0x1.34d4f6p+5", "0x1.a7d144p+4", "0x1.8c36acp+5", "0x1.161158p+6"), True),
+    (("0x1.39b9fp+5", "0x1.49ef3cp+4", "0x1.0eac4ep+6", "0x1.07dc66p+6"),
+     ("0x1.85997ep+5", "0x1.49ef3cp+4", "0x1.349c16p+6", "0x1.07dc66p+6"), True),
+    (("0x1.5686fp+3", "0x1.19b4dp+5", "0x1.35280ep+5", "0x1.395716p+6"),
+     ("0x1.4047aep+4", "0x1.19b4dp+5", "0x1.7faa2ap+5", "0x1.395716p+6"), True),
+    (("0x1.2b58ecp+4", "0x1.5e7c8ep+4", "0x1.31a708p+5", "0x1.e5b862p+5"),
+     ("0x1.93554ep+4", "0x1.5e7c8ep+4", "0x1.65a538p+5", "0x1.e5b862p+5"), True),
+    (("0x1.6f9cd6p+4", "0x1.96639p+0", "0x1.0033e8p+6", "0x1.8e534p+5"),
+     ("0x1.2556e2p+5", "0x1.96639p+0", "0x1.36f824p+6", "0x1.8e534p+5"), False),
+    (("0x1.a0844ap+4", "0x1.12c91ep+3", "0x1.c331a2p+5", "0x1.c0d378p+5"),
+     ("0x1.213ca4p+5", "0x1.12c91ep+3", "0x1.0a161p+6", "0x1.c0d378p+5"), False)]
+
+
+def fma_pairs():
+    """FMA_PAIRS as one set of score-sorted boxes (a0, b0, a1, b1, ...),
+    pair k scaled by 16^k (a power of two: every rounding as at 1), so that
+    no two pairs touch; and the keep mask the rounded IoUs give."""
+    boxes, keep = [], []
+    for k, (a, b, suppressed) in enumerate(FMA_PAIRS):
+        for box in (a, b):
+            boxes.append([float.fromhex(v) * 16.0 ** k for v in box])
+        keep += [True, not suppressed]
+    return np.array(boxes, np.float32), np.array(keep)
+
+
+def nms_word_cases(rng):
+    """(name, (score-sorted boxes (N, 4) f32, valid (N,), iou threshold,
+    a, b)) at the mask's word boundaries and above, for ``nms_sorted``
+    directly: every third box invalid, and two pairs far from the rest,
+    one at an f32 IoU of exactly 0.5 at sorted places (a, a + 1), across a
+    word boundary where N allows, one an ulp above it at (b, b + 1)."""
+    s = np.nextafter(np.float32(1 / 3), np.float32(0))
+    for n in (63, 64, 65, 129, 4663, 8192):
+        boxes, _ = random_boxes(rng, n, span=2 * math.sqrt(n) + 20)
+        valid = np.arange(n) % 3 != 1
+        a = 63 if n > 64 else n // 2 - 1
+        b = 127 if n > 128 else (a + 3 if a + 4 < n else a - 3)
+        boxes[a:a + 2] = [[10010, 0, 10013, 1], [10011, 0, 10014, 1]]
+        boxes[b:b + 2] = [[0, 1000, 1, 1001], [s, 1000, np.float32(s + 1), 1001]]
+        valid[[a, a + 1, b, b + 1]] = True
+        yield f"words-{n}", (boxes, valid, 0.5, a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +672,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     ``cta`` or ``smem``, norms.row_norm_plan)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import attn_template, norms
+    from repro_torch.kernels import attn_template, norms, rope
 
     timer = graph.Timer()
     dt = torch.bfloat16
@@ -598,19 +697,17 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     # s2048, the Table-2 Segformer row, bert-base at b8 and an empty
     # kernel (the launch floor), on lines of their own
     out, extra = {}, {}
-    for key, row in _norm_timing().time_row_norms(
+    for key, row in _script("norm_timing").time_row_norms(
             torch, ops, ref, entry, gen, norms).items():
         (out if key in SOURCES else extra)[key] = row
+    # rope at the decode step (the kernels line) and gemma3-27b's prefill
+    # q and k; nms on the detector's first image (the kernels line), the
+    # Table-2 RoI row and MAX_BOXES (scripts/rope_nms_timing.py)
+    for key, row in _script("rope_nms_timing").time_rope_nms(
+            torch, ops, ref, entry, gen, rope, nms_inputs,
+            [[n - 1] for n in decode_lengths["llama2-7b"]], floor=False).items():
+        (out if key in SOURCES else extra)[key] = row
     rows = 4
-    h, dh = 32, 128
-    q = randn((rows, 1, h, dh))
-    pos = torch.tensor(decode_lengths["llama2-7b"], dtype=torch.int32,
-                       device="cuda")[:, None] - 1
-    n = q.numel()
-    out["rope"] = entry(
-        "q[4,1,32,128] bf16, positions (4,1) (llama2-7b fused decode step)",
-        lambda: ops.rope(q, pos), lambda: ref.rope(q, pos), None,
-        2 * 2 * n + 4 * rows, 3 * n + 3 * rows * dh // 2)
     g, u = randn((rows, 1, 11008)), randn((rows, 1, 11008))
     n = g.numel()
     out["swiglu"] = entry(
@@ -732,18 +829,6 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             out[key] = row
         else:
             extra[key] = row
-    # nms: the detector's first image, its 256 score-sorted candidates; the
-    # serial pass computes one IoU row (~13 f32 ops an entry) per kept box
-    boxes, valid, thr = nms_inputs
-    n = boxes.shape[0]
-    keep = ops.nms_sorted(boxes, valid, thr)
-    kept = torch.nonzero(keep).flatten().tolist()
-    out["nms"] = entry(
-        f"boxes[{n},4] f32, {int(valid.sum())} valid, {len(kept)} kept "
-        "(detector-vit-s, 256 px, image 0)",
-        lambda: ops.nms_sorted(boxes, valid, thr),
-        lambda: ref.nms_sorted(boxes, valid, thr), None,
-        16 * n + 2 * n, 13 * sum(n - 1 - i for i in kept))
     # softmax_xent: the §4.5 site, (256, 32000) f32; the library call is
     # F.cross_entropy per row
     logits = torch.randn((256, 32000), generator=gen, device="cuda")
@@ -764,10 +849,11 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     return out
 
 
-def _norm_timing():
-    """``scripts/norm_timing.py`` of this tree: the row norms' timed cases."""
+def _script(name: str):
+    """``scripts/<name>.py`` of this tree: the row norms' timed cases
+    (``norm_timing``), rope's and NMS's (``rope_nms_timing``)."""
     spec = importlib.util.spec_from_file_location(
-        "norm_timing", REPO / "scripts" / "norm_timing.py")
+        name, REPO / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1419,8 +1505,8 @@ def main(argv=None) -> int:
             "max_abs_err": worst[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"], "eager_ms": tm["eager_ms"],
-            "shape": tm["shape"], **({"body": tm["body"]} if "body" in tm
-                                     else {})})
+            "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan")
+                                     if k in tm}})
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

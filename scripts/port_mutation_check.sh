@@ -41,19 +41,30 @@ mut group_reduce_whole_warp norms.cu \
 mut group_tail_unmasked norms.cu \
   's/const bool in_row = c < n;  \/\/ the K tail/const bool in_row = true;  \/\/ the K tail/'
 # rope with the fast sin / cos intrinsics
-mut rope_fast_sincos rope.cu \
-  's/cs\[i\] = cosf(theta);/cs[i] = __cosf(theta);/; s/cs\[half + i\] = sinf(theta);/cs[half + i] = __sinf(theta);/'
+mut rope_fast_sincos rope.cu 's/= cosf(theta);/= __cosf(theta);/g; s/= sinf(theta);/= __sinf(theta);/g'
+# rope rotating a walked row with the previous row's angles (the next
+# step's position never loaded)
+mut rope_next_row_stale rope.cu 's/pv = pos_at(nr0 + ar);/pv = pv;/'
 # rope dividing by half instead of multiplying by its reciprocal
 mut rope_true_division rope.cu \
-  's/__fmul_rn(-static_cast<float>(i), inv_half)/__fdiv_rn(-static_cast<float>(i), static_cast<float>(half))/'
+  's/__fmul_rn(-static_cast<float>(\(a\?i\)), inv_half)/__fdiv_rn(-static_cast<float>(\1), static_cast<float>(half))/g'
 # the bf16 body without the mask of the ragged last KV tile
 mut full_no_tail_mask attention.cu \
   's/bool vis = kpos < Skv;  \/\/ the KV tail/bool vis = true;  \/\/ the KV tail/'
 # NMS suppressing at an IoU equal to the threshold
-mut nms_ge nms.cu 's/if (iou > thr) keep_s\[j\] = 0;/if (iou >= thr) keep_s[j] = 0;/'
-# NMS with plain operators, which nvcc contracts into FMAs
+mut nms_ge nms.cu 's/if (iou > thr) word |= 1ull << jj;/if (iou >= thr) word |= 1ull << jj;/'
+# NMS resolving a block without its own earlier kept candidates (each
+# block's kept set = valid and not removed by earlier blocks)
+mut nms_reduce_unordered nms.cu 's/kept = cand \& ~warp_or(sup);/kept = cand;/'
+# NMS computing the union with an FMA (the product iw * ih left unrounded
+# in it). nvcc contracts nothing in the plain-operator form of these
+# lines (its SASS has the same FFMA, FMUL and FADD), so the FMA is written out
 mut nms_fma nms.cu \
-  's/return __fmul_rn(a, b);/return a * b;/; s/return __fadd_rn(a, b);/return a + b;/; s/return __fsub_rn(a, b);/return a - b;/; s/return __fdiv_rn(a, b);/return a \/ b;/'
+  's/const float uni = rn_sub(rn_add(area\[jj\], ai), inter);/const float uni = __fmaf_rn(-iw, ih, rn_add(area[jj], ai));/'
+# NMS fusing row i's area product into the area sum (area_j + w_i * h_i
+# with w_i * h_i unrounded), the other FMA that FMA_PAIRS guard against
+mut nms_area_fma nms.cu \
+  's/const float uni = rn_sub(rn_add(area\[jj\], ai), inter);/const float uni = rn_sub(__fmaf_rn(fmaxf(rn_sub(bi.z, bi.x), 0.f), fmaxf(rn_sub(bi.w, bi.y), 0.f), area[jj]), inter);/'
 # the bf16 body's window letting in the key exactly `window` positions back
 mut window_le attention.cu \
   's/vis = vis \&\& qpos - kpos < window;/vis = vis \&\& qpos - kpos <= window;/'

@@ -145,3 +145,19 @@ def sm_count(dev: int) -> int:
     """The card's SM count (read once; no host sync): the launch plans size
     their grids by it."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, one buffer per stream: the
+    decode and NMS kernels count their finished CTAs there and leave it
+    zeroed, so launches on one stream, which run one after another, share
+    it and it is set to zero once."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf

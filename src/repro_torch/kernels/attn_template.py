@@ -127,7 +127,7 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32 (B,) on the same card and is read by the kernel alone. With more
     than one split, the partial (m, l, acc) go to f32 scratch from
     ``torch.empty``, and the last split of each (row, KV head) to finish
-    merges them, as its stream's counters (:func:`_counters`) say."""
+    merges them, as its stream's counters (``_build.counters``) say."""
     b, _, hq, dk = q.shape
     _, t, hkv, dv = v.shape
     o = torch.empty((b, 1, hq, dv), dtype=v.dtype, device=q.device)
@@ -142,7 +142,7 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                dtype=torch.float32, device=q.device),
                    torch.empty((b * hkv, n_split, hq // hkv, 2),
                                dtype=torch.float32, device=q.device),
-                   _counters(q.device, stream, b * hkv))
+                   _build.counters(q.device, stream, b * hkv))
     ptrs = [x.data_ptr() for x in scratch] or [None, None, None]
     fn = _build.entry("decode", "repro_decode", _DECODE_ARGS)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -151,18 +151,3 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     _build.DTYPE_CODE[q.dtype], dev, stream),
                  "decode_core")
     return o
-
-
-_COUNTERS = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` int32 zeros on ``device``, one buffer per stream: the
-    decode kernel counts its finished splits there and leaves it zeroed,
-    so launches on one stream share it and it is set to zero once."""
-    key = (device, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                           device=device)
-    return buf

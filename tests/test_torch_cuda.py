@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import nn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import attn_template as attn  # noqa: E402
-from repro_torch.kernels import norms, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, norms, ops, ref, rope  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
 from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
@@ -390,6 +390,127 @@ def test_rope_on_card(card, case, dt):
          if pos is None else torch.tensor(pos, dtype=torch.int32, device="cuda"))
     got = _launched("rope", lambda: ops.rope(x, p, fraction=fraction))
     _assert_close(got, ref.rope(x, p, fraction=fraction), dt)
+
+
+# (B, S, H, D, fraction, first position, positions as a (B, 1) column):
+# one CTA a row (the decode step, a column near 4095), rows walked by a
+# grid stride one (gemma3-27b's q) and two at a time with a ragged last
+# step (its k at 2049), rows in chunks (more vectors than threads), the
+# scalar body at half 6144, partial rotary
+ROPE_PLAN_CASES = [(4, 1, 32, 128, 1.0, 186, True), (4, 1, 32, 128, 1.0, 4092, True),
+                   (1, 2048, 32, 128, 1.0, 0, False), (1, 2049, 16, 128, 1.0, 0, False),
+                   (2, 3, 72, 256, 1.0, 7, False), (1, 3, 2, 12289, 1.0, 4093, False),
+                   (3, 7, 25, 64, 0.25, 500, False), (700, 1, 8, 64, 1.0, 9, True)]
+
+
+def _rope_inputs(gen, case, dt):
+    b, s, h, d, fraction, p0, column = case
+    x = _randn(gen, (b, s, h, d), dt)
+    ar = p0 + torch.arange(b if column else s, dtype=torch.int32, device="cuda")
+    return x, (ar[:, None] if column else ar[None]), fraction
+
+
+@pytest.mark.parametrize("case", ROPE_PLAN_CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rope_plan_on_card(card, case, dt):
+    """Each plan of csrc/rope.cu bit-identical to the plain version."""
+    x, p, fraction = _rope_inputs(card, case, dt)
+    got = _launched("rope", lambda: ops.rope(x, p, fraction=fraction))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rope(x, p, fraction=fraction)), \
+        rope.plan_for(x, fraction, got)
+
+
+def test_a_rope_plan_the_kernel_cannot_take_raises(card, monkeypatch):
+    x, p, _ = _rope_inputs(card, (1, 2048, 32, 128, 1.0, 0, False), torch.bfloat16)
+    plan = rope.plan_for(x)                     # walked: two angle tables
+    for bad in (plan._replace(threads=48), plan._replace(threads=2048),
+                plan._replace(width=4), plan._replace(width=3),
+                plan._replace(grid=0), plan._replace(grid=-1),
+                plan._replace(rows_per_cta=0), plan._replace(rows_per_cta=200)):
+        monkeypatch.setattr(rope, "rope_plan", lambda *a, q=bad: q)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            ops.rope(x, p)
+    torch.cuda.synchronize()
+
+
+def _nms_words(n, seed=0):
+    """Score-sorted boxes at ``n`` with every third invalid and two pairs
+    far from the rest: f32 IoU exactly 0.5 at (a, a + 1), across a word
+    boundary where n allows (kept), one ulp above at (b, b + 1)
+    (suppressed)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(size=(n, 2)) * (2 * np.sqrt(n) + 20)
+    wh = rng.uniform(size=(n, 2)) * 12 + 1
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    valid = np.arange(n) % 3 != 1
+    s = np.nextafter(np.float32(1 / 3), np.float32(0))
+    a = 63 if n > 64 else n // 2 - 1
+    b = 127 if n > 128 else (a + 3 if a + 4 < n else a - 3)
+    boxes[a:a + 2] = [[10010, 0, 10013, 1], [10011, 0, 10014, 1]]
+    boxes[b:b + 2] = [[0, 1000, 1, 1001], [s, 1000, np.float32(s + 1), 1001]]
+    valid[[a, a + 1, b, b + 1]] = True
+    return (torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda(), a, b)
+
+
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 128, 129, 4663])
+def test_nms_word_boundaries_on_card(card, n):
+    boxes, valid, a, b = _nms_words(n)
+    got = _launched("nms", lambda: ops.nms_sorted(boxes, valid, 0.5))
+    want = ref.nms_sorted(boxes, valid, 0.5)
+    assert torch.equal(got, want)
+    assert got[a + 1] and not got[b + 1]
+
+
+def test_nms_fma_sensitive_pairs_on_card(card):
+    """chip_smoke.py's pairs whose IoU an FMA would move across 0.5 fall as
+    the rounded arithmetic has them (tests/test_torch_rope_nms_design.py
+    checks the pairs)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    boxes, keep = cs.fma_pairs()
+    b = torch.from_numpy(boxes).cuda()
+    valid = torch.ones(len(boxes), dtype=torch.bool, device="cuda")
+    got = _launched("nms", lambda: ops.nms_sorted(b, valid, 0.5))
+    assert got.tolist() == keep.tolist()
+    assert torch.equal(got, ref.nms_sorted(b, valid, 0.5))
+
+
+def test_nms_leaves_its_counter_zero(card):
+    """The last mask CTA runs the reduce and sets the stream's counter back
+    to 0: calls in a row, of other sizes between, give the same masks."""
+    boxes, valid, _, _ = _nms_words(4663)
+    small, svalid, _, _ = _nms_words(65, seed=1)
+    first = ops.nms_sorted(boxes, valid, 0.5)
+    masks = [ops.nms_sorted(small, svalid, 0.5), ops.nms_sorted(boxes, valid, 0.5),
+             ops.nms_sorted(small, svalid, 0.5), ops.nms_sorted(boxes, valid, 0.5)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, masks[1]) and torch.equal(first, masks[3])
+    assert torch.equal(masks[0], masks[2])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert int(_build.counters(boxes.device, stream, 1)[0]) == 0
+
+
+def test_rope_and_nms_without_a_host_sync(card):
+    """Neither wrapper reads the card: each launch passes under
+    set_sync_debug_mode("error")."""
+    inputs = [_rope_inputs(card, c, torch.bfloat16) for c in ROPE_PLAN_CASES]
+    boxes, valid, _, _ = _nms_words(4663)
+    scores = torch.rand(4663, generator=card, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a host read would raise
+    try:
+        for x, p, fraction in inputs:
+            ops.rope(x, p, fraction=fraction)
+        ops.nms_sorted(boxes, valid, 0.5)
+        ops.nms(boxes, scores, 0.5, 0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 DEQUANT_SHAPES = [(4, 128), (2, 33, 257), (1, 7, 3, 64), (1, 10, 4096),
