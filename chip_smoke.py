@@ -24,7 +24,10 @@ Phases, each printing JSON lines:
              each naming the body of ``csrc/norms.cu`` it ran, every body
              reached; rope at gemma3-27b's prefill, rows walked by a grid
              stride with a ragged last step, a decode column near 4095,
-             rows in chunks and half 6144, each naming its plan; NMS at the
+             rows in chunks and half 6144, each naming its plan; swiglu
+             and geglu at the decode steps, a prefill, tails, views 4 and 1
+             elements into their storage and extremes of the gate, each
+             naming its plan; NMS at the
              mask's word boundaries, 4663 and 8192 boxes, every third box
              invalid, IoU pairs at exactly 0.5 and one ulp above, pairs
              whose IoU an FMA would move across 0.5); NMS keep
@@ -43,8 +46,9 @@ Phases, each printing JSON lines:
              broken on purpose);
 4. profile - a per-op measured profile of ``lm_forward`` (batch 1, seq 16)
              on the kernel path, unfused and fused, for the three models,
-             and gemma3-27b unfused at seq 2048, where its window bites: the
-             measured GEMM / NonGEMM split;
+             and gemma3-27b at seq 2048, where its window bites, unfused
+             and fused (its GeGLU kernel at the 2048 bucket): the measured
+             GEMM / NonGEMM split;
    qdq     - for llama2-7b and gpt2-xl, the paper's §4.4 2x2 on one eager
              ``lm_forward`` (b1 s16, bf16): ``bf16`` / ``fused`` /
              ``int8-qdq`` / ``int8-qdq+fused`` (``nn.fake_quant("int8")``:
@@ -81,7 +85,9 @@ Phases, each printing JSON lines:
              at their wider shapes and an empty kernel, the launch floor
              (``scripts/norm_timing.py``); rope at gemma3-27b's prefill q
              and k, NMS at the Table-2 row and at 8192 boxes
-             (``scripts/rope_nms_timing.py``).
+             (``scripts/rope_nms_timing.py``); swiglu and geglu at the
+             decode steps and the served prefills beside ``torch.mul`` of
+             the same operands (``scripts/glu_timing.py``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -116,7 +122,7 @@ ARCHS = ("llama2-7b", "gpt2-xl", "gemma3-27b")
 SERVE = {"llama2-7b": (512, None), "gpt2-xl": (512, None),
          "gemma3-27b": (2048, (1500, 1100, 1015, 37, 600, 250))}
 #: (batch, seq) of the measured profiles of each served model
-PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False))}
+PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 NEW_TOKENS = 16
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
@@ -151,6 +157,11 @@ LARGE_MEAN_TOL = {"bfloat16": TOL["bfloat16"], "float32": (1e-3, 1e-5)}
 # run (readings per model: PERF.md)
 LOGIT_ATOL = 0.125
 F32_ANCHOR = 2.0
+# finite extremes of the gate in phase 2's swiglu and geglu cases: e^-g and
+# e^-2z overflow, g^3 overflows, the denominator of csrc/swiglu.cu's
+# quotient passes 2^126 (-87.5 for SiLU, -9.7 for GeLU)
+GLU_EXTREMES = [1e-30, -1e-30, 20.0, -20.0, -88.8, 100.0, -100.0, 1e4, -1e4,
+                1e13, -1e13, -87.5, -9.7]
 # the encoders' logits and the vision outputs, kernel path against plain
 # path and fused against unfused, all 12 layers in bf16 (readings: PERF.md)
 ENCODE_ATOL = 0.125
@@ -262,10 +273,22 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def glu_sweep(torch, gen, dt, n: int = 1 << 16):
+    """(gate, up) of phase 2's sweep case: 2^16 gates evenly over [-8, 8]
+    against ups of +-8 with random signs. Where 1 + tanh(z) is small (g in
+    [-4, -1]) an approximate tanh's error is many times the f32 limit, while
+    the identity's stays under 7 % of it (numpy emulation,
+    tests/test_torch_glu_design.py)."""
+    g = torch.linspace(-8.0, 8.0, n, device="cuda")
+    sign = torch.randint(0, 2, (n,), generator=gen, device="cuda") * 2 - 1
+    return g.to(dt), (8.0 * sign).to(dt)
+
+
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns {kernel: max abs error over its cases}."""
     from repro_torch.kernels import attn_template, norms, rope
+    from repro_torch.kernels import swiglu as glu
 
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -386,16 +409,29 @@ def check_kernels(torch, ops, ref, gen):
                     f"x{[b, s, h, d]} fraction={frac} positions {p0}.."
                     f"{int(ar[-1])}{' (B, 1)' if column else ''}",
                     plan=rope.plan_for(x, frac, y)._asdict())
-        for shape in [(4, 1, 11008), (1, 256, 11008), (2, 37, 257), (1, 13)]:
-            g, u = randn(shape, dt, 3.0), randn(shape, dt)
-            compare("swiglu", ops.swiglu(g, u), ref.swiglu(g, u), dtname,
-                    f"{list(shape)}")
-        # gemma3-27b's decode rows and a prefill; no multiple of 8, a tail of 1
-        for shape in [(4, 1, 21504), (1, 256, 21504), (2, 37, 257), (1, 17),
-                      (1, 1)]:
-            g, u = randn(shape, dt, 3.0), randn(shape, dt)
-            compare("geglu", ops.geglu(g, u), ref.geglu(g, u), dtname,
-                    f"{list(shape)}")
+        # swiglu: llama2-7b's decode step and prefill bucket; geglu:
+        # gemma3-27b's decode rows, a prefill and its fused prefill at the
+        # 2048 bucket (the launch phase 5 times); no multiple of 4, a tail
+        # of 1; both on a view 4 elements into its storage (8-byte aligned,
+        # not 16), and one element in (the scalar body), and at finite
+        # extremes of the gate (e^-g, e^-2z and g^3 overflowing, the
+        # denominator past 2^126), each naming its plan
+        for kernel, shapes in (("swiglu", [(4, 1, 11008), (1, 256, 11008),
+                                           (2, 37, 257), (1, 13)]),
+                               ("geglu", [(4, 1, 21504), (1, 256, 21504),
+                                          (1, 2048, 21504), (2, 37, 257),
+                                          (1, 17), (1, 1)])):
+            fn, plain = getattr(ops, kernel), getattr(ref, kernel)
+            cases = [(randn(s, dt, 3.0), randn(s, dt), f"{list(s)}") for s in shapes]
+            gb, ub = randn((44036,), dt, 3.0), randn((44036,), dt)
+            cases += [(gb[k:], ub[k:], f"[{44036 - k}] {k} elements into its storage")
+                      for k in (4, 1)]
+            ext = torch.tensor(GLU_EXTREMES, device="cuda").repeat(2, 8).to(dt)
+            cases.append((ext, randn(tuple(ext.shape), dt), "extremes of the gate"))
+            cases.append((*glu_sweep(torch, gen, dt), "gate swept over [-8, 8], |up| 8"))
+            for g, u, case in cases:
+                compare(kernel, fn(g, u), plain(g, u), dtname, case,
+                        plan=glu.plan_for(g, u)._asdict())
         # window: (B, Sq, Skv, Hq, Hkv, D, q_offset, window): gemma3-27b's
         # prefill at the 2048 bucket and past the window at 1100; windows
         # of 1, 63, 64, 65 keys at 197 (no multiple of the 64-key tile),
@@ -673,6 +709,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     import torch.nn.functional as F
 
     from repro_torch.kernels import attn_template, norms, rope
+    from repro_torch.kernels import swiglu as glu
 
     timer = graph.Timer()
     dt = torch.bfloat16
@@ -707,24 +744,11 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             torch, ops, ref, entry, gen, rope, nms_inputs,
             [[n - 1] for n in decode_lengths["llama2-7b"]], floor=False).items():
         (out if key in SOURCES else extra)[key] = row
-    rows = 4
-    g, u = randn((rows, 1, 11008)), randn((rows, 1, 11008))
-    n = g.numel()
-    out["swiglu"] = entry(
-        "gate,up[4,1,11008] bf16 (llama2-7b decode step)",
-        lambda: ops.swiglu(g, u), lambda: ref.swiglu(g, u), None,
-        3 * 2 * n, 6 * n)
-    # geglu: gemma3-27b's fused decode step (the kernels line) and a
-    # 2048-token prefill (a line of its own); ~10 f32 ops and a tanh each
-    for key, rows_s in (("geglu", (4, 1)), ("geglu prefill", (1, 2048))):
-        g, u = randn((*rows_s, 21504)), randn((*rows_s, 21504))
-        n = g.numel()
-        extra[key] = entry(
-            f"gate,up[{rows_s[0]},{rows_s[1]},21504] bf16 (gemma3-27b fused "
-            f"{'decode step' if rows_s[1] == 1 else 'prefill'})",
-            lambda: ops.geglu(g, u), lambda: ref.geglu(g, u), None,
-            3 * 2 * n, 10 * n)
-    out["geglu"] = extra.pop("geglu")
+    # swiglu and geglu at the decode step (the kernels line) and the served
+    # prefills, with torch.mul of the same operands (scripts/glu_timing.py)
+    for key, row in _script("glu_timing").time_glu(
+            torch, ops, ref, entry, gen, glu, floor=False).items():
+        (out if key in SOURCES else extra)[key] = row
     # attention_window: gemma3-27b's local-layer prefill at the 2048 bucket;
     # the library call is SDPA over KV heads repeated to 32 with the band
     # mask spelled out
@@ -851,7 +875,8 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
 
 def _script(name: str):
     """``scripts/<name>.py`` of this tree: the row norms' timed cases
-    (``norm_timing``), rope's and NMS's (``rope_nms_timing``)."""
+    (``norm_timing``), rope's and NMS's (``rope_nms_timing``), the gated
+    activations' (``glu_timing``)."""
     spec = importlib.util.spec_from_file_location(
         name, REPO / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -1505,7 +1530,7 @@ def main(argv=None) -> int:
             "max_abs_err": worst[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"], "eager_ms": tm["eager_ms"],
-            "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan")
+            "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms")
                                      if k in tm}})
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": kernels}), flush=True)

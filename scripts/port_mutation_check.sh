@@ -79,7 +79,12 @@ mut decode_combine_no_rescale decode.cu \
   's/a += w \* __ldcg(pa + s \* GD + oi);/a += __ldcg(pa + s * GD + oi);/'
 # GeGLU without the cubic term of its tanh approximation
 mut geglu_no_cubic swiglu.cu \
-  's/tanhf(kSqrt2OverPi \* (g + 0.044715f \* g \* g \* g))/tanhf(kSqrt2OverPi * g)/'
+  's/ex2(kGeluArg \* (g + 0.044715f \* g \* g \* g))/ex2(kGeluArg * g)/'
+# GeGLU through tanh.approx.f32 (error ~2^-11 near 0): must fail at f32
+mut geglu_tanh_approx swiglu.cu \
+  's/return __fdividef(g, 1.f + ex2(kGeluArg \* (g + 0.044715f \* g \* g \* g)));/float t; asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.7978845608028654f * (g + 0.044715f * g * g * g))); return 0.5f * g * (1.f + t);/'
+# the last partial vector never written (its elements left as allocated)
+mut glu_tail_skipped swiglu.cu 's/const int64_t t = nv \* W + i;/const int64_t t = n + i;/'
 # the dequant epilogue normalising the unrounded sum instead of the rounded r
 mut dequant_unrounded_r norms.cu \
   's/for (int j = 0; j < V; ++j) v\[k\]\[j\] = repro::to_f(repro::from_f<T>(v\[k\]\[j\]));/for (int j = 0; j < V; ++j) v[k][j] = kDequant ? v[k][j] : repro::to_f(repro::from_f<T>(v[k][j]));/'

@@ -16,6 +16,7 @@ from repro_torch import nn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import attn_template as attn  # noqa: E402
 from repro_torch.kernels import _build, norms, ops, ref, rope  # noqa: E402
+from repro_torch.kernels import swiglu as glu  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
 from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
@@ -63,7 +64,10 @@ def test_rms_norm_on_card(card, shape, dt):
     _assert_close(got, ref.rms_norm(x, w), dt)
 
 
-@pytest.mark.parametrize("shape", [(4, 1, 11008), (2, 37, 257), (1, 13)])
+#: the decode step, a served prefill, tails of 3 and 1 (the last partial
+#: vector of csrc/swiglu.cu's 8-byte accesses)
+@pytest.mark.parametrize("shape", [(4, 1, 11008), (1, 256, 11008), (2, 37, 257),
+                                   (1, 13), (44035,)])
 @pytest.mark.parametrize("dt", DTYPES)
 def test_swiglu_on_card(card, shape, dt):
     g, u = _randn(card, shape, dt, 3.0), _randn(card, shape, dt)
@@ -111,12 +115,93 @@ def test_attention_window_on_card(card, case, dt):
     _assert_close(got, ref.attention(q, k, v, q_offset=off, window=w), dt)
 
 
-@pytest.mark.parametrize("shape", [(4, 1, 21504), (2, 37, 257), (1, 13), (1, 1)])
+@pytest.mark.parametrize("shape", [(4, 1, 21504), (1, 256, 21504), (1, 2048, 21504),
+                                   (2, 37, 257), (1, 13), (1, 1)])
 @pytest.mark.parametrize("dt", DTYPES)
 def test_geglu_on_card(card, shape, dt):
     g, u = _randn(card, shape, dt, 3.0), _randn(card, shape, dt)
     got = _launched("geglu", lambda: ops.geglu(g, u))
     _assert_close(got, ref.geglu(g, u), dt)
+
+
+def _glu_call(kernel, g, u):
+    return _launched(kernel, lambda: getattr(ops, kernel)(g, u))
+
+
+@pytest.mark.parametrize("offset,width", [(4, {torch.float32: 2, torch.bfloat16: 4}),
+                                          (1, {torch.float32: 1, torch.bfloat16: 1})])
+@pytest.mark.parametrize("kernel", ["swiglu", "geglu"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_glu_view_into_its_storage_on_card(card, offset, width, kernel, dt):
+    """A view 4 elements into its storage (8-byte aligned: the vector
+    body) and one element in (the scalar body)."""
+    n = 4 * 11008 + offset
+    gb, ub = _randn(card, (n,), dt, 3.0), _randn(card, (n,), dt)
+    g, u = gb[offset:], ub[offset:]
+    assert glu.plan_for(g, u).width == width[dt]
+    _assert_close(_glu_call(kernel, g, u), getattr(ref, kernel)(g, u), dt)
+
+
+#: finite extremes of the gate: e^-g and e^-2z overflow, g^3 overflows,
+#: the denominator passes 2^126
+GLU_EXTREMES = [1e-30, -1e-30, 20.0, -20.0, -88.8, 100.0, -100.0, 1e4, -1e4,
+                1e13, -1e13, -87.5, -9.7]
+
+
+@pytest.mark.parametrize("kernel", ["swiglu", "geglu"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_glu_extremes_on_card(card, kernel, dt):
+    ext = torch.tensor(GLU_EXTREMES, device="cuda")
+    g = ext.repeat(2, 8).to(dt)
+    u = _randn(card, tuple(g.shape), dt)
+    _assert_close(_glu_call(kernel, g, u), getattr(ref, kernel)(g, u), dt)
+
+
+@pytest.mark.parametrize("kernel", ["swiglu", "geglu"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_glu_gate_sweep_on_card(card, kernel, dt):
+    """2^16 gates evenly over [-8, 8] against ups of +-8: an approximate
+    tanh fails here at f32 where 1 + tanh(z) is small."""
+    n = 1 << 16
+    g = torch.linspace(-8.0, 8.0, n, device="cuda").to(dt)
+    u = ((torch.randint(0, 2, (n,), generator=card, device="cuda") * 2 - 1) * 8.0).to(dt)
+    _assert_close(_glu_call(kernel, g, u), getattr(ref, kernel)(g, u), dt)
+
+
+def test_a_glu_plan_the_kernel_cannot_take_raises(card, monkeypatch):
+    g, u = _randn(card, (256, 11008), torch.bfloat16), _randn(card, (256, 11008), torch.bfloat16)
+    plan = glu.plan_for(g, u)
+    for bad in (plan._replace(threads=48), plan._replace(threads=2048),
+                plan._replace(width=3), plan._replace(width=16),
+                plan._replace(width=8),                    # 16-byte accesses
+                plan._replace(width=2, grid=2 * plan.grid),  # 4-byte accesses
+                plan._replace(grid=0), plan._replace(grid=plan.grid - 1)):
+        monkeypatch.setattr(glu, "glu_plan", lambda *a, q=bad: q)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            ops.swiglu(g, u)
+    gb = _randn(card, (4 * 11008 + 4,), torch.bfloat16)
+    for k, w in ((2, 4), (1, 4)):               # accesses past the alignment
+        v = gb[k:]
+        monkeypatch.setattr(glu, "glu_plan", lambda *a, q=glu.GluPlan(w, 128, 344): q)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            ops.geglu(v, v)
+    torch.cuda.synchronize()
+
+
+def test_glu_without_a_host_sync(card):
+    """Neither wrapper reads the card: each launch passes under
+    set_sync_debug_mode("error")."""
+    ins = [(_randn(card, (n,), torch.bfloat16), _randn(card, (n,), torch.bfloat16))
+           for n in (4 * 11008, 256 * 11008, 13)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a host read would raise
+    try:
+        for g, u in ins:
+            ops.swiglu(g, u)
+            ops.geglu(g, u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", [(1, 197, 197, 12, 12, 64, 64),   # vit stub
