@@ -15,7 +15,8 @@ Phases, each printing JSON lines:
              window prefill over 16 KV heads, its GeGLU rows and its
              qk-norm; the encoders' and the detector's full-mask attention;
              the detector's NMS; the Table-2 dequant row; the §4.5
-             cross-entropy site and gemma3's 262144-token vocabulary) and
+             cross-entropy site and gemma3's 262144-token vocabulary, with
+             few rows split over many CTAs) and
              odd ones (attention head dims 34, 48, 80, 96, Sq = 1, a causal
              q_offset with Sq < Skv; decode over 4096 keys in 64 splits and
              lengths on and one past a split boundary; row norms at
@@ -30,7 +31,10 @@ Phases, each printing JSON lines:
              naming its plan; NMS at the
              mask's word boundaries, 4663 and 8192 boxes, every third box
              invalid, IoU pairs at exactly 0.5 and one ulp above, pairs
-             whose IoU an FMA would move across 0.5); NMS keep
+             whose IoU an FMA would move across 0.5; softmax_xent on
+             split plans with misaligned spans, int32 and int64 labels,
+             labels in the first and last spans and outside [0, V), each
+             naming its plan); NMS keep
              masks and the dequant kernel's ``r`` must be identical;
 3. serve   - for each of llama2-7b, gpt2-xl and gemma3-27b at full width
              and depth in bf16 (random weights from a seeded generator on
@@ -87,7 +91,10 @@ Phases, each printing JSON lines:
              and k, NMS at the Table-2 row and at 8192 boxes
              (``scripts/rope_nms_timing.py``); swiglu and geglu at the
              decode steps and the served prefills beside ``torch.mul`` of
-             the same operands (``scripts/glu_timing.py``).
+             the same operands (``scripts/glu_timing.py``); softmax_xent
+             at gemma3-27b's vocabulary with 8 rows, its loss chunk and
+             llama2-7b's 2048-token loss beside ``F.cross_entropy`` and
+             ``torch.amax`` (``scripts/xent_timing.py``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -288,6 +295,7 @@ def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns {kernel: max abs error over its cases}."""
     from repro_torch.kernels import attn_template, norms, rope
+    from repro_torch.kernels import softmax_xent as xent
     from repro_torch.kernels import swiglu as glu
 
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -539,15 +547,32 @@ def check_kernels(torch, ops, ref, gen):
                         fail(f"dequant_add_rms_norm {case}: {frac} of y "
                              "differs from the plain version's bits")
         # softmax_xent: the reference sweep's shapes, the §4.5 site and
-        # gemma3-27b's vocabulary
-        for rows, vocab in [(7, 1000), (32, 50304), (3, 130), (256, 32000),
-                            (8, 262144)]:
+        # gemma3-27b's vocabulary with 8 and 2 rows (split into many spans),
+        # splits whose rows and span edges are misaligned ((5, 4099),
+        # (3, 100003), (9, 24577)); labels in the first and last spans, int32
+        # and int64 in turn, and from 4 rows up -1 and V in rows 1 and 2 (a
+        # label outside [0, V) picks nothing: the row's logsumexp). Each
+        # case runs with fresh logits, so a split plan whose counters were
+        # left set, or a merge that read stale partials, disagrees
+        for i, (rows, vocab) in enumerate([
+                (7, 1000), (32, 50304), (3, 130), (256, 32000), (8, 262144),
+                (5, 4099), (2, 262144), (3, 100003), (9, 24577)]):
             logits = randn((rows, vocab), dt, 5.0)
+            ldt = (torch.int32, torch.int64)[i % 2]
             labels = torch.randint(0, vocab, (rows,), generator=gen,
-                                   device="cuda", dtype=torch.int32)
-            compare("softmax_xent", ops.softmax_xent(logits, labels),
-                    ref.softmax_xent(logits, labels), dtname,
-                    f"logits[{rows},{vocab}]", XENT_TOL)
+                                   device="cuda", dtype=ldt)
+            labels[0], labels[-1] = 0, vocab - 1
+            outside = torch.zeros(rows, dtype=torch.bool, device="cuda")
+            if rows >= 4:
+                labels[1], labels[2] = -1, vocab
+                outside[1:3] = True
+            want = torch.where(
+                outside, torch.logsumexp(logits.float(), -1),
+                ref.softmax_xent(logits, labels.clamp(0, vocab - 1)))
+            compare("softmax_xent", ops.softmax_xent(logits, labels), want,
+                    dtname, f"logits[{rows},{vocab}] labels {str(ldt)[6:]}"
+                    f"{' with -1 and V' if rows >= 4 else ''}", XENT_TOL,
+                    plan=xent.xent_plan(rows, vocab, dt, sms)._asdict())
     if bodies != set(norms.BODY_CODE):
         fail(f"row norms: the cases reached the bodies {sorted(bodies)}, not "
              f"all of {sorted(norms.BODY_CODE)}")
@@ -709,6 +734,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     import torch.nn.functional as F
 
     from repro_torch.kernels import attn_template, norms, rope
+    from repro_torch.kernels import softmax_xent as xent
     from repro_torch.kernels import swiglu as glu
 
     timer = graph.Timer()
@@ -853,19 +879,13 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             out[key] = row
         else:
             extra[key] = row
-    # softmax_xent: the §4.5 site, (256, 32000) f32; the library call is
-    # F.cross_entropy per row
-    logits = torch.randn((256, 32000), generator=gen, device="cuda")
-    labels = torch.randint(0, 32000, (256,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    labels64 = labels.long()
-    n = logits.numel()
-    out["softmax_xent"] = entry(
-        "logits[256,32000] f32, labels int32 (§4.5 kernel site)",
-        lambda: ops.softmax_xent(logits, labels),
-        lambda: ref.softmax_xent(logits, labels),
-        lambda: F.cross_entropy(logits, labels64, reduction="none"),
-        4 * n + 4 * 256 + 4 * 256, 5 * n)
+    # softmax_xent at the §4.5 site, (256, 32000) f32 (the kernels line),
+    # gemma3-27b's vocabulary with 8 rows, its loss chunk and llama2-7b's
+    # loss over 2048 tokens; the library call is F.cross_entropy per row,
+    # beside torch.amax of the same logits (scripts/xent_timing.py)
+    for key, row in _script("xent_timing").time_xent(
+            torch, ops, ref, entry, gen, xent, floor=False).items():
+        (out if key in SOURCES else extra)[key] = row
     for name, tm in extra.items():
         emit(phase="timing", kernel=name, **{k: v for k, v in tm.items()
                                              if k != "bound"},
@@ -876,7 +896,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
 def _script(name: str):
     """``scripts/<name>.py`` of this tree: the row norms' timed cases
     (``norm_timing``), rope's and NMS's (``rope_nms_timing``), the gated
-    activations' (``glu_timing``)."""
+    activations' (``glu_timing``), softmax_xent's (``xent_timing``)."""
     spec = importlib.util.spec_from_file_location(
         name, REPO / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -1530,7 +1550,8 @@ def main(argv=None) -> int:
             "max_abs_err": worst[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"], "eager_ms": tm["eager_ms"],
-            "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms")
+            "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms",
+                                                         "amax_ms")
                                      if k in tm}})
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({"kernels": kernels}), flush=True)

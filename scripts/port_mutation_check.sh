@@ -88,6 +88,19 @@ mut glu_tail_skipped swiglu.cu 's/const int64_t t = nv \* W + i;/const int64_t t
 # the dequant epilogue normalising the unrounded sum instead of the rounded r
 mut dequant_unrounded_r norms.cu \
   's/for (int j = 0; j < V; ++j) v\[k\]\[j\] = repro::to_f(repro::from_f<T>(v\[k\]\[j\]));/for (int j = 0; j < V; ++j) v[k][j] = kDequant ? v[k][j] : repro::to_f(repro::from_f<T>(v[k][j]));/'
-# softmax_xent without the mask of the last tile's columns past the vocabulary
+# softmax_xent reducing the last tile of a span's aligned middle whole, past
+# the bytes its bulk copy brought (stale or unset shared memory)
 mut xent_no_tail_mask softmax_xent.cu \
-  's/const float xv = in_vocab ? repro::to_f(row\[c\]) : repro::kNegInf;/const float xv = repro::to_f(row[c]);/'
+  's/const int nvec = static_cast<int>(lmin(kTileBytes, nbytes - static_cast<int64_t>(t) \* kTileBytes) \/ 16);/const int nvec = kTileVec;/'
+# softmax_xent's merge summing the spans' l without e^(m_s - M)
+mut xent_merge_no_rescale softmax_xent.cu \
+  's/sw\[tid\] = ls \* ex2((ms - mx) \* kLog2e);/sw[tid] = ls;/'
+# the row's counter left at n_split after the merge (the next split launch
+# on the stream merges early or never)
+mut xent_counter_not_reset softmax_xent.cu 's/^    sem\[row_i\] = 0;$//'
+# every span stopping one tile short of its end
+mut xent_span_drops_last_tile softmax_xent.cu \
+  's/const int64_t c1 = lmin(vocab, c0 + span);/const int64_t c1 = lmin(vocab, c0 + span - kTileBytes \/ static_cast<int64_t>(sizeof(T)));/'
+# the label logit read as logits[i, label] without the bounds check
+mut xent_label_unchecked softmax_xent.cu \
+  's/if (tid == 0 \&\& lab >= 0 \&\& lab < vocab \&\& lab \/ span == split)/if (tid == 0 \&\& lab \/ span == split)/'

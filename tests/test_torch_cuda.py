@@ -16,6 +16,7 @@ from repro_torch import nn  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import attn_template as attn  # noqa: E402
 from repro_torch.kernels import _build, norms, ops, ref, rope  # noqa: E402
+from repro_torch.kernels import softmax_xent as xent  # noqa: E402
 from repro_torch.kernels import swiglu as glu  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
 from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
@@ -636,14 +637,20 @@ def test_dequant_reads_its_scale_on_the_card(card):
     assert torch.equal(r1, q.float() * 0.5) and torch.equal(r2, q.float() * 0.25)
 
 
+#: the reference sweep's shapes, the §4.5 site, gemma3-27b's vocabulary
+#: with 2 and 8 rows (split into many spans); (5, 4099), (3, 100003) and
+#: (9, 24577) split with misaligned rows and span edges; one logit
 @pytest.mark.parametrize("rows,vocab", [(7, 1000), (32, 50304), (3, 130),
                                         (256, 32000), (2, 262144), (1, 1),
-                                        (5, 4099)])
+                                        (5, 4099), (8, 262144), (3, 100003),
+                                        (9, 24577)])
 @pytest.mark.parametrize("dt", DTYPES)
-def test_softmax_xent_on_card(card, rows, vocab, dt):
+@pytest.mark.parametrize("ldt", [torch.int32, torch.int64])
+def test_softmax_xent_on_card(card, rows, vocab, dt, ldt):
     logits = _randn(card, (rows, vocab), dt, 5.0)
     labels = torch.randint(0, vocab, (rows,), generator=card, device="cuda",
-                           dtype=torch.int32)
+                           dtype=ldt)
+    labels[0], labels[-1] = 0, vocab - 1      # in the first and last spans
     got = _launched("softmax_xent", lambda: ops.softmax_xent(logits, labels))
     # f32 out on both sides, from the same logits: JAX's sweep tolerance
     torch.cuda.synchronize()
@@ -652,9 +659,75 @@ def test_softmax_xent_on_card(card, rows, vocab, dt):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_softmax_xent_label_outside_the_vocab_picks_nothing(card):
-    logits = _randn(card, (4, 1000), torch.float32, 5.0)
-    labels = torch.tensor([-1, 1000, 1023, 3], device="cuda")
+def test_softmax_xent_split_twice_on_one_stream_and_on_another(card):
+    """The split plan's row counters are left at 0: a second launch on the
+    stream merges as the first did, and a launch on a second stream (its
+    own counters) agrees."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert xent.xent_plan(8, 262144, torch.float32, sms).n_split > 1
+    a, b = (_randn(card, (8, 262144), torch.float32, 5.0) for _ in range(2))
+    labels = torch.randint(0, 262144, (8,), generator=card, device="cuda")
+    got_a = ops.softmax_xent(a, labels)
+    got_b = ops.softmax_xent(b, labels)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_c = ops.softmax_xent(b, labels)
+    torch.cuda.synchronize()
+    for got, x in ((got_a, a), (got_b, b), (got_c, b)):
+        torch.testing.assert_close(got, ref.softmax_xent(x, labels), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_a_xent_plan_the_kernel_cannot_take_raises(card, monkeypatch):
+    """A plan whose spans are not whole tiles, leave a span empty, miss
+    the end of the row or outnumber the merge's threads is refused by the
+    C entry, and the wrapper raises: no launch, no fallback."""
+    logits = _randn(card, (8, 262144), torch.float32)
+    labels = torch.zeros(8, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = xent.xent_plan(8, 262144, torch.float32, sms)
+    for bad in (plan._replace(span=plan.span + 1),
+                plan._replace(n_split=plan.n_split + 1),
+                plan._replace(n_split=plan.n_split - 1),
+                plan._replace(n_split=0)):
+        monkeypatch.setattr(xent, "xent_plan", lambda *a, q=bad: q)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            ops.softmax_xent(logits, labels)
+    wide = _randn(card, (1, 300 * plan.tile), torch.float32)   # 300 spans
+    monkeypatch.setattr(xent, "xent_plan",
+                        lambda *a: xent.XentPlan(plan.tile, plan.tile, 300))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ops.softmax_xent(wide, labels[:1])
+    torch.cuda.synchronize()
+
+
+def test_softmax_xent_without_a_host_sync(card):
+    """The wrapper reads nothing of the card (the plan comes from the
+    shapes): split and unsplit launches pass under
+    set_sync_debug_mode("error")."""
+    ins = [(_randn(card, (r, v), torch.bfloat16),
+            torch.zeros(r, dtype=torch.int64, device="cuda"))
+           for r, v in ((8, 262144), (256, 32000))]
+    for x, lab in ins:
+        ops.softmax_xent(x, lab)              # scratch and counters exist
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [ops.softmax_xent(x, lab) for x, lab in ins]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for (x, lab), got in zip(ins, outs):
+        torch.testing.assert_close(got, ref.softmax_xent(x, lab), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows,vocab", [(4, 1000), (4, 262144)])
+def test_softmax_xent_label_outside_the_vocab_picks_nothing(card, rows, vocab):
+    # (4, 262144) runs a split plan: a label past the last span, or before
+    # the first, is read by no span
+    logits = _randn(card, (rows, vocab), torch.float32, 5.0)
+    labels = torch.tensor([-1, vocab, vocab + 23, 3], device="cuda")
     got = ops.softmax_xent(logits, labels)
     lse = torch.logsumexp(logits, dim=-1)
     torch.testing.assert_close(got[:3], lse[:3], atol=1e-5, rtol=1e-5)
