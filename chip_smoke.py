@@ -11,14 +11,18 @@ Phases, each printing JSON lines:
              builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. kernels - holds each of the fourteen kernels against its plain PyTorch
              version on the card, in bf16 and f32, at the main paths' shapes
-             (llama2-7b; gpt2-xl's 25 heads of 64; gemma3-27b's 2048-token
+             (llama2-7b; stablelm-3b's LayerNorm at 2560, SwiGLU at 6912,
+             rope on a quarter of 80 (half 10, scalar), attention at head
+             dim 80 and at a 64-token chunk of a 512-deep cache;
+             gpt2-xl's 25 heads of 64; gemma3-27b's 2048-token
              window prefill over 16 KV heads, its GeGLU rows and its
              qk-norm; the encoders' and the detector's full-mask attention;
              the detector's NMS; the Table-2 dequant row; the §4.5
              cross-entropy site and gemma3's 262144-token vocabulary, with
              few rows split over many CTAs) and
              odd ones (attention head dims 34, 48, 80, 96, Sq = 1, a causal
-             q_offset with Sq < Skv; decode over 4096 keys in 64 splits and
+             q_offset with Sq < Skv, a chunk whose keys and values past it
+             are NaN; decode over 4096 keys in 64 splits and
              lengths on and one past a split boundary; row norms at
              gemma3-27b's s2048 qk-norm and block norms, the Table-2
              Segformer rows, bert-base at b8 and a partial last row group,
@@ -36,18 +40,33 @@ Phases, each printing JSON lines:
              labels in the first and last spans and outside [0, V), each
              naming its plan); NMS keep
              masks and the dequant kernel's ``r`` must be identical;
-3. serve   - for each of llama2-7b, gpt2-xl and gemma3-27b at full width
-             and depth in bf16 (random weights from a seeded generator on
-             the card), the continuous-batching ``Engine`` unfused and fused
+3. serve   - for each of llama2-7b, stablelm-3b, gpt2-xl and gemma3-27b at
+             full width and depth in bf16 (random weights from a seeded
+             generator on the card), the continuous-batching ``Engine``
+             unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
              new tokens (gemma3-27b's prompts cross its 1024-token window in
              prefill and wrap its rings in decode); checks the outputs and
              that each path launched exactly its kernels, as many times as
              its forwards need; then holds the kernel path's prefill logits
              and one decode step's logits against the plain path's, and the
-             fused path's against the unfused path's (``--paths-only`` runs
-             only these comparisons, to read what they see of a kernel
-             broken on purpose);
+             fused path's against the unfused path's, and for llama2-7b and
+             stablelm-3b a 300-token prompt's chunked prefill (``lm_prefill``
+             of 128 tokens, then ``lm_extend`` chunks of 64 at their
+             offsets) against its whole prefill and against the plain
+             path's chunked prefill (``--paths-only`` runs only these
+             comparisons, to read what they see of a kernel broken on
+             purpose);
+   paged   - llama2-7b and stablelm-3b through the ``PagedEngine``
+             (``max_batch=4``, ``max_len=512``, 16-token blocks), unfused
+             and fused: (a) cold, the serve phase's prompts, tokens
+             identical to the ``Engine``'s from the same run; (b) chunks of
+             64 and the prefix cache, four prompts sharing a 160-token
+             prefix and two of 300-400 tokens: every request finished, a
+             prefix-cache hit, the count of requests whose tokens equal the
+             ``Engine``'s printed. Both: launches equal to what the cold
+             prefills, extend chunks and decode steps need, every block
+             back to the allocator or the prefix cache;
 4. profile - a per-op measured profile of ``lm_forward`` (batch 1, seq 16)
              on the kernel path, unfused and fused, for the three models,
              and gemma3-27b at seq 2048, where its window bites, unfused
@@ -94,7 +113,10 @@ Phases, each printing JSON lines:
              the same operands (``scripts/glu_timing.py``); softmax_xent
              at gemma3-27b's vocabulary with 8 rows, its loss chunk and
              llama2-7b's 2048-token loss beside ``F.cross_entropy`` and
-             ``torch.amax`` (``scripts/xent_timing.py``).
+             ``torch.amax`` (``scripts/xent_timing.py``); rope at
+             stablelm-3b's decode step (the scalar plan) and attention_core
+             at the last 64-token chunk of a 512-deep cache beside SDPA with
+             the causal-offset mask spelled out.
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -121,13 +143,28 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
 SEED = 0
-ARCHS = ("llama2-7b", "gpt2-xl", "gemma3-27b")
-#: the served models' engine depth and prompt lengths. gemma3-27b's: two
-#: past its 1024-token window (right-padded to the 2048 bucket, the rings
-#: fill from the true tail), one of 1015 whose decode wraps its rings at
-#: 1024, one short; compare_paths takes the first four
-SERVE = {"llama2-7b": (512, None), "gpt2-xl": (512, None),
+ARCHS = ("llama2-7b", "stablelm-3b", "gpt2-xl", "gemma3-27b")
+#: the served models' engine depth and prompt lengths (None: six seeded
+#: lengths of 5-200 tokens). gemma3-27b's: two past its 1024-token window
+#: (right-padded to the 2048 bucket, the rings fill from the true tail),
+#: one of 1015 whose decode wraps its rings at 1024, one short;
+#: compare_paths takes the first four
+SERVE = {"llama2-7b": (512, None), "stablelm-3b": (512, None),
+         "gpt2-xl": (512, None),
          "gemma3-27b": (2048, (1500, 1100, 1015, 37, 600, 250))}
+#: the models phase ``paged`` serves through the PagedEngine (every layer
+#: global: gemma3-27b's rings cannot page)
+PAGED_ARCHS = ("llama2-7b", "stablelm-3b")
+#: the paged engine's blocks and chunks; the chunked run's prompts: four
+#: that share a 160-token prefix, each with its own 40-token suffix, and
+#: two long ones (five to seven chunks), in the order (shared, long, long,
+#: shared, shared, shared), so that the last two find the first one's
+#: prefix cached
+BLOCK_SIZE, CHUNK = 16, 64
+SHARED_PREFIX, SUFFIX, LONG_PROMPTS = 160, 40, (300, 400)
+#: compare_paths' chunked prefill: a prompt of EXTEND_PROMPT tokens as
+#: lm_prefill of the first EXTEND_FIRST, then lm_extend in chunks of CHUNK
+EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 NEW_TOKENS = 16
@@ -236,16 +273,23 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
-def per_forward_launches(cfg, fused: bool, decode: bool = False) -> dict:
+def per_forward_launches(cfg, fused: bool, decode: bool = False,
+                         extend: bool = False) -> dict:
     """Kernel launches of one forward on the kernel path: a prefill (or
     ``lm_forward``) runs ``attention_core`` in each global layer and
     ``attention_window`` in each local one (an encoder ``attention_full``),
-    a decode step ``decode_core`` in every layer. RMSNorm models launch one
-    norm per pre-norm, post-norm and q/k-norm and the final one, of which
-    fusion folds one a layer into ``fused_add_rms_norm``; unfused GeGLU is
-    the plain op chain, as in the JAX package."""
+    a decode step ``decode_core`` in every layer; a chunk of a chunked
+    prefill (``lm_extend``, global layers only) runs what a prefill does.
+    RMSNorm models launch one norm per pre-norm, post-norm and q/k-norm and
+    the final one, of which fusion folds one a layer into
+    ``fused_add_rms_norm``; LayerNorm models two a layer and the final one,
+    of which fusion folds one into ``fused_add_layer_norm``. SwiGLU is a
+    kernel fused or not; unfused GeGLU and rope are the plain op chains, as
+    in the JAX package."""
     n = cfg.n_layers
     n_local = cfg.layer_kinds().count("local")
+    if extend and n_local:
+        fail(f"{cfg.name}: a local layer has no chunked prefill")
     if decode:
         out = {"decode_core": n}
     elif not cfg.causal:
@@ -255,14 +299,16 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False) -> dict:
     if cfg.norm == "rmsnorm":
         per_layer = 2 + 2 * cfg.post_norm + 2 * cfg.qk_norm
         out["rms_norm"] = n * (per_layer - fused) + 1
-        if cfg.ffn == "swiglu" or (fused and cfg.ffn == "geglu"):
-            out[cfg.ffn] = n
         if fused:
-            out.update(fused_add_rms_norm=n, rope=2 * n)
+            out["fused_add_rms_norm"] = n
     else:
         out["layer_norm"] = n + 1 if fused else 2 * n + 1
         if fused:
             out["fused_add_layer_norm"] = n
+    if cfg.ffn == "swiglu" or (fused and cfg.ffn == "geglu"):
+        out[cfg.ffn] = n
+    if fused and cfg.pos_emb == "rope":
+        out["rope"] = 2 * n
     return {k: v for k, v in out.items() if v}
 
 
@@ -371,9 +417,11 @@ def check_kernels(torch, ops, ref, gen):
             case = f"x,res{list(shape)} zero_centered={zc}"
             compare("fused_add_rms_norm", y, wy, dtname, case, body=bd)
             exact("fused_add_rms_norm", r, wr, dtname, case, body=bd)
-        # gpt2-xl's width; a row whose mean is far from zero (1e3 + N(0,1));
-        # the Table-2 Segformer rows (32 wide) and bert-base at b8
+        # gpt2-xl's width and stablelm-3b's; a row whose mean is far from
+        # zero (1e3 + N(0,1)); the Table-2 Segformer rows (32 wide) and
+        # bert-base at b8
         for shape, mean in [((4, 1, 1600), 0.0), ((1, 256, 1600), 3.0),
+                            ((4, 1, 2560), 0.0), ((1, 256, 2560), 3.0),
                             ((2, 33, 257), 0.0), ((3, 7, 1000), 0.0),
                             ((2, 1600), 1e3), ((2, 16384, 32), 0.0),
                             ((8, 128, 768), 3.0)]:
@@ -396,8 +444,11 @@ def check_kernels(torch, ops, ref, gen):
         # prefill and k at 2049, whose last row group is ragged (rows
         # walked by a grid stride); a decode column near 4095; rows of
         # more vectors than a CTA's threads (in chunks); half at its 6144
-        # limit, scalar
-        for b, s, h, d, frac, p0, column in [(4, 1, 32, 128, 1.0, 186, False),
+        # limit, scalar; stablelm-3b's decode step and prefill (head dim 80,
+        # a quarter rotated: half 10, scalar)
+        for b, s, h, d, frac, p0, column in [(4, 1, 32, 80, 0.25, 215, True),
+                                             (1, 256, 32, 80, 0.25, 0, False),
+                                             (4, 1, 32, 128, 1.0, 186, False),
                                              (1, 256, 32, 128, 1.0, 0, False),
                                              (2, 7, 25, 64, 0.25, 500, False),
                                              (3, 7, 25, 64, 0.25, 500, False),
@@ -425,6 +476,7 @@ def check_kernels(torch, ops, ref, gen):
         # extremes of the gate (e^-g, e^-2z and g^3 overflowing, the
         # denominator past 2^126), each naming its plan
         for kernel, shapes in (("swiglu", [(4, 1, 11008), (1, 256, 11008),
+                                           (4, 1, 6912), (1, 256, 6912),
                                            (2, 37, 257), (1, 13)]),
                                ("geglu", [(4, 1, 21504), (1, 256, 21504),
                                           (1, 2048, 21504), (2, 37, 257),
@@ -475,12 +527,30 @@ def check_kernels(torch, ops, ref, gen):
                 (1, 50, 50, 4, 4, 80, 80, 0),         # head dims that are
                 (1, 70, 70, 4, 2, 96, 96, 0),         # multiples of 16, no pow2
                 (2, 1, 70, 4, 2, 128, 128, 69),       # Sq = 1
-                (1, 100, 300, 8, 4, 128, 128, 200)]:  # q_offset, Sq < Skv
+                (1, 100, 300, 8, 4, 128, 128, 200),   # q_offset, Sq < Skv
+                (1, 256, 256, 32, 32, 80, 80, 0),     # stablelm-3b prefill
+                (1, 64, 512, 32, 32, 80, 80, 448)]:   # its last 64-chunk
             q = randn((b, sq, hq, dk), dt)
             k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dv), dt)
             compare("attention_core", ops.attention_core(q, k, v, q_offset=off),
                     ref.attention(q, k, v, q_offset=off), dtname,
                     f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} dv={dv} q_offset={off}")
+        # a chunk of a chunked prefill over a deeper cache whose rows past
+        # the chunk are NaN (stale rows of a paged cache are finite, NaN
+        # shows any of them read): the output stays finite and equals the
+        # plain version over the keys up to the chunk's end
+        for b, sq, skv, hq, hkv, dk, off in [(1, 64, 512, 32, 32, 80, 160),
+                                             (1, 37, 512, 32, 32, 80, 160),
+                                             (1, 44, 300, 8, 2, 128, 256),
+                                             (2, 5, 140, 4, 4, 64, 70)]:
+            q = randn((b, sq, hq, dk), dt)
+            k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dk), dt)
+            end = off + sq
+            want = ref.attention(q, k[:, :end], v[:, :end], q_offset=off)
+            k[:, end:], v[:, end:] = float("nan"), float("nan")
+            compare("attention_core", ops.attention_core(q, k, v, q_offset=off),
+                    want, dtname, f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} "
+                    f"q_offset={off}, NaN keys and values from {end}")
         # the split over the cache: chunk C of this card's plan for one
         # row of one KV head over 4096 keys (the most splits) and for
         # gemma3's rings; lengths on a split boundary and one past it
@@ -489,6 +559,7 @@ def check_kernels(torch, ops, ref, gen):
         for b, t, hq, hkv, dk, dv, lens in [
                 (4, 512, 32, 32, 128, 128, [1, 200, 512, 0]),   # llama, a dead slot
                 (4, 512, 25, 25, 64, 64, [186, 512, 0, 72]),    # gpt2-xl
+                (4, 512, 32, 32, 80, 80, [216, 20, 61, 512]),   # stablelm-3b
                 (4, 1024, 32, 16, 128, 128, [1024, 1024, 1024, 53]),  # rings
                 (4, 2048, 32, 16, 128, 128, [1516, 1116, 1031, 53]),  # gemma3
                 (3, 100, 8, 2, 64, 64, [0, 37, 100]),           # GQA 8/2
@@ -770,6 +841,20 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             torch, ops, ref, entry, gen, rope, nms_inputs,
             [[n - 1] for n in decode_lengths["llama2-7b"]], floor=False).items():
         (out if key in SOURCES else extra)[key] = row
+    # stablelm-3b's decode step: head dim 80, rope on a quarter of it (half
+    # 10: no 16-byte vector, the scalar plan), positions as a (4, 1) column
+    x = randn((4, 1, 32, 80))
+    col = torch.tensor([[n - 1] for n in decode_lengths["stablelm-3b"]],
+                       dtype=torch.int32, device="cuda")
+    rot = x.numel() // 4                        # the rotated quarter
+    extra["rope stablelm"] = entry(
+        "q[4,1,32,80] bf16, fraction 0.25 (half 10), positions (4,1) "
+        "(stablelm-3b fused decode step)",
+        lambda: ops.rope(x, col, fraction=0.25),
+        lambda: ref.rope(x, col, fraction=0.25), None,
+        2 * 2 * x.numel() + 4 * col.numel(), 3 * rot + 3 * 4 * 10)
+    extra["rope stablelm"]["plan"] = rope.plan_for(
+        x, 0.25, ops.rope(x, col, fraction=0.25))._asdict()
     # swiglu and geglu at the decode step (the kernels line) and the served
     # prefills, with torch.mul of the same operands (scripts/glu_timing.py)
     for key, row in _script("glu_timing").time_glu(
@@ -825,6 +910,23 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         lambda: F.scaled_dot_product_attention(qt1, kt1, vt1, attn_mask=mask),
         2 * (2 * b * hq * dh + 2 * kv * hkv * dh), 4 * kv * hq * dh, "bfloat16")
 
+    # attention_core at the last 64-token chunk of a chunked prefill into a
+    # 512-deep cache (stablelm-3b, q_offset 448); the library call is SDPA
+    # with the causal-offset mask spelled out
+    b, sq, t, h, dh, off = 1, 64, 512, 32, 80, 448
+    q, k, v = randn((b, sq, h, dh)), randn((b, t, h, dh)), randn((b, t, h, dh))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    mask = (torch.arange(t, device="cuda")[None, :]
+            <= off + torch.arange(sq, device="cuda")[:, None])
+    visible = sum(off + i + 1 for i in range(sq))
+    extra["attention_core extend"] = entry(
+        f"q[1,{sq},{h},{dh}] kv[1,{t},{h},{dh}] bf16 causal q_offset={off} "
+        "(stablelm-3b, the last chunk of a chunked prefill)",
+        lambda: ops.attention_core(q, k, v, q_offset=off),
+        lambda: ref.attention(q, k, v, q_offset=off),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+        2 * b * h * dh * (2 * sq + 2 * t), 2 * b * h * visible * 2 * dh,
+        "bfloat16", body)
     for arch, (h, dh) in (("llama2-7b", (32, 128)), ("gpt2-xl", (25, 64))):
         # attention_core: the serve phase's largest prefill bucket
         b, s = 1, 256
@@ -909,17 +1011,23 @@ def _script(name: str):
 # ---------------------------------------------------------------------------
 
 def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
-                  max_len: int):
+                  max_len: int, extend_prompt=None):
     """The model's kernel path against another path of the same model, on
     the card, on the same weights: for the unfused model the plain path
     (``"torch"`` backend), for the fused one both the fused plain path and
     the unfused kernel path. Compared are the prefill logits of each prompt
     alone, then one decode step of all of them together from the kernel
     path's caches, each row at its own position (``decode_core``'s per-row
-    lengths). Prints every reading, then fails if one is past its limit:
-    F32_ANCHOR times the reference path's distance from the plain path
-    run with f32 activations, LOGIT_ATOL at the least."""
-    from repro_torch.models import lm_decode, lm_prefill
+    lengths). With ``extend_prompt``, also its chunked prefill
+    (``lm_prefill`` of the first EXTEND_FIRST tokens, then ``lm_extend`` of
+    the rest in chunks of CHUNK at their absolute offsets: ``attention_core``
+    at ``q_offset`` over the whole cache depth): the kernel path's last-token
+    logits against ``lm_prefill`` of the whole prompt on the same path, and
+    against the plain path's chunked prefill. Prints every reading, then
+    fails if one is past its limit: F32_ANCHOR times the reference path's
+    distance from the plain path run with f32 activations, LOGIT_ATOL at
+    the least."""
+    from repro_torch.models import lm_decode, lm_extend, lm_prefill
 
     kernel = ("cuda", fused)
     others = [("torch", fused)] + ([("cuda", False)] if fused else [])
@@ -969,27 +1077,49 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
     for vs in others:
         check("decode_logits", vs, lk, run(vs, decode), l32,
               positions=pos.tolist())
+    if extend_prompt is not None:
+        toks = torch.tensor([extend_prompt], device="cuda")
+        starts = list(range(EXTEND_FIRST, len(extend_prompt), CHUNK))
+
+        def chunked(c):
+            _, cs = lm_prefill(params, toks[:, :EXTEND_FIRST], c,
+                               max_len=max_len)
+            for start in starts:
+                logits, cs = lm_extend(params, toks[:, start:start + CHUNK],
+                                       start, cs, c)
+            return logits[:, -1]
+
+        def whole(c):
+            return lm_prefill(params, toks, c, max_len=max_len)[0]
+        lk = run(kernel, chunked)
+        l32 = run(("torch", False), whole, cfg32)
+        info = dict(prompt_len=len(extend_prompt), first=EXTEND_FIRST,
+                    chunk_starts=starts)
+        check("extend_vs_whole_prefill", kernel, lk, run(kernel, whole), l32,
+              **info)
+        check("extend_logits", ("torch", fused), lk,
+              run(("torch", fused), chunked), l32, **info)
     if bad:
         fail(f"serve: {cfg.name} fused={fused} logits past their limits: "
              + "; ".join(bad))
 
 
 def serve(torch, ops, Engine, params, cfg, prompts, fused: bool,
-          max_len: int):
-    """One engine run of the path; returns its launch counts. Fails unless
-    every request finished with its tokens and the path launched exactly its
+          max_len: int, step: str = "engine"):
+    """One engine run of the path; returns its launch counts and each
+    request's tokens, in the order of ``prompts``. Fails unless every
+    request finished with its tokens and the path launched exactly its
     kernels, as often as its prefills and decode steps need."""
     engine = Engine(cfg, params, max_batch=4, max_len=max_len, fused=fused)
     ops.reset_launches()
     t0 = time.perf_counter()
-    for p in prompts:
-        engine.add_request(p, max_new_tokens=NEW_TOKENS)
+    uids = [engine.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     st = engine.stats
-    emit(phase="serve", model=cfg.name, fused=fused, step="engine",
+    emit(phase="serve", model=cfg.name, fused=fused, step=step,
          prompt_lens=[len(p) for p in prompts], completed=len(done),
          wall_s=round(wall, 4), tok_per_s=round(st.emitted_tokens / wall, 2),
          decode_tok_per_s=round(st.decode_tok_per_s, 2),
@@ -1013,6 +1143,90 @@ def serve(torch, ops, Engine, params, cfg, prompts, fused: bool,
         fail(f"serve: {cfg.name} fused={fused} launched {launches}, its "
              f"{len(prompts)} prefills and {st.decode_steps} decode steps "
              f"need {want}")
+    outputs = {r.uid: r.output for r in done}
+    return launches, [outputs[u] for u in uids]
+
+
+def paged_prompts(rng, cfg):
+    """Phase ``paged`` (b)'s prompts: (shared, long, long, shared, shared,
+    shared), the shared ones a common SHARED_PREFIX and SUFFIX tokens of
+    their own, the long ones LONG_PROMPTS[0]..LONG_PROMPTS[1] tokens."""
+    def draw(n):
+        return [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+    prefix = draw(SHARED_PREFIX)
+    shared = [prefix + draw(SUFFIX) for _ in range(4)]
+    long = [draw(int(n)) for n in rng.integers(*LONG_PROMPTS, 2, endpoint=True)]
+    return [shared[0], *long, *shared[1:]]
+
+
+def paged(torch, ops, PagedEngine, params, cfg, prompts, want, fused: bool,
+          max_len: int, step: str, **engine_kw) -> dict:
+    """One PagedEngine run (``max_batch=4``, BLOCK_SIZE-token blocks) of
+    ``prompts``; returns its launch counts. Fails unless every request
+    finished with NEW_TOKENS tokens, the path launched exactly what its
+    cold prefills, extend chunks and decode steps need, and every block came
+    back to the allocator or the prefix cache. ``want``: the contiguous
+    Engine's tokens for the same prompts in the same run; with
+    ``exact`` the paged tokens must equal them (the cold path), otherwise
+    the number that do is printed (a bf16 chunk may move an argmax at a
+    near-tie)."""
+    exact = engine_kw.pop("exact")
+    engine = PagedEngine(cfg, params, max_batch=4, max_len=max_len,
+                         block_size=BLOCK_SIZE, fused=fused, **engine_kw)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    uids = [engine.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launches.items() if v}
+    st, alloc, pc = engine.stats, engine.allocator, engine.prefix_cache
+    outputs = {r.uid: r.output for r in done}
+    got = [outputs.get(u, []) for u in uids]
+    same = sum(g == w for g, w in zip(got, want))
+    emit(phase="paged", model=cfg.name, fused=fused, step=step,
+         prompt_lens=[len(p) for p in prompts], completed=len(done),
+         wall_s=round(wall, 4), tok_per_s=round(st.emitted_tokens / wall, 2),
+         decode_tok_per_s=round(st.decode_tok_per_s, 2),
+         mean_ttft_s=round(st.mean_ttft_s, 4),
+         mean_decode_tok_latency_s=round(st.mean_decode_tok_latency_s, 5),
+         prefill_s=round(st.prefill_s, 4), decode_s=round(st.decode_s, 4),
+         decode_steps=st.decode_steps, cold_prefills=engine.cold_prefills,
+         extend_chunks=engine.extend_chunks,
+         prefix_hits=0 if pc is None else pc.hits,
+         hit_rate=0.0 if pc is None else round(pc.hit_rate, 4),
+         num_blocks=alloc.num_blocks, free_blocks=alloc.free_blocks,
+         cached_blocks=0 if pc is None else len(pc),
+         tokens_equal_contiguous=f"{same} of {len(prompts)}",
+         first_differing_token=[next((i for i, (a, b) in enumerate(zip(g, w))
+                                      if a != b), None)
+                                for g, w in zip(got, want)],
+         launches=launches)
+    if len(done) != len(prompts) or any(len(o) != NEW_TOKENS for o in got):
+        fail(f"paged: {cfg.name} {step}: {len(done)} of {len(prompts)} "
+             f"requests finished, lengths {[len(o) for o in got]}")
+    if exact and got != want:
+        fail(f"paged: {cfg.name} fused={fused} {step}: the tokens of "
+             f"{len(prompts) - same} requests differ from the contiguous "
+             "Engine's")
+    need = {}
+    for per, times in ((per_forward_launches(cfg, fused), engine.cold_prefills),
+                       (per_forward_launches(cfg, fused, extend=True),
+                        engine.extend_chunks),
+                       (per_forward_launches(cfg, fused, decode=True),
+                        st.decode_steps)):
+        for k, n in per.items():
+            need[k] = need.get(k, 0) + n * times
+    need = {k: v for k, v in need.items() if v}
+    if launches != need:
+        fail(f"paged: {cfg.name} fused={fused} {step} launched {launches}; "
+             f"{engine.cold_prefills} cold prefills, {engine.extend_chunks} "
+             f"chunks and {st.decode_steps} decode steps need {need}")
+    if alloc.free_blocks + (0 if pc is None else len(pc)) != alloc.num_blocks - 1:
+        fail(f"paged: {cfg.name} {step}: {alloc.free_blocks} blocks free and "
+             f"{0 if pc is None else len(pc)} cached of {alloc.num_blocks - 1}")
+    if pc is not None and not pc.hit_rate > 0:
+        fail(f"paged: {cfg.name} {step}: no prefix-cache hit")
     return launches
 
 
@@ -1430,7 +1644,7 @@ def main(argv=None) -> int:
     from repro_torch.core import graph
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models import init_lm, lm_forward
-    from repro_torch.serving import Engine
+    from repro_torch.serving import Engine, PagedEngine
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1472,12 +1686,38 @@ def main(argv=None) -> int:
         plens = plens or [int(n) for n in rng.integers(5, 201, 6)]
         prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                    for n in plens]
+        extend_prompt = chunked_set = None
+        if arch in PAGED_ARCHS:        # drawn apart: rng's later draws stay
+            prng = np.random.default_rng(SEED + 1)
+            extend_prompt = [int(t) for t in prng.integers(
+                1, cfg.vocab_size, EXTEND_PROMPT)]
+            chunked_set = paged_prompts(prng, cfg)
         for fused in (False, True):
             if not args.paths_only:
-                for k, n in serve(torch, ops, Engine, params, cfg, prompts,
-                                  fused, max_len).items():
-                    launches[k] += n
-            compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len)
+                runs, tokens = serve(torch, ops, Engine, params, cfg, prompts,
+                                     fused, max_len)
+                runs = [runs]
+                if arch in PAGED_ARCHS:
+                    # phase paged: (a) cold, tokens equal to the Engine's;
+                    # (b) chunked prefill and prefix-cache hits, beside the
+                    # Engine's tokens for the same prompts
+                    runs.append(paged(torch, ops, PagedEngine, params, cfg,
+                                      prompts, tokens, fused, max_len, "cold",
+                                      prefix_caching=False, chunk_size=None,
+                                      exact=True))
+                    more, want = serve(torch, ops, Engine, params, cfg,
+                                       chunked_set, fused, max_len,
+                                       step="engine, the chunked run's prompts")
+                    runs.append(more)
+                    runs.append(paged(torch, ops, PagedEngine, params, cfg,
+                                      chunked_set, want, fused, max_len,
+                                      "chunked+cached", prefix_caching=True,
+                                      chunk_size=CHUNK, exact=False))
+                for run_launches in runs:
+                    for k, n in run_launches.items():
+                        launches[k] += n
+            compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len,
+                          extend_prompt)
         if not args.paths_only:
             for seq, fused in PROFILES.get(arch, ((16, False), (16, True))):
                 profile(torch, nn, ops, params, cfg, fused, rng, seq)

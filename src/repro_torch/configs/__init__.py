@@ -5,11 +5,15 @@ zoo's entry; a test pins them equal); ``reduced(cfg)`` returns the same
 tiny same-family config ``repro.configs.reduced`` does, for CPU tests.
 
 The paper's four models (``repro/configs/paper_zoo.py``: gpt2-xl,
-llama2-7b, bert-base and the ``vit-b16`` embeddings stub) and gemma3-27b
-(``repro/configs/gemma3_27b.py``) run through the LM stack; the vision
-family (``vit-b16-cls``, ``repro/configs/vit_b16.py``,
-and ``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
-``repro_torch.models.vision``.
+llama2-7b, bert-base and the ``vit-b16`` embeddings stub), gemma3-27b
+(``repro/configs/gemma3_27b.py``) and the dense configs that use only
+ported features, stablelm-3b (the serving case: LayerNorm, MHA of head
+dim 80, rope on a quarter of it), granite-3-8b (GQA 32/8, tied),
+chameleon-34b (qk-norm, GQA 64/8) and qwen1.5-110b (QKV biases, GQA 64/8;
+220 GB of bf16 weights, so it runs reduced, on the CPU only), run through
+the LM stack; the vision family (``vit-b16-cls``,
+``repro/configs/vit_b16.py``, and ``detector-vit-s``,
+``repro/configs/detector_vit_s.py``) through ``repro_torch.models.vision``.
 """
 
 from __future__ import annotations
@@ -80,6 +84,90 @@ _CONFIGS: Dict[str, ModelConfig] = {
         causal=True,
         tie_embeddings=True,
         scale_embeddings=True,
+        loss_chunk=512,
+        fsdp=True,
+    ),
+    # StableLM 3B (repro/configs/stablelm_3b.py): LayerNorm, MHA 32/32 of
+    # head dim 80, partial rotary on 25 % of it, SwiGLU, untied
+    "stablelm-3b": ModelConfig(
+        remat_policy="proj",
+        name="stablelm-3b",
+        family="dense",
+        n_layers=32,
+        d_model=2560,
+        n_heads=32,
+        n_kv_heads=32,
+        d_ff=6912,
+        vocab_size=50304,
+        block_pattern=("attn",),
+        pos_emb="rope",
+        rope_fraction=0.25,
+        norm="layernorm",
+        ffn="swiglu",
+        causal=True,
+        tie_embeddings=False,
+    ),
+    # Granite 3.0 8B (repro/configs/granite_3_8b.py): Llama-style, GQA
+    # 32/8, tied embeddings
+    "granite-3-8b": ModelConfig(
+        remat_policy="proj",
+        name="granite-3-8b",
+        family="dense",
+        n_layers=40,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=12800,
+        vocab_size=49155,
+        block_pattern=("attn",),
+        pos_emb="rope",
+        norm="rmsnorm",
+        ffn="swiglu",
+        causal=True,
+        tie_embeddings=True,
+        fsdp=True,
+    ),
+    # Chameleon 34B (repro/configs/chameleon_34b.py): the early-fusion
+    # token backbone, qk-norm, GQA 64/8
+    "chameleon-34b": ModelConfig(
+        name="chameleon-34b",
+        family="vlm",
+        n_layers=48,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=22016,
+        vocab_size=65536,
+        block_pattern=("attn",),
+        qk_norm=True,
+        pos_emb="rope",
+        norm="rmsnorm",
+        ffn="swiglu",
+        causal=True,
+        tie_embeddings=False,
+        loss_chunk=512,
+        fsdp=True,
+    ),
+    # Qwen1.5 110B (repro/configs/qwen1_5_110b.py): QKV biases, GQA 64/8
+    "qwen1.5-110b": ModelConfig(
+        name="qwen1.5-110b",
+        family="dense",
+        n_layers=80,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=49152,
+        vocab_size=152064,
+        block_pattern=("attn",),
+        pos_emb="rope",
+        norm="rmsnorm",
+        ffn="swiglu",
+        qkv_bias=True,
+        causal=True,
+        tie_embeddings=False,
         loss_chunk=512,
         fsdp=True,
     ),

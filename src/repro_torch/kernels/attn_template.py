@@ -16,10 +16,12 @@ k (B,T,Hkv,Dk), v (B,T,Hkv,Dv) — so no operand is transposed or padded.
 Callers go through ``repro_torch.kernels.ops``.
 
 In bf16 the prefill kernels run their products on the tensor cores
-(``mma.sync``, P rounded to bf16 before P.V); in f32 they keep the FMA
+(``mma.sync``; P goes to P.V as two bf16 terms, its bf16 head and the
+bf16 of the remainder, ``csrc/attention.cu``); in f32 they keep the FMA
 body, which holds f32's limits (:func:`body`). Decode splits each row's
-cache over ``n_split`` CTAs (:func:`decode_splits`) and merges the
-partial softmaxes in a second pass.
+cache over ``n_split`` CTAs (:func:`decode_splits`); the last split of a
+row and head to finish merges the partial softmaxes, in the same launch
+(``csrc/decode.cu``).
 """
 
 from __future__ import annotations

@@ -70,7 +70,11 @@
 //   * one CTA per (b*Hq, q tile); the TPU grid's sequential KV axis
 //     becomes a loop inside the CTA over 64-key tiles. Causal, the loop
 //     stops at the tile's causal limit, so the masked upper triangle is
-//     never loaded; window, it also starts at the first tile any row of
+//     never loaded, and the keys of the last tile past that limit are
+//     zero-filled, not read: a chunk of a prompt (chunked prefill, Sq <
+//     Skv - q_offset) leaves stale rows of reused or scratch KV blocks
+//     there, and a masked weight of 0 times a stale NaN would still be
+//     NaN; window, it also starts at the first tile any row of
 //     the q tile can see (q_offset + q0 - window + 1, rounded down to a
 //     tile), so a 2048-token prefill with a 1024 window visits at most 17
 //     of 32 tiles. Full, it runs to Skv and masks only the ragged last
@@ -171,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile is consumed (and Q is stored)
-    const int valid = min(kBK, Skv - k0);
+    const int valid = min(kBK, kv_end - k0);  // zeros past the causal limit
     const int64_t row0 = static_cast<int64_t>(b) * Skv + k0;
     repro::stage_rows<T, kBK, kThreads, kDMax, VEC>(
         Ks, ldk, k + (row0 * Hkv + hk) * Dk, kv_stride_k, valid, Dk);
@@ -401,7 +405,7 @@ __global__ void __launch_bounds__(WARPS * 32, EXACT ? 12 / WARPS : 1)
   const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * Skv * Hkv + hk) * Dk;
   const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Skv * Hkv + hk) * Dv;
   auto stage_kv = [&](int stage, int k0) {
-    const int valid = min(kTK, Skv - k0);
+    const int valid = min(kTK, hi - k0);  // zeros past the causal limit
     stage_bf16<NT, DMAX / 8>(Ks + stage * kTK * ldk, ldk, kb + k0 * sk, sk,
                              kTK, valid, Dk, dkp, vec);
     stage_bf16<NT, DMAX / 8>(Vs + stage * kTK * ldv, ldv, vb + k0 * sv, sv,

@@ -158,6 +158,52 @@ def decode_attention(q, k, v, lengths: torch.Tensor,
     return o.reshape(b, 1, hq, dv)
 
 
+def paged_kv_gather(pool, block_table, max_len: int) -> torch.Tensor:
+    """The contiguous (B, max_len, ...) view of paged KV blocks: pool
+    (N, bs, ...), block_table (B, nb) int pool block ids (0, the scratch
+    block, where a sequence owns none). One gather of the view's rows, so
+    the result is contiguous whatever ``max_len % bs`` is (the kernels
+    refuse strided operands)."""
+    bs = pool.shape[1]
+    b, nb = block_table.shape
+    if not 0 < max_len <= nb * bs:
+        raise ValueError(f"paged_kv_gather: max_len {max_len} outside "
+                         f"[1, {nb * bs}]")
+    pos = torch.arange(max_len, device=pool.device)
+    flat = block_table.long()[:, pos // bs] * bs + pos % bs      # (B, max_len)
+    return pool.reshape(-1, *pool.shape[2:])[flat]
+
+
+def paged_kv_write(pool, new, block_table, index):
+    """Write one decode row per sequence into its paged block, in place,
+    and return ``pool``: row b of ``new`` (B, 1, ...) lands in block
+    ``block_table[b, index[b] // bs]`` at offset ``index[b] % bs``. Rows
+    whose table entry is 0 all land in the scratch block; which of them
+    stays there is unspecified, and no unmasked read ever touches it."""
+    bs = pool.shape[1]
+    index = torch.as_tensor(index, device=pool.device).long().reshape(-1)
+    rows = torch.arange(block_table.shape[0], device=pool.device)
+    block_ids = block_table.long()[rows, index // bs]
+    pool[block_ids, index % bs] = new[:, 0].to(pool.dtype)
+    return pool
+
+
+def paged_kv_scatter(pool, rows, block_table, start, lo, hi):
+    """Write a prefill chunk ``rows`` (R, ...) at positions start + arange(R)
+    of one sequence's table row (nb,), in place, and return ``pool``.
+    Positions outside [lo, hi) (the reused prefix on the left, padding past
+    the prompt on the right) divert to the scratch block 0, at offset
+    ``position % bs``; several may land on one slot there."""
+    bs, n = pool.shape[1], pool.shape[0]
+    nb = block_table.shape[0]
+    idx = start + torch.arange(rows.shape[0], device=pool.device)
+    blk = block_table.long()[torch.clamp(idx // bs, 0, nb - 1)]
+    keep = (idx >= lo) & (idx < hi)
+    flat = torch.where(keep, blk * bs + idx % bs, idx % bs)
+    pool.view(n * bs, *pool.shape[2:])[flat] = rows.to(pool.dtype)
+    return pool
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-row cross-entropy, logits (R, V) of any float dtype and labels
     (R,) integers in [0, V) -> (R,) f32: ``logsumexp(row) - row[label]``."""

@@ -3,11 +3,12 @@ sliding-window (``local``) layers with a ring cache.
 
 The port of the standard-attention path of ``repro.models.attention``:
 ``init_attention``, ``_qkv`` (with qk-norm), ``attn_forward``,
-``init_attn_cache``, ``attn_prefill`` and ``attn_decode``. Prefill and
-forward attention run under the ``ng:gemm:flash_attention`` tag on both
-backends, as the JAX jnp twin is tagged: the causal mask for the decoders'
-global layers, the causal mask within ``cfg.window_size`` keys for their
-``local`` layers, the full mask for the encoders (``cfg.causal`` False) and
+``init_attn_cache``, ``attn_prefill``, ``attn_decode`` and ``attn_extend``
+(a chunk of a prompt against a cache that holds what came before it).
+Prefill, extend and forward attention run under the
+``ng:gemm:flash_attention`` tag on both backends, as the JAX jnp twin is
+tagged: the causal mask for the decoders' global layers, the causal mask
+within ``cfg.window_size`` keys for their ``local`` layers, the full mask for the encoders (``cfg.causal`` False) and
 the detector's cross-attention. Unfused decode on the kernel path is one
 untagged launch (classed ``fused``); on the plain path it is the tagged qk
 / mask / softmax / pv chain of the JAX reference, op for op. Under
@@ -230,3 +231,47 @@ def attn_decode(params, x, cfg: ModelConfig, kind: str, cache: dict,
         o = torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(), v.float())
     o = o.reshape(b, 1, hq * hd).to(x.dtype)
     return nn.linear(o, wo), cache
+
+
+def attn_extend(params, x, cfg: ModelConfig, kind: str, cache: dict,
+                start: int) -> Tuple[torch.Tensor, dict]:
+    """Chunked-prefill step: extend a global layer's cache by a (B, C)
+    chunk whose first token sits at position ``start``.
+
+    x: (B, C, D); ``start`` is a host int (a tensor would have to be read
+    back to launch the kernel with it). K/V of the chunk land at
+    ``[start, start + C)`` of the cache, in place; the cache is returned,
+    as ``attn_decode`` does. The chunk attends the full cache depth (the
+    earlier chunks or a reused prefix are already there) through
+    ``q_offset=start``: on the card the causal ``attention_core`` kernel,
+    on the CPU ``ref.attention``. Rows past the chunk are stale (reused or
+    scratch blocks of a paged cache) and causally masked. A ring cannot
+    re-enter at an arbitrary depth, so a ``local`` layer raises, as in JAX.
+
+    The capture tags differ from JAX's: its extend runs
+    ``chunked_attention`` (``attn_qk`` / ``attn_mask`` / ``online_softmax``
+    / ``attn_pv`` / ``softmax_norm``), only because its ``start`` is traced
+    and the Pallas kernel takes a static ``q_offset``; here the attention
+    is the one ``flash_attention`` site, as in prefill.
+    """
+    if kind == "local":
+        raise ValueError("chunked prefill requires a full-depth cache; "
+                         "sliding-window layers cannot extend")
+    if not isinstance(start, int):
+        raise TypeError(f"attn_extend: start must be a host int, got "
+                        f"{type(start).__name__}")
+    b, c_len, _ = x.shape
+    positions = (start + torch.arange(c_len, dtype=torch.int32,
+                                      device=x.device))[None].expand(b, c_len)
+    t = cache["k"].shape[1]
+    if not 0 <= start <= t - c_len:
+        # JAX's dynamic_update_slice would clamp the chunk into the cache
+        raise ValueError(f"attn_extend: chunk [{start}, {start + c_len}) "
+                         f"outside a cache of {t}")
+    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    k, v = cache["k"], cache["v"]
+    k[:, start:start + c_len] = k_new.to(k.dtype)
+    v[:, start:start + c_len] = v_new.to(v.dtype)
+    out = _attention_impl(q, k, v, q_offset=start, causal=cfg.causal)
+    y = nn.linear(nn.merge_heads(out), params["wo"].to(x.dtype))
+    return y, cache

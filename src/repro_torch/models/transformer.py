@@ -25,9 +25,11 @@ Public API (functions over a params dict of tensors):
     lm_prefill(params, tokens, cfg, max_len, lengths=None)
                                             -> (last_logits (B, V), caches)
     lm_decode(params, token, pos, caches, cfg) -> (logits (B, V), caches)
+    lm_extend(params, tokens, start, caches, cfg)
+                                            -> (logits (B, C, V), caches)
 
-``pos`` may be a scalar or a per-row ``(B,)`` vector; ``lm_decode`` writes
-the caches in place and returns them.
+``pos`` may be a scalar or a per-row ``(B,)`` vector; ``lm_decode`` and
+``lm_extend`` write the caches in place and return them.
 """
 
 from __future__ import annotations
@@ -166,6 +168,18 @@ def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
     return _block_rest(params, a, x, cfg), cache
 
 
+def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
+    """Chunked-prefill step of one block (see ``attention.attn_extend``):
+    only a full-depth cache can re-enter at an arbitrary position, so a
+    ``local`` layer raises."""
+    if kind == "local":
+        raise ValueError(f"block kind {kind!r} does not support chunked "
+                         "prefill (needs a full-depth positional cache)")
+    h = _apply_norm(params["norm1"], x, cfg)
+    a, cache = A.attn_extend(params["mixer"], h, cfg, kind, cache, start)
+    return _block_rest(params, a, x, cfg), cache
+
+
 def _rounded(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` (nearest even), as the JAX package's
     ``jnp.asarray(value, dtype)``: sqrt(5376) = 73.32 is 73.5 in bf16. On
@@ -270,3 +284,24 @@ def lm_decode(params, token, pos, caches: List[dict], cfg: ModelConfig):
         x, caches[i] = block_decode(p, x, cfg, kind, caches[i], pos)
     h = _apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params, h, cfg)[:, 0], caches
+
+
+def lm_extend(params, tokens, start: int, caches: List[dict],
+              cfg: ModelConfig):
+    """Chunked-prefill step: run a (B, C) token chunk at absolute position
+    ``start`` (a host int) against caches that already hold [0, start).
+
+    The decode-path twin of ``lm_prefill`` for a chunk in the middle of a
+    prompt: returns (logits (B, C, V), caches), the caches written in
+    place; the caller picks the row of the prompt's last real token (a
+    chunk may be right-padded).
+    """
+    check_supported(cfg, serving=True)
+    b, c_len = tokens.shape[:2]
+    positions = (start + torch.arange(c_len, dtype=torch.int32,
+                                      device=tokens.device))[None].expand(b, c_len)
+    x = embed_inputs(params, tokens, cfg, positions)
+    for i, (p, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
+        x, caches[i] = block_extend(p, x, cfg, kind, caches[i], start)
+    h = _apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params, h, cfg), caches

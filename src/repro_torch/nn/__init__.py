@@ -142,6 +142,43 @@ def fake_quant(mode: Optional[str] = "int8"):
         set_fake_quant(prev)
 
 
+#: debug-mode bounds checking of the paged KV ops' block ids and positions
+#: (``repro.nn.debug_bounds``). Off, a bad block table or position is left
+#: to torch's own indexing checks; on, each op checks its indices first: on
+#: the CPU it raises, on the card through a device-side assert (no host
+#: sync). ``kv_cache_update`` checks its index whatever this says.
+_DEBUG_BOUNDS = False
+
+
+def set_debug_bounds(enabled: bool) -> None:
+    global _DEBUG_BOUNDS
+    _DEBUG_BOUNDS = bool(enabled)
+
+
+def debug_bounds_enabled() -> bool:
+    return _DEBUG_BOUNDS
+
+
+@contextlib.contextmanager
+def debug_bounds(enabled: bool = True):
+    prev = debug_bounds_enabled()
+    set_debug_bounds(enabled)
+    try:
+        yield
+    finally:
+        set_debug_bounds(prev)
+
+
+def _assert_in_range(ok: torch.Tensor, what: str) -> None:
+    """Fail where the bool tensor ``ok`` has a False: a device-side assert
+    for a CUDA tensor (no host sync), a ValueError on the CPU."""
+    ok = ok.all()
+    if ok.is_cuda:
+        torch._assert_async(ok, what)
+    elif not bool(ok):
+        raise ValueError(what)
+
+
 # ---------------------------------------------------------------------------
 # the tag stack
 # ---------------------------------------------------------------------------
@@ -347,16 +384,75 @@ def kv_cache_update(cache, new, index):
     if index.shape != (b,):
         raise ValueError(f"kv_cache_update index must be scalar or ({b},), "
                          f"got {tuple(index.shape)}")
-    in_range = ((index >= 0) & (index <= limit)).all()
-    if index.is_cuda:
-        torch._assert_async(in_range, f"kv_cache_update index outside [0, {limit}]")
-    elif not bool(in_range):
-        raise ValueError(f"kv_cache_update index {index.tolist()} outside "
-                         f"[0, {limit}]")
+    _assert_in_range((index >= 0) & (index <= limit),
+                     f"kv_cache_update index outside [0, {limit}]")
     rows = torch.arange(b, device=cache.device)[:, None]
     cols = index.long()[:, None] + torch.arange(s, device=cache.device)[None]
     cache[rows, cols] = new
     return cache
+
+
+def _check_blocks(pool, block_ids, op: str) -> None:
+    n = pool.shape[0]
+    _assert_in_range((block_ids >= 0) & (block_ids < n),
+                     f"{op}: a block id outside [0, {n})")
+
+
+@tagged(OpGroup.MEMORY, "paged_kv_gather")
+def paged_kv_gather(pool, block_table, max_len: int):
+    """Gather paged KV blocks into a contiguous (B, max_len, ...) view.
+
+    ``pool`` is (N, bs, ...): N blocks of bs positions each;
+    ``block_table`` (B, nb) int maps each sequence's logical blocks to pool
+    block ids (0 = the reserved scratch block). The view feeds the
+    unchanged contiguous-cache decode path, which is what makes the paged
+    engine bit-identical to the contiguous one. It is contiguous, so the
+    decode kernel takes it.
+    """
+    if _DEBUG_BOUNDS:
+        _check_blocks(pool, block_table, "paged_kv_gather")
+    return ref.paged_kv_gather(pool, block_table, max_len)
+
+
+@tagged(OpGroup.MEMORY, "paged_kv_write")
+def paged_kv_write(pool, new, block_table, index):
+    """Scatter one decode row per sequence into its paged block, in place.
+
+    ``new`` is (B, 1, ...); ``index`` (B,) is each sequence's position. Row
+    ``b`` lands in pool block ``block_table[b, index[b] // bs]`` at offset
+    ``index[b] % bs``. Sequences whose table slot is 0 write the reserved
+    scratch block (dead and prefilling slots stay harmless). Returns
+    ``pool``.
+    """
+    if _DEBUG_BOUNDS:
+        bs, nb = pool.shape[1], block_table.shape[1]
+        index = torch.as_tensor(index, device=pool.device)
+        _assert_in_range((index >= 0) & (index < nb * bs),
+                         f"paged_kv_write: a position outside [0, {nb * bs})")
+        _check_blocks(pool, block_table, "paged_kv_write")
+    return ref.paged_kv_write(pool, new, block_table, index)
+
+
+@tagged(OpGroup.MEMORY, "paged_kv_scatter")
+def paged_kv_scatter(pool, rows, block_table, start, lo, hi):
+    """Scatter a prefill chunk (R, ...) at positions start + arange(R) of
+    one sequence's (nb,) table row, in place; returns ``pool``.
+
+    Positions outside [lo, hi) (the left overlap with already-cached prefix
+    blocks, the right padding past the prompt) divert to the reserved
+    scratch block 0, so chunk buckets never need to match the prompt length
+    exactly. Several rows may land on one slot of block 0; which one stays
+    is unspecified, and no unmasked read ever touches it.
+    """
+    if _DEBUG_BOUNDS:
+        bs, nb = pool.shape[1], block_table.shape[0]
+        idx = start + torch.arange(rows.shape[0], device=pool.device)
+        kept = (idx >= lo) & (idx < hi)
+        _assert_in_range(~kept | ((idx >= 0) & (idx < nb * bs)),
+                         f"paged_kv_scatter: a kept position outside "
+                         f"[0, {nb * bs})")
+        _check_blocks(pool, block_table, "paged_kv_scatter")
+    return ref.paged_kv_scatter(pool, rows, block_table, start, lo, hi)
 
 
 @tagged(OpGroup.MEMORY, "apply_rope")

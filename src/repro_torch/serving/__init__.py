@@ -1,7 +1,7 @@
 """Serving: continuous-batching KV-cache engine with per-slot positions.
 
-The port of ``repro.serving.Engine`` (greedy decoding). A slot table of
-``max_batch`` sequences shares ONE KV cache:
+The port of ``repro.serving.Engine``. A slot table of ``max_batch``
+sequences shares ONE KV cache:
 
 * admission is per slot: each request is prefilled alone, right-padded to
   a power-of-two bucket, with a length mask picking the last real token's
@@ -15,19 +15,28 @@ The port of ``repro.serving.Engine`` (greedy decoding). A slot table of
 * ``EngineStats`` counts throughput and per-request latency;
 * ``fused=True`` runs prefill and decode under ``nn.fuse()``: the fused
   add+norm, SwiGLU or GeGLU, rope and decode-attention operators. The switch is
-  process-global, so the engine sets it around its own model calls only.
+  process-global, so the engine sets it around its own model calls only;
+* ``greedy=False`` samples each token from the softmax of its logits with
+  a ``torch.Generator`` seeded by ``seed`` on the engine's device (torch
+  cannot replay ``jax.random.categorical``'s stream: the same
+  distribution, other draws).
 
 Where the JAX engine casts f32 params to the activation dtype inside every
 jitted step, this eager engine casts once, at construction, by the same
 rule. The card runs asynchronously, so the engine synchronises it before
-every clock read, where the JAX engine blocks on its results.
+every clock read, where the JAX engine blocks on its results. The request
+timeline reads the injected ``clock`` at the points the JAX engine does;
+the phase totals (``prefill_s``, ``decode_s``) read ``time.perf_counter``.
+
+``PagedEngine`` (``serving/paged.py``) pages the same engine's KV cache
+into blocks, with a prefix cache and chunked prefill.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -136,7 +145,7 @@ def _next_pow2(n: int) -> int:
 
 
 class Engine:
-    """Continuous-batching greedy serving engine over one shared KV cache.
+    """Continuous-batching serving engine over one shared KV cache.
 
     Runs on the device ``params`` live on: the hand-written kernels on the
     card, the plain PyTorch versions on the CPU (``repro_torch.nn``'s
@@ -145,7 +154,10 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
                  max_len: int = 512, eos_id: Optional[int] = None,
-                 fused: bool = False):
+                 greedy: bool = True, pad_id: int = PAD_ID, seed: int = 0,
+                 min_prefill_bucket: int = MIN_PREFILL_BUCKET,
+                 fused: bool = False,
+                 clock: Callable[[], float] = time.perf_counter):
         self.cfg = cfg
         self.fused = fused
         self.device = params["final_norm"]["scale"].device
@@ -153,20 +165,51 @@ class Engine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.greedy = greedy
+        self.min_prefill_bucket = min_prefill_bucket
+        self._gen = torch.Generator(self.device).manual_seed(seed)
+        self._clock = clock
         self.queue: List[Request] = []
         self.stats = EngineStats()
         self._uid = 0
         # slot table
         self.slots: List[Optional[Request]] = [None] * max_batch
         self._pos = np.zeros((max_batch,), np.int32)
-        self._cur = np.full((max_batch,), PAD_ID, np.int32)
-        self._caches = init_lm_cache(cfg, max_batch, max_len, device=self.device)
+        self._cur = np.full((max_batch,), pad_id, np.int32)
+        self._caches = self._new_caches()
 
-    def clock(self) -> float:
-        """Wall time, read after the card has finished its queued work."""
+    def _new_caches(self):
+        """The shared (max_batch, max_len, ...) KV cache of the slots."""
+        return init_lm_cache(self.cfg, self.max_batch, self.max_len,
+                             device=self.device)
+
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def clock(self) -> float:
+        """The injected clock, read after the card has finished its queued
+        work."""
+        self._sync()
+        return self._clock()
+
+    def _timer(self) -> float:
+        """``time.perf_counter`` after a synchronize: the phase totals."""
+        self._sync()
         return time.perf_counter()
+
+    def _sample(self, logits) -> torch.Tensor:
+        """(B, V) logits -> (B,) tokens: the argmax, or a draw from the
+        softmax (``greedy=False``)."""
+        lf = logits.float()
+        if self.greedy:
+            return torch.argmax(lf, dim=-1)
+        return torch.multinomial(torch.softmax(lf, dim=-1), 1,
+                                 generator=self._gen)[:, 0]
+
+    def _first_token(self, logits) -> int:
+        return int(self._sample(logits)[0])
 
     # -- queue -------------------------------------------------------------
     def add_request(self, prompt: Sequence[int],
@@ -185,7 +228,7 @@ class Engine:
 
     # -- admission ---------------------------------------------------------
     def _bucket(self, plen: int) -> int:
-        return min(_next_pow2(max(plen, MIN_PREFILL_BUCKET)), self.max_len)
+        return min(_next_pow2(max(plen, self.min_prefill_bucket)), self.max_len)
 
     def _admit(self, slot: int, req: Request) -> bool:
         """Prefill ``req`` alone and copy its cache rows into ``slot``.
@@ -195,27 +238,34 @@ class Engine:
         """
         if req.admit_t == 0.0:
             req.admit_t = self.clock()      # first admission only
+        return self._admit_whole(slot, req)
+
+    def _live(self, req: Request, first: int) -> bool:
+        """Whether a request decodes on after its first token."""
+        return not ((self.eos_id is not None and first == self.eos_id)
+                    or req.max_new_tokens <= 1
+                    or len(req.prompt) >= self.max_len)
+
+    def _admit_whole(self, slot: int, req: Request) -> bool:
+        """The whole prompt in one prefill, right-padded to its bucket; a
+        live request's cache rows go to the slot (``_store``), charged to
+        prefill."""
         plen = len(req.prompt)
-        toks = np.full((1, self._bucket(plen)), PAD_ID, np.int64)
+        bucket = self._bucket(plen)
+        toks = np.full((1, bucket), self.pad_id, np.int64)
         toks[0, :plen] = req.prompt          # right-padded
-        t0 = self.clock()
+        t0 = self._timer()
         with nn.fuse(self.fused):
             logits, one = lm_prefill(
                 self.params, torch.from_numpy(toks).to(self.device), self.cfg,
                 max_len=self.max_len,
                 lengths=torch.tensor([plen], dtype=torch.int32,
                                      device=self.device))
-        first = int(torch.argmax(logits.float(), dim=-1)[0])
-        live = not ((self.eos_id is not None and first == self.eos_id)
-                    or req.max_new_tokens <= 1
-                    or plen >= self.max_len)
+        first = self._first_token(logits)
+        live = self._live(req, first)
         if live:
-            # copy every leaf of the single-row caches into the slot (a
-            # ring's "pos" side-car included), charged to prefill
-            for shared, c in zip(self._caches, one):
-                for name, t in c.items():
-                    shared[name][slot] = t[0]
-        self.stats.prefill_s += self.clock() - t0
+            self._store(slot, req, one, bucket)
+        self.stats.prefill_s += self._timer() - t0
         self.stats.prefill_tokens += plen
 
         req.output.append(first)
@@ -228,6 +278,14 @@ class Engine:
         self._pos[slot] = plen               # next write index == prompt end
         self._cur[slot] = first
         return True
+
+    def _store(self, slot: int, req: Request, one: List[dict],
+               bucket: int) -> None:
+        """Copy every leaf of the single-row caches into the slot (a
+        ring's "pos" side-car included)."""
+        for shared, c in zip(self._caches, one):
+            for name, t in c.items():
+                shared[name][slot] = t[0]
 
     def _admit_free_slots(self) -> List[Request]:
         """Fill every free slot from the queue; returns requests that
@@ -254,7 +312,12 @@ class Engine:
     def _free(self, slot: int) -> None:
         self.slots[slot] = None
         self._pos[slot] = 0
-        self._cur[slot] = PAD_ID
+        self._cur[slot] = self.pad_id
+
+    def reset_stats(self) -> None:
+        """Zero the accounting (after warm-up runs): load drivers prime the
+        engine with dummy requests, then measure cleanly."""
+        self.stats = EngineStats()
 
     # -- stepping ----------------------------------------------------------
     @property
@@ -271,15 +334,15 @@ class Engine:
         if self.active == 0:
             return finished
 
-        t0 = self.clock()
+        t0 = self._timer()
         with nn.fuse(self.fused):
             logits, self._caches = lm_decode(
                 self.params,
                 torch.from_numpy(self._cur.astype(np.int64)).to(self.device),
                 torch.from_numpy(self._pos).to(self.device), self._caches,
                 self.cfg)
-        nxt_host = torch.argmax(logits.float(), dim=-1).cpu().numpy()
-        self.stats.decode_s += self.clock() - t0
+        nxt_host = self._sample(logits).cpu().numpy()
+        self.stats.decode_s += self._timer() - t0
         self.stats.decode_steps += 1
 
         for i, r in enumerate(self.slots):
@@ -307,4 +370,8 @@ class Engine:
         return finished
 
 
-__all__ = ["Engine", "EngineStats", "Request", "cast_params"]
+from repro_torch.serving.paged import (BlockAllocator, PagedEngine,  # noqa: E402
+                                       PrefixCache)
+
+__all__ = ["Engine", "EngineStats", "Request", "cast_params",
+           "BlockAllocator", "PagedEngine", "PrefixCache"]

@@ -56,7 +56,8 @@ def test_model_config_fields_pinned():
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl", "bert-base",
                                   "vit-b16", "vit-b16-cls", "detector-vit-s",
-                                  "gemma3-27b"])
+                                  "gemma3-27b", "stablelm-3b", "granite-3-8b",
+                                  "chameleon-34b", "qwen1.5-110b"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_llama_config_copy_pinned(cut, arch):
     want = jget_config(arch)
@@ -67,8 +68,9 @@ def test_llama_config_copy_pinned(cut, arch):
 
 
 def test_unknown_config_lists_known():
-    with pytest.raises(KeyError, match="bert-base.*gpt2-xl.*llama2-7b"):
-        get_config("stablelm-3b")
+    with pytest.raises(KeyError, match="bert-base.*chameleon-34b.*gpt2-xl.*"
+                       "granite-3-8b.*llama2-7b.*qwen1.5-110b.*stablelm-3b"):
+        get_config("qwen2-moe-a2.7b")
 
 
 @pytest.mark.parametrize("arch", ["vit-b16-cls", "detector-vit-s", "gpt2-xl"])

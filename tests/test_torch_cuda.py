@@ -20,7 +20,7 @@ from repro_torch.kernels import softmax_xent as xent  # noqa: E402
 from repro_torch.kernels import swiglu as glu  # noqa: E402
 from repro_torch.models import init_lm, lm_forward  # noqa: E402
 from repro_torch.models.vision import init_vision, vision_forward  # noqa: E402
-from repro_torch.serving import Engine  # noqa: E402
+from repro_torch.serving import Engine, PagedEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +93,29 @@ def test_attention_core_on_card(card, case, dt):
     got = _launched("attention_core",
                     lambda: ops.attention_core(q, k, v, q_offset=off))
     _assert_close(got, ref.attention(q, k, v, q_offset=off), dt)
+
+
+# (B, Sq, Skv, Hq, Hkv, D, q_offset): a chunk of a chunked prefill over a
+# deeper cache (stablelm-3b's 32 heads of 80 at 64 tokens and an odd 37,
+# GQA at 128, a chunk inside one key tile)
+@pytest.mark.parametrize("case", [(1, 64, 512, 32, 32, 80, 160),
+                                  (1, 37, 512, 32, 32, 80, 160),
+                                  (1, 44, 300, 8, 2, 128, 256),
+                                  (2, 5, 140, 4, 4, 64, 70)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_core_reads_no_key_past_the_chunk_on_card(card, case, dt):
+    """Keys and values past the chunk's last query are NaN: the output stays
+    finite and equals the plain version over the keys up to it."""
+    b, sq, skv, hq, hkv, d, off = case
+    q = _randn(card, (b, sq, hq, d), dt)
+    k, v = _randn(card, (b, skv, hkv, d), dt), _randn(card, (b, skv, hkv, d), dt)
+    end = off + sq
+    want = ref.attention(q, k[:, :end], v[:, :end], q_offset=off)
+    k[:, end:], v[:, end:] = float("nan"), float("nan")
+    got = _launched("attention_core",
+                    lambda: ops.attention_core(q, k, v, q_offset=off))
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, want, dt)
 
 
 # (B, Sq, Skv, Hq, Hkv, D, q_offset, window): windows shorter than a tile,
@@ -464,6 +487,7 @@ def test_a_plan_the_kernel_cannot_take_raises(card, monkeypatch):
 
 
 @pytest.mark.parametrize("case", [(4, 1, 32, 128, 1.0, [[186], [144], [120], [72]]),
+                                  (4, 1, 32, 80, 0.25, [[215], [19], [60], [511]]),
                                   (1, 16, 32, 128, 1.0, None),
                                   (2, 7, 25, 64, 0.25, None),
                                   (1, 5, 3, 34, 1.0, [[4091, 4092, 4093, 4094, 4095]]),
@@ -486,7 +510,8 @@ def test_rope_on_card(card, case, dt):
 ROPE_PLAN_CASES = [(4, 1, 32, 128, 1.0, 186, True), (4, 1, 32, 128, 1.0, 4092, True),
                    (1, 2048, 32, 128, 1.0, 0, False), (1, 2049, 16, 128, 1.0, 0, False),
                    (2, 3, 72, 256, 1.0, 7, False), (1, 3, 2, 12289, 1.0, 4093, False),
-                   (3, 7, 25, 64, 0.25, 500, False), (700, 1, 8, 64, 1.0, 9, True)]
+                   (3, 7, 25, 64, 0.25, 500, False), (700, 1, 8, 64, 1.0, 9, True),
+                   (4, 1, 32, 80, 0.25, 215, True), (1, 256, 32, 80, 0.25, 0, False)]
 
 
 def _rope_inputs(gen, case, dt):
@@ -852,6 +877,38 @@ def test_reduced_gemma3_kernel_path_matches_plain_path(card, fused):
     cpu = _to(params, "cpu")
     on_card = serve(params)
     assert on_card == serve(cpu)
+
+
+@pytest.mark.parametrize("arch,fused", [("stablelm-3b", False),
+                                        ("stablelm-3b", True),
+                                        ("llama2-7b", True)])
+def test_paged_engine_on_card_matches_engine_on_cpu(card, arch, fused):
+    """Chunked prefill (attention_core at each chunk's q_offset), prefix
+    hits and decode over the gathered blocks: the same tokens on the card
+    as on the CPU, and as the contiguous engine's on the card."""
+    cfg = reduced(get_config(arch))
+    params = init_lm(card, cfg)
+    rng = np.random.default_rng(1)
+    prefix = list(map(int, rng.integers(1, cfg.vocab_size, 24)))
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (3, 17, 40)]
+    prompts += [prefix + list(map(int, rng.integers(1, cfg.vocab_size, 6)))
+                for _ in range(3)]
+
+    def serve(p, paged=True):
+        kw = dict(block_size=8, chunk_size=16) if paged else {}
+        eng = (PagedEngine if paged else Engine)(cfg, p, max_batch=2, max_len=64,
+                                                 fused=fused, **kw)
+        uids = [eng.add_request(x, max_new_tokens=6) for x in prompts]
+        done = {r.uid: r.output for r in eng.run()}
+        if paged:
+            assert eng.prefix_cache.hit_rate > 0 and eng.extend_chunks > 0
+        return [done[u] for u in uids]
+
+    ops.reset_launches()
+    on_card = serve(params)
+    assert ops.launches["decode_core"] > 0 and ops.launches["attention_core"] > 0
+    assert on_card == serve(_to(params, "cpu")) == serve(params, paged=False)
 
 
 def _to(tree, device):
