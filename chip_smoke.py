@@ -46,9 +46,16 @@ Phases, each printing JSON lines:
              unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
              new tokens (gemma3-27b's prompts cross its 1024-token window in
-             prefill and wrap its rings in decode); checks the outputs and
-             that each path launched exactly its kernels, as many times as
-             its forwards need; then holds the kernel path's prefill logits
+             prefill and wrap its rings in decode), first with the eager
+             decode step (``cuda_graph=False``), then with the step as a
+             CUDA graph, tokens identical to the eager run's; each engine
+             serves the prompts 3 more times: decode tok/s graph against
+             eager (median, spread), and the graph's replay in device ms
+             beside the step's byte bound; checks the outputs, that each run
+             launched exactly its kernels, as many times as its forwards
+             need (replays included), that the kernels' counters read zero
+             after every run and that deleting the engine gave back its
+             memory; then holds the kernel path's prefill logits
              and one decode step's logits against the plain path's, and the
              fused path's against the unfused path's, and for llama2-7b and
              stablelm-3b a 300-token prompt's chunked prefill (``lm_prefill``
@@ -64,9 +71,20 @@ Phases, each printing JSON lines:
              64 and the prefix cache, four prompts sharing a 160-token
              prefix and two of 300-400 tokens: every request finished, a
              prefix-cache hit, the count of requests whose tokens equal the
-             ``Engine``'s printed. Both: launches equal to what the cold
-             prefills, extend chunks and decode steps need, every block
-             back to the allocator or the prefix cache;
+             ``Engine``'s printed. Both: eager, then graphed with the eager
+             run's tokens; launches equal to what the cold prefills, extend
+             chunks and decode steps need, counters zero, every block back
+             to the allocator or the prefix cache, memory back; (a) is
+             repeated and timed as ``serve`` is, beside the ``Engine``;
+   traffic - stablelm-3b through ``repro_torch.traffic`` (every drive
+             primed on its trace's shadow first): (a) a Poisson trace through
+             the ``Engine`` and the cold ``PagedEngine``, tokens identical;
+             (b) 16 requests at 8/s in real time through the ``PagedEngine``
+             (64-token chunks, prefix cache), graph and eager, each
+             ``LoadReport`` printed, every request completed; (c) a
+             192-token shared prefix with the cache on and off: a hit, every
+             block back, warm and cold service TTFT; (d) the measured GEMM /
+             NonGEMM split of one eager paged decode step and ``paged_frac``;
 4. profile - a per-op measured profile of ``lm_forward`` (batch 1, seq 16)
              on the kernel path, unfused and fused, for the three models,
              and gemma3-27b at seq 2048, where its window bites, unfused
@@ -168,6 +186,25 @@ EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 NEW_TOKENS = 16
+#: each served run repeated on the same engine, its decode graph captured:
+#: decode tok/s as the median and spread of the repeats (two single runs
+#: of one tree read 40.4 and 59.4 tok/s on a shared host)
+REPEATS = 3
+#: what an engine may leave allocated once deleted: state of the shared
+#: capture stream made once in the process (its cuBLAS workspace, the
+#: kernels' counters)
+MEM_SLACK = 64 << 20
+#: bytes a cached key or value element takes (bf16 caches)
+KV_BYTES = 2
+#: phase traffic: the JAX traffic case's model (repro/bench/cases.py:44-46)
+#: at full size, through the PagedEngine with these blocks and chunks
+TRAFFIC_ARCH = "stablelm-3b"
+TRAFFIC_ENGINE = dict(max_batch=4, max_len=512, block_size=16)
+TRAFFIC_CHUNK = 64
+#: the op sites of the paged bookkeeping in a decode step's profile
+#: (``paged_frac``, as JAX's traffic section attributes it)
+PAGED_SITES = ("paged_kv_gather", "paged_kv_write", "paged_kv_scatter",
+               "kv_cache_update")
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
               "float32": 67e12}      # outside the tensor cores
@@ -1104,47 +1141,133 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
              + "; ".join(bad))
 
 
-def serve(torch, ops, Engine, params, cfg, prompts, fused: bool,
-          max_len: int, step: str = "engine"):
-    """One engine run of the path; returns its launch counts and each
-    request's tokens, in the order of ``prompts``. Fails unless every
-    request finished with its tokens and the path launched exactly its
-    kernels, as often as its prefills and decode steps need."""
-    engine = Engine(cfg, params, max_batch=4, max_len=max_len, fused=fused)
+def serve_prompts(torch, ops, engine, prompts):
+    """``prompts`` served to the end on ``engine``, NEW_TOKENS each, its
+    launches counted from zero: (the finished requests in the order of
+    ``prompts``, None for one that did not finish; launches; wall s)."""
     ops.reset_launches()
     t0 = time.perf_counter()
     uids = [engine.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
-    done = engine.run()
+    done = {r.uid: r for r in engine.run()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    st = engine.stats
-    emit(phase="serve", model=cfg.name, fused=fused, step=step,
-         prompt_lens=[len(p) for p in prompts], completed=len(done),
-         wall_s=round(wall, 4), tok_per_s=round(st.emitted_tokens / wall, 2),
-         decode_tok_per_s=round(st.decode_tok_per_s, 2),
-         mean_ttft_s=round(st.mean_ttft_s, 4),
-         mean_decode_tok_latency_s=round(st.mean_decode_tok_latency_s, 5),
-         prefill_s=round(st.prefill_s, 4), decode_s=round(st.decode_s, 4),
-         decode_steps=st.decode_steps, launches=launches)
-    if len(done) != len(prompts) or any(len(r.output) != NEW_TOKENS
-                                        for r in done):
-        fail(f"serve: {len(done)} of {len(prompts)} requests finished, "
-             f"lengths {[len(r.output) for r in done]}")
-    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
-        fail("serve: a token outside the vocabulary")
-    want = {k: 0 for k in launches}
-    for per, times in ((per_forward_launches(cfg, fused), len(prompts)),
-                       (per_forward_launches(cfg, fused, decode=True),
-                        st.decode_steps)):
+    return ([done.get(u) for u in uids],
+            {k: v for k, v in ops.launches.items() if v}, wall)
+
+
+def engine_launches(cfg, engine) -> dict:
+    """What an engine's run since ``reset_stats()`` must have launched:
+    its whole-prompt prefills (one a first token on the ``Engine``; the
+    cold ones on the ``PagedEngine``), extend chunks and decode steps, each
+    at the path's per-forward count. A graph's replays count."""
+    paged = hasattr(engine, "cold_prefills")
+    need = {}
+    for per, times in (
+            (per_forward_launches(cfg, engine.fused),
+             engine.cold_prefills if paged else engine.stats.first_tokens),
+            (per_forward_launches(cfg, engine.fused, extend=True) if paged
+             else {}, engine.extend_chunks if paged else 0),
+            (per_forward_launches(cfg, engine.fused, decode=True),
+             engine.stats.decode_steps)):
         for k, n in per.items():
-            want[k] += n * times
-    if launches != want:
-        fail(f"serve: {cfg.name} fused={fused} launched {launches}, its "
-             f"{len(prompts)} prefills and {st.decode_steps} decode steps "
-             f"need {want}")
-    outputs = {r.uid: r.output for r in done}
-    return launches, [outputs[u] for u in uids]
+            need[k] = need.get(k, 0) + n * times
+    return {k: v for k, v in need.items() if v}
+
+
+def check_counters(torch, _build, what: str) -> None:
+    """The decode and NMS kernels leave their counters zeroed: after every
+    run, eager or replayed, each buffer must read zero."""
+    torch.cuda.synchronize()
+    bad = {str(key): int(buf.count_nonzero())
+           for key, buf in _build._COUNTERS.items() if buf.count_nonzero()}
+    if bad:
+        fail(f"{what}: kernel counters left nonzero: {bad}")
+
+
+def check_memory_back(torch, before: int, what: str) -> int:
+    """After an engine is deleted, the card holds at most MEM_SLACK bytes
+    more than before it was built; returns the difference."""
+    gc.collect()
+    torch.cuda.synchronize()
+    extra = torch.cuda.memory_allocated() - before
+    if extra > MEM_SLACK:
+        fail(f"{what}: {extra} bytes still allocated after the engine was "
+             "deleted")
+    return extra
+
+
+def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
+    """The bytes one decode step must move at positions ``pos``: every
+    weight once (an untied embedding's and a learned position table's
+    lookups read one row a slot, a tied one is read whole by the logits),
+    each row's ``pos + 1`` cached keys and values in every layer (a ring's
+    at most its window) and, paged, the (B, max_len) view gathered: read
+    from the pools once and written once."""
+    b = len(pos)
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    for table in ("embed", "pos"):
+        t = params.get(table)
+        if t is not None and (table == "pos" or "head" in params):
+            weights -= (t.shape[0] - b) * t.shape[1] * t.element_size()
+    kv_row = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * KV_BYTES
+    keys = sum(min(int(p) + 1, cfg.window_size if kind == "local" else max_len)
+               for kind in cfg.layer_kinds() for p in pos)
+    view = 2 * b * max_len * kv_row * cfg.n_layers if paged else 0
+    return weights + keys * kv_row + view
+
+
+def replay_timing(torch, engine, cfg, params, n: int = 20) -> dict:
+    """Device ms of one replay of ``engine``'s captured decode step (its
+    last step, the positions left in its static buffer: a free slot decodes
+    at 0), ``n`` replays back to back between CUDA events after 3 more,
+    beside the step's byte bound. Run after the engine's last request: the
+    replays write KV rows that no later admission reads, and are not
+    counted in ``ops.launches``."""
+    graph = engine._run_step                     # serving/cuda_graph.StepGraph
+    pos = graph._inputs[1].cpu().tolist()
+    for _ in range(3):
+        graph._graph.replay()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(n):
+        graph._graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    nbytes = step_bytes(cfg, params, pos, engine.max_len,
+                        paged=hasattr(engine, "allocator"))
+    ms = e0.elapsed_time(e1) / n
+    b_ms, _ = bound_ms(nbytes, 0.0, "bfloat16")
+    return {"replay_ms": round(ms, 4), "bound_ms": round(b_ms, 4),
+            "bound_by": "bytes", "step_bytes": nbytes, "positions": pos,
+            "bound_frac": round(b_ms / ms, 4)}
+
+
+def first_differing(got, want) -> list:
+    return [next((i for i, (a, b) in enumerate(zip(g or [], w)) if a != b),
+                 None) for g, w in zip(got, want)]
+
+
+def emit_graph_vs_eager(phase, cfg, fused, step, graph, eager, **info):
+    """Decode tok/s and ms a step (host clock; median and [min, max] of the
+    repeats) of the graph against the eager step, and the replay's device
+    ms beside the step's byte bound."""
+    def med(xs):
+        return round(statistics.median(xs), 3) if xs else None
+
+    def spread(xs):
+        return [round(min(xs), 3), round(max(xs), 3)] if xs else None
+    emit(phase=phase, model=cfg.name, fused=fused,
+         step=f"{step}: graph vs eager", repeats=len(graph["tok_s"]),
+         graph_decode_tok_per_s=med(graph["tok_s"]),
+         graph_spread=spread(graph["tok_s"]),
+         eager_decode_tok_per_s=med(eager["tok_s"]),
+         eager_spread=spread(eager["tok_s"]),
+         speedup=round(med(graph["tok_s"]) / med(eager["tok_s"]), 3)
+         if eager["tok_s"] else None,
+         graph_step_ms=med(graph["step_ms"]),
+         eager_step_ms=med(eager["step_ms"]),
+         mem_extra_bytes=[graph["mem_extra"], eager["mem_extra"]],
+         **graph.get("replay", {}), **info)
 
 
 def paged_prompts(rng, cfg):
@@ -1159,75 +1282,267 @@ def paged_prompts(rng, cfg):
     return [shared[0], *long, *shared[1:]]
 
 
-def paged(torch, ops, PagedEngine, params, cfg, prompts, want, fused: bool,
-          max_len: int, step: str, **engine_kw) -> dict:
-    """One PagedEngine run (``max_batch=4``, BLOCK_SIZE-token blocks) of
-    ``prompts``; returns its launch counts. Fails unless every request
-    finished with NEW_TOKENS tokens, the path launched exactly what its
-    cold prefills, extend chunks and decode steps need, and every block came
-    back to the allocator or the prefix cache. ``want``: the contiguous
-    Engine's tokens for the same prompts in the same run; with
-    ``exact`` the paged tokens must equal them (the cold path), otherwise
+def check_blocks(alloc, pc, what: str) -> None:
+    """Every block back to the allocator or held by the prefix cache."""
+    cached = 0 if pc is None else len(pc)
+    if alloc.free_blocks + cached != alloc.num_blocks - 1:
+        fail(f"{what}: {alloc.free_blocks} blocks free and {cached} cached "
+             f"of {alloc.num_blocks - 1}")
+
+
+def logits_replay_diff(torch, engine, cfg) -> float:
+    """One decode step's logits (``make_serve_step(greedy=False)``) on the
+    engine's cache at its last step's tokens and positions, through a new
+    CUDA graph: its warm-up (the eager step) against its replay on the same
+    inputs; the max |difference|, 0 where the replay is bit-identical. The
+    step rewrites the same KV rows each time. Launches are not checked
+    after this."""
+    from repro_torch.serving import make_serve_step
+    from repro_torch.serving.cuda_graph import StepGraph
+
+    step = make_serve_step(cfg, greedy=False, fused=engine.fused)
+    params, caches = engine.params, engine._caches
+    inputs = [x.cpu().numpy() for x in engine._run_step._inputs]
+    graph = StepGraph(lambda t, p: step(params, t, p, caches)[0], inputs,
+                      engine.device)
+    eager = graph(*inputs).float().clone()
+    return (graph(*inputs).float() - eager).abs().max().item()
+
+
+def serve(torch, ops, _build, E, params, cfg, prompts, fused: bool,
+          max_len: int, step: str, cuda_graph: bool = True, same_as=None,
+          want=None, exact: bool = False, repeats: int = 0,
+          **engine_kw) -> dict:
+    """One engine ``E`` (``Engine`` or ``PagedEngine``, ``max_batch=4``)
+    serving ``prompts``, its decode step a CUDA
+    graph or, with ``cuda_graph=False``, eager; then ``repeats`` more times
+    on the same engine (paged: prefix caching off only, since a warm cache
+    would move the chunk boundaries). Returns the first run's launches and
+    tokens (in the order of ``prompts``), the repeats' decode tok/s and ms
+    a step (host clock) and, for a graph that repeats, its replay's device
+    ms beside its bound.
+
+    Fails unless every request finished with NEW_TOKENS tokens; every run
+    launched exactly what its prefills, extend chunks and decode steps
+    need (replays included); the kernels' counters read zero after every
+    run; every paged block came back to the allocator or the prefix cache,
+    and a prefix cache was hit; every repeat gave the first run's tokens,
+    and these equal ``same_as`` (the eager step's, same engine) where
+    given; deleting the engine gave its memory back. ``want``: the
+    contiguous Engine's tokens for the same prompts in the same run; with
+    ``exact`` the tokens must equal them (the cold paged path), otherwise
     the number that do is printed (a bf16 chunk may move an argmax at a
     near-tie)."""
-    exact = engine_kw.pop("exact")
-    engine = PagedEngine(cfg, params, max_batch=4, max_len=max_len,
-                         block_size=BLOCK_SIZE, fused=fused, **engine_kw)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    uids = [engine.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: v for k, v in ops.launches.items() if v}
-    st, alloc, pc = engine.stats, engine.allocator, engine.prefix_cache
-    outputs = {r.uid: r.output for r in done}
-    got = [outputs.get(u, []) for u in uids]
-    same = sum(g == w for g, w in zip(got, want))
-    emit(phase="paged", model=cfg.name, fused=fused, step=step,
-         prompt_lens=[len(p) for p in prompts], completed=len(done),
-         wall_s=round(wall, 4), tok_per_s=round(st.emitted_tokens / wall, 2),
-         decode_tok_per_s=round(st.decode_tok_per_s, 2),
-         mean_ttft_s=round(st.mean_ttft_s, 4),
-         mean_decode_tok_latency_s=round(st.mean_decode_tok_latency_s, 5),
-         prefill_s=round(st.prefill_s, 4), decode_s=round(st.decode_s, 4),
-         decode_steps=st.decode_steps, cold_prefills=engine.cold_prefills,
-         extend_chunks=engine.extend_chunks,
-         prefix_hits=0 if pc is None else pc.hits,
-         hit_rate=0.0 if pc is None else round(pc.hit_rate, 4),
-         num_blocks=alloc.num_blocks, free_blocks=alloc.free_blocks,
-         cached_blocks=0 if pc is None else len(pc),
-         tokens_equal_contiguous=f"{same} of {len(prompts)}",
-         first_differing_token=[next((i for i, (a, b) in enumerate(zip(g, w))
-                                      if a != b), None)
-                                for g, w in zip(got, want)],
-         launches=launches)
-    if len(done) != len(prompts) or any(len(o) != NEW_TOKENS for o in got):
-        fail(f"paged: {cfg.name} {step}: {len(done)} of {len(prompts)} "
-             f"requests finished, lengths {[len(o) for o in got]}")
-    if exact and got != want:
-        fail(f"paged: {cfg.name} fused={fused} {step}: the tokens of "
-             f"{len(prompts) - same} requests differ from the contiguous "
-             "Engine's")
-    need = {}
-    for per, times in ((per_forward_launches(cfg, fused), engine.cold_prefills),
-                       (per_forward_launches(cfg, fused, extend=True),
-                        engine.extend_chunks),
-                       (per_forward_launches(cfg, fused, decode=True),
-                        st.decode_steps)):
-        for k, n in per.items():
-            need[k] = need.get(k, 0) + n * times
-    need = {k: v for k, v in need.items() if v}
-    if launches != need:
-        fail(f"paged: {cfg.name} fused={fused} {step} launched {launches}; "
-             f"{engine.cold_prefills} cold prefills, {engine.extend_chunks} "
-             f"chunks and {st.decode_steps} decode steps need {need}")
-    if alloc.free_blocks + (0 if pc is None else len(pc)) != alloc.num_blocks - 1:
-        fail(f"paged: {cfg.name} {step}: {alloc.free_blocks} blocks free and "
-             f"{0 if pc is None else len(pc)} cached of {alloc.num_blocks - 1}")
-    if pc is not None and not pc.hit_rate > 0:
-        fail(f"paged: {cfg.name} {step}: no prefix-cache hit")
-    return launches
+    mem0 = torch.cuda.memory_allocated()
+    engine = E(cfg, params, max_batch=4, max_len=max_len, fused=fused,
+               cuda_graph=cuda_graph, **engine_kw)
+    paged = hasattr(engine, "allocator")
+    phase = "paged" if paged else "serve"
+    what = f"{phase}: {cfg.name} fused={fused} {step} cuda_graph={cuda_graph}"
+    if repeats and getattr(engine, "prefix_cache", None) is not None:
+        fail(f"{what}: repeats need prefix_caching=False")
+    out = {"tok_s": [], "step_ms": []}
+    for rep in range(1 + repeats):
+        engine.reset_stats()
+        done, launches, wall = serve_prompts(torch, ops, engine, prompts)
+        st, pc = engine.stats, getattr(engine, "prefix_cache", None)
+        got = [r.output if r else [] for r in done]
+        if rep == 0:
+            info = {}
+            if paged:
+                info = dict(
+                    cold_prefills=engine.cold_prefills,
+                    extend_chunks=engine.extend_chunks,
+                    prefix_hits=0 if pc is None else pc.hits,
+                    hit_rate=0.0 if pc is None else round(pc.hit_rate, 4),
+                    num_blocks=engine.allocator.num_blocks,
+                    free_blocks=engine.allocator.free_blocks,
+                    cached_blocks=0 if pc is None else len(pc))
+            if want is not None:
+                info.update(
+                    tokens_equal_contiguous=f"{sum(g == w for g, w in zip(got, want))}"
+                                            f" of {len(prompts)}",
+                    first_differing_token=first_differing(got, want))
+            emit(phase=phase, model=cfg.name, fused=fused, step=step,
+                 cuda_graph=cuda_graph,
+                 prompt_lens=[len(p) for p in prompts], completed=st.completed,
+                 wall_s=round(wall, 4),
+                 tok_per_s=round(st.emitted_tokens / wall, 2),
+                 decode_tok_per_s=round(st.decode_tok_per_s, 2),
+                 mean_ttft_s=round(st.mean_ttft_s, 4),
+                 mean_decode_tok_latency_s=round(
+                     st.mean_decode_tok_latency_s, 5),
+                 prefill_s=round(st.prefill_s, 4),
+                 decode_s=round(st.decode_s, 4),
+                 decode_steps=st.decode_steps, **info, launches=launches)
+            if any(len(o) != NEW_TOKENS for o in got):
+                fail(f"{what}: {st.completed} of {len(prompts)} requests "
+                     f"finished, lengths {[len(o) for o in got]}")
+            if any(not 0 <= t < cfg.vocab_size for o in got for t in o):
+                fail(f"{what}: a token outside the vocabulary")
+            if exact and got != want:
+                fail(f"{what}: the tokens of "
+                     f"{sum(g != w for g, w in zip(got, want))} requests "
+                     "differ from the contiguous Engine's")
+            if pc is not None and not pc.hit_rate > 0:
+                fail(f"{what}: no prefix-cache hit")
+            out["launches"], out["tokens"] = launches, got
+        else:
+            if got != out["tokens"]:
+                fail(f"{what}: repeat {rep} gave other tokens than the first "
+                     "run")
+            out["tok_s"].append(st.decode_tok_per_s)
+            out["step_ms"].append(st.decode_s / st.decode_steps * 1e3)
+        need = engine_launches(cfg, engine)
+        if launches != need:
+            fail(f"{what} run {rep} launched {launches}; its "
+                 f"{st.first_tokens} prefills and {st.decode_steps} decode "
+                 f"steps (paged: {getattr(engine, 'cold_prefills', 0)} cold, "
+                 f"{getattr(engine, 'extend_chunks', 0)} chunks) need {need}")
+        check_counters(torch, _build, what)
+        if paged:
+            check_blocks(engine.allocator, pc, what)
+    if same_as is not None and out["tokens"] != same_as:
+        fail(f"{what}: the graph's tokens differ from the eager step's: "
+             f"first differing token per request "
+             f"{first_differing(out['tokens'], same_as)}")
+    if cuda_graph and repeats:
+        out["replay"] = replay_timing(torch, engine, cfg, params)
+        if not paged:
+            out["replay"]["logits_max_abs_diff"] = logits_replay_diff(
+                torch, engine, cfg)
+    del engine
+    out["mem_extra"] = check_memory_back(torch, mem0, what)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase traffic: the PagedEngine under trace-driven load
+# ---------------------------------------------------------------------------
+
+def traffic(torch, nn, ops, _build, init_lm, get_config, launched: dict):
+    """Phase ``traffic`` (JAX's traffic section, ``repro/bench/sections.py``
+    ``traffic_rows``, on the card): TRAFFIC_ARCH at full size, every drive
+    primed first on its trace's shadow (kernels built, decode graph
+    captured). (a) parity: a Poisson trace through the ``Engine`` and the
+    cold ``PagedEngine``, identical tokens; (b) load: a Poisson trace at
+    8 requests/s in real time, graph and eager, every request completed;
+    (c) prefix: a shared-prefix trace with the prefix cache on and off, a
+    hit and every block back, warm and cold service TTFT, equal outputs
+    counted; (d) the measured GEMM / NonGEMM split of one eager paged
+    decode step at (b)'s shapes and ``paged_frac``, the share of the paged
+    bookkeeping's device time. Every drive: launches exact, counters zero,
+    the engine's memory back."""
+    from repro_torch.models import init_lm_cache
+    from repro_torch.serving import Engine, PagedEngine, make_paged_decode_step
+    from repro_torch.traffic import (drive, poisson_trace, prime,
+                                     shared_prefix_trace)
+
+    cfg = get_config(TRAFFIC_ARCH).replace(dtype="bfloat16",
+                                           param_dtype="bfloat16")
+    params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
+    vocab = cfg.vocab_size
+
+    def run(name, make, trace, time_scale):
+        mem0 = torch.cuda.memory_allocated()
+        engine = make()
+        t0 = time.perf_counter()
+        prime(engine, trace, vocab)
+        prime_s = time.perf_counter() - t0
+        ops.reset_launches()
+        done, rep = drive(engine, trace, time_scale=time_scale)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches.items() if v}
+        pc = getattr(engine, "prefix_cache", None)
+        what = f"traffic: {name}"
+        emit(phase="traffic", run=name, engine=type(engine).__name__,
+             cuda_graph=engine.cuda_graph, requests=len(trace),
+             time_scale=time_scale, prime_s=round(prime_s, 3),
+             report=rep.to_dict(), decode_steps=engine.stats.decode_steps,
+             cold_prefills=getattr(engine, "cold_prefills", None),
+             extend_chunks=getattr(engine, "extend_chunks", None),
+             cached_blocks=None if pc is None else len(pc), launches=launches)
+        if rep.completed != len(trace) or any(
+                len(r.output) != r.max_new_tokens for r in done):
+            fail(f"{what}: {rep.completed} of {len(trace)} requests completed")
+        need = engine_launches(cfg, engine)
+        if launches != need:
+            fail(f"{what}: launched {launches}, the run needs {need}")
+        check_counters(torch, _build, what)
+        if hasattr(engine, "allocator"):
+            check_blocks(engine.allocator, pc, what)
+        for k, n in launches.items():
+            launched[k] += n
+        del engine
+        check_memory_back(torch, mem0, what)
+        return {tuple(r.prompt): r.output for r in done}, rep
+
+    def paged_engine(**kw):
+        return lambda: PagedEngine(cfg, params, **{**TRAFFIC_ENGINE, **kw})
+
+    # (a) parity: the contiguous engine and the cold paged path
+    trace = poisson_trace(0, 12, 200.0, vocab, prompt_len=(16, 200),
+                          output_len=(8, 32))
+    want, _ = run("parity, Engine", lambda: Engine(
+        cfg, params, max_batch=TRAFFIC_ENGINE["max_batch"],
+        max_len=TRAFFIC_ENGINE["max_len"]), trace, 1e5)
+    got, _ = run("parity, PagedEngine cold",
+                 paged_engine(prefix_caching=False, chunk_size=None), trace, 1e5)
+    same = sum(got.get(p) == o for p, o in want.items())
+    emit(phase="traffic", check="parity", requests=len(trace),
+         tokens_equal=f"{same} of {len(want)}")
+    if got != want:
+        fail(f"traffic: parity: {len(want) - same} requests' tokens differ "
+             "between the Engine and the cold PagedEngine")
+
+    # (b) load: real-time Poisson arrivals, the decode step graphed and eager
+    load = poisson_trace(1, 16, 8.0, vocab, prompt_len=(16, 200),
+                         output_len=(8, 32))
+    for graph in (True, False):
+        run(f"load, cuda_graph={graph}",
+            paged_engine(chunk_size=TRAFFIC_CHUNK, cuda_graph=graph), load, 1.0)
+
+    # (c) prefix: one 192-token system prompt, the cache on and off
+    sp = shared_prefix_trace(7, 16, vocab, prefix_len=192, suffix_len=(16, 48),
+                             gap_s=0.05, output_len=(8, 16))
+    warm_out, warm = run("prefix, cache on",
+                         paged_engine(chunk_size=TRAFFIC_CHUNK), sp, 1.0)
+    cold_out, cold = run("prefix, cache off",
+                         paged_engine(chunk_size=TRAFFIC_CHUNK,
+                                      prefix_caching=False), sp, 1.0)
+    emit(phase="traffic", check="prefix", hit_rate=warm.prefix_hit_rate,
+         warm_service_ttft_s=warm.mean_service_ttft_s,
+         cold_service_ttft_s=cold.mean_service_ttft_s,
+         outputs_equal=f"{sum(cold_out.get(p) == o for p, o in warm_out.items())}"
+                       f" of {len(warm_out)}")
+    if not warm.prefix_hit_rate > 0:
+        fail("traffic: prefix: no prefix-cache hit")
+
+    # (d) the measured split of one paged decode step at the load's shapes:
+    # the first four requests of (b) half way through their budgets
+    b, max_len, bs = (TRAFFIC_ENGINE[k] for k in ("max_batch", "max_len",
+                                                  "block_size"))
+    per_seq = max_len // bs
+    pools = init_lm_cache(cfg, 1 + b * per_seq, bs, device="cuda")
+    tables = torch.arange(1, 1 + b * per_seq, dtype=torch.int32,
+                          device="cuda").reshape(b, per_seq)
+    positions = [len(r.prompt) + r.max_new_tokens // 2 for r in load[:b]]
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    token = torch.ones(b, dtype=torch.int64, device="cuda")
+    step = make_paged_decode_step(cfg, max_len, greedy=True, fused=False)
+    prof, wall, per = measured(
+        torch, nn, ops, lambda: step(params, token, pos, pools, tables)[0], (),
+        f"{TRAFFIC_ARCH} paged decode b{b} L{max_len}", False)
+    paged_s = sum(t for (_, site), t in prof.op_seconds.items()
+                  if site in PAGED_SITES)
+    emit_profile("traffic", prof, wall, per, check="paged decode split",
+                 positions=positions, paged_ms=round(paged_s * 1e3, 4),
+                 paged_frac=round(paged_s / prof.total_seconds, 4),
+                 paged_site_ms={site: round(sum(
+                     t for (_, s), t in prof.op_seconds.items() if s == site)
+                     * 1e3, 4) for site in PAGED_SITES})
+    if not paged_s > 0:
+        fail("traffic: the paged decode step measured no paged bookkeeping")
 
 
 # ---------------------------------------------------------------------------
@@ -1694,27 +2009,55 @@ def main(argv=None) -> int:
             chunked_set = paged_prompts(prng, cfg)
         for fused in (False, True):
             if not args.paths_only:
-                runs, tokens = serve(torch, ops, Engine, params, cfg, prompts,
-                                     fused, max_len)
-                runs = [runs]
+                # the eager decode step, then the graph, tokens identical
+                eager = serve(torch, ops, _build, Engine, params, cfg, prompts,
+                              fused, max_len, "engine", cuda_graph=False,
+                              repeats=REPEATS)
+                graphed = serve(torch, ops, _build, Engine, params, cfg,
+                                prompts, fused, max_len, "engine",
+                                same_as=eager["tokens"], repeats=REPEATS)
+                emit_graph_vs_eager("serve", cfg, fused, "engine", graphed,
+                                    eager)
+                runs = [eager, graphed]
                 if arch in PAGED_ARCHS:
                     # phase paged: (a) cold, tokens equal to the Engine's;
                     # (b) chunked prefill and prefix-cache hits, beside the
-                    # Engine's tokens for the same prompts
-                    runs.append(paged(torch, ops, PagedEngine, params, cfg,
-                                      prompts, tokens, fused, max_len, "cold",
-                                      prefix_caching=False, chunk_size=None,
-                                      exact=True))
-                    more, want = serve(torch, ops, Engine, params, cfg,
-                                       chunked_set, fused, max_len,
-                                       step="engine, the chunked run's prompts")
-                    runs.append(more)
-                    runs.append(paged(torch, ops, PagedEngine, params, cfg,
-                                      chunked_set, want, fused, max_len,
-                                      "chunked+cached", prefix_caching=True,
-                                      chunk_size=CHUNK, exact=False))
-                for run_launches in runs:
-                    for k, n in run_launches.items():
+                    # Engine's tokens for the same prompts; each eager,
+                    # then graphed with the eager run's tokens
+                    cold = dict(want=graphed["tokens"], exact=True,
+                                block_size=BLOCK_SIZE, prefix_caching=False,
+                                chunk_size=None)
+                    p_eager = serve(torch, ops, _build, PagedEngine, params,
+                                    cfg, prompts, fused, max_len, "cold",
+                                    cuda_graph=False, repeats=REPEATS, **cold)
+                    p_graph = serve(torch, ops, _build, PagedEngine, params,
+                                    cfg, prompts, fused, max_len, "cold",
+                                    same_as=p_eager["tokens"],
+                                    repeats=REPEATS, **cold)
+                    emit_graph_vs_eager(
+                        "paged", cfg, fused, "cold", p_graph, p_eager,
+                        paged_over_engine_tok_s=round(
+                            statistics.median(p_graph["tok_s"])
+                            / statistics.median(graphed["tok_s"]), 3),
+                        engine_over_paged_replay=round(
+                            graphed["replay"]["replay_ms"]
+                            / p_graph["replay"]["replay_ms"], 3))
+                    more = serve(torch, ops, _build, Engine, params, cfg,
+                                 chunked_set, fused, max_len,
+                                 "engine, the chunked run's prompts")
+                    chunked = dict(want=more["tokens"], block_size=BLOCK_SIZE,
+                                   prefix_caching=True, chunk_size=CHUNK)
+                    c_eager = serve(torch, ops, _build, PagedEngine, params,
+                                    cfg, chunked_set, fused, max_len,
+                                    "chunked+cached", cuda_graph=False,
+                                    **chunked)
+                    runs += [p_eager, p_graph, more, c_eager,
+                             serve(torch, ops, _build, PagedEngine, params,
+                                   cfg, chunked_set, fused, max_len,
+                                   "chunked+cached",
+                                   same_as=c_eager["tokens"], **chunked)]
+                for run in runs:
+                    for k, n in run["launches"].items():
                         launches[k] += n
             compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len,
                           extend_prompt)
@@ -1733,6 +2076,12 @@ def main(argv=None) -> int:
         # at their 16th token
         decode_lengths[arch] = [n + NEW_TOKENS - 1 for n in plens[:4]]
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- phase traffic: the PagedEngine under trace-driven load --------------
+    if not args.paths_only:
+        traffic(torch, nn, ops, _build, init_lm, get_config, launches)
         gc.collect()
         torch.cuda.empty_cache()
 

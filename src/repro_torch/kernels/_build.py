@@ -148,16 +148,32 @@ def sm_count(dev: int) -> int:
 
 
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
+#: buffers a larger one replaced: a captured CUDA graph may still hold
+#: their address, so they live as long as the process
+_RETIRED: List[torch.Tensor] = []
 
 
 def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 zeros on ``device``, one buffer per stream: the
     decode and NMS kernels count their finished CTAs there and leave it
     zeroed, so launches on one stream, which run one after another, share
-    it and it is set to zero once."""
+    it and it is set to zero once.
+
+    Under CUDA graph capture the stream's buffer must already exist, made
+    by an eager launch on the capture stream (the engines' warm-up step):
+    one made now would come from the graph's private pool, and its zeroing
+    would be a node of that graph alone. Raises then instead.
+    """
     key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"kernel counters: no buffer of {n} for this stream while it is "
+                "captured; run the step once eagerly on the capture stream "
+                "first")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                            device=device)
     return buf

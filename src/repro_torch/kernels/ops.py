@@ -9,7 +9,9 @@ Every wrapper
   its kernel on ``torch.cuda.current_stream()`` or raises: there is no
   fallback;
 * adds one to :data:`launches` ``[name]`` where it launches, and nowhere
-  else;
+  else; under CUDA graph capture, where nothing launches, to the graph's
+  record instead (:func:`recording`), which every replay adds
+  (:func:`add_launches`);
 * is a ``torch.library.custom_op`` (``repro_torch::<name>``) with a fake
   implementation, so a ``TorchDispatchMode`` (the capture and the timed
   profile of ``core/graph.py``) sees the kernel as one op. A ctypes launch
@@ -18,8 +20,9 @@ Every wrapper
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -42,9 +45,45 @@ launches = dict.fromkeys(KERNELS, 0)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+#: the launches of the CUDA graph now being captured, or None
+_recording: Optional[Dict[str, int]] = None
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Count the wrappers' launches into a fresh record instead of
+    :data:`launches`: around a CUDA graph's capture, which launches
+    nothing. Each replay then adds the record (:func:`add_launches`)."""
+    global _recording
+    prev, _recording = _recording, dict.fromkeys(KERNELS, 0)
+    try:
+        yield _recording
+    finally:
+        _recording = prev
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add a captured graph's record to :data:`launches` (one replay)."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``'s kernel: into :data:`launches`, or into the
+    record while a graph is captured under :func:`recording`. A capture
+    outside it raises, since its replays would go uncounted."""
+    if _recording is not None:
+        _recording[name] += 1
+    elif torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: launched under CUDA graph capture outside "
+                           "ops.recording(); its replays would go uncounted")
+    else:
+        launches[name] += 1
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -100,7 +139,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     """RMSNorm over the last dim of ``x`` (..., d) with a (d,) scale."""
     if not _check_norm("rms_norm", x, None, scale):
         return ref.rms_norm(x, scale, eps=eps, zero_centered=zero_centered)
-    launches["rms_norm"] += 1
+    _count("rms_norm")
     return _norms.rms_norm(x, scale, eps, zero_centered)
 
 
@@ -119,7 +158,7 @@ def fused_add_rms_norm(x: torch.Tensor, residual: torch.Tensor,
     if not _check_norm("fused_add_rms_norm", x, residual, scale):
         return ref.fused_add_rms_norm(x, residual, scale, eps=eps,
                                       zero_centered=zero_centered)
-    launches["fused_add_rms_norm"] += 1
+    _count("fused_add_rms_norm")
     return _norms.fused_add_rms_norm(x, residual, scale, eps, zero_centered)
 
 
@@ -134,7 +173,7 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """LayerNorm over the last dim of ``x`` (..., d), two-pass variance."""
     if not _check_norm("layer_norm", x, None, scale, bias):
         return ref.layer_norm(x, scale, bias, eps=eps)
-    launches["layer_norm"] += 1
+    _count("layer_norm")
     return _norms.layer_norm(x, scale, bias, eps)
 
 
@@ -151,7 +190,7 @@ def fused_add_layer_norm(x: torch.Tensor, residual: torch.Tensor,
     """``(layer_norm(r), r)`` with ``r = x + residual`` rounded once."""
     if not _check_norm("fused_add_layer_norm", x, residual, scale, bias):
         return ref.fused_add_layer_norm(x, residual, scale, bias, eps=eps)
-    launches["fused_add_layer_norm"] += 1
+    _count("fused_add_layer_norm")
     return _norms.fused_add_layer_norm(x, residual, scale, bias, eps)
 
 
@@ -183,7 +222,7 @@ def dequant_add_rms_norm(q: torch.Tensor, qscale: torch.Tensor,
     if not on_card:
         return ref.dequant_add_rms_norm(q, qscale, residual, scale, eps=eps,
                                         zero_centered=zero_centered)
-    launches["dequant_add_rms_norm"] += 1
+    _count("dequant_add_rms_norm")
     return _norms.dequant_add_rms_norm(q, qscale, residual, scale, eps,
                                        zero_centered)
 
@@ -212,7 +251,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                         f"{labels.dtype}")
     if not on_card:
         return ref.softmax_xent(logits, labels)
-    launches["softmax_xent"] += 1
+    _count("softmax_xent")
     return _xent.softmax_xent(logits, labels)
 
 
@@ -247,7 +286,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0,
         raise ValueError(f"rope: fraction {fraction} outside [0, 1]")
     if not on_card:
         return ref.rope(x, positions, base=base, fraction=fraction)
-    launches["rope"] += 1
+    _count("rope")
     return _rope.rope(x, positions, base, fraction)
 
 
@@ -274,7 +313,7 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``silu(gate) * up`` in f32, rounded once to the operands' dtype."""
     if not _check_glu("swiglu", gate, up):
         return ref.swiglu(gate, up)
-    launches["swiglu"] += 1
+    _count("swiglu")
     return _glu.swiglu(gate, up)
 
 
@@ -289,7 +328,7 @@ def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     dtype."""
     if not _check_glu("geglu", gate, up):
         return ref.geglu(gate, up)
-    launches["geglu"] += 1
+    _count("geglu")
     return _glu.geglu(gate, up)
 
 
@@ -336,7 +375,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card:
         return ref.attention(q, k, v, q_offset=q_offset, scale=scale)
     _check_kernel_dims("attention_core", q, v)
-    launches["attention_core"] += 1
+    _count("attention_core")
     return _attn.attention_core(q, k, v, q_offset, scale)
 
 
@@ -363,7 +402,7 @@ def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.attention(q, k, v, q_offset=q_offset, scale=scale,
                              window=window)
     _check_kernel_dims("attention_window", q, v)
-    launches["attention_window"] += 1
+    _count("attention_window")
     return _attn.attention_window(q, k, v, window, q_offset, scale)
 
 
@@ -385,7 +424,7 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card:
         return ref.attention(q, k, v, scale=scale, causal=False)
     _check_kernel_dims("attention_full", q, v)
-    launches["attention_full"] += 1
+    _count("attention_full")
     return _attn.attention_full(q, k, v, scale)
 
 
@@ -417,7 +456,7 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[2] // k.shape[2] > _attn.MAX_GQA_GROUP:
         raise ValueError(f"decode_core: GQA group {q.shape[2] // k.shape[2]} "
                          f"above the kernel's {_attn.MAX_GQA_GROUP}")
-    launches["decode_core"] += 1
+    _count("decode_core")
     return _attn.decode_core(q, k, v, lengths, scale)
 
 
@@ -447,7 +486,7 @@ def nms_sorted(boxes: torch.Tensor, valid: torch.Tensor,
         return ref.nms_sorted(boxes, valid, iou_threshold)
     if n > _nms.MAX_BOXES:
         raise ValueError(f"nms: {n} boxes above the kernel's {_nms.MAX_BOXES}")
-    launches["nms"] += 1
+    _count("nms")
     return _nms.nms_sorted(boxes, valid, iou_threshold)
 
 

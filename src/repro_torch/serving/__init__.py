@@ -19,7 +19,13 @@ sequences shares ONE KV cache:
 * ``greedy=False`` samples each token from the softmax of its logits with
   a ``torch.Generator`` seeded by ``seed`` on the engine's device (torch
   cannot replay ``jax.random.categorical``'s stream: the same
-  distribution, other draws).
+  distribution, other draws);
+* the decode step is built once by :func:`make_serve_step`, the port of
+  JAX's jitted step, and on the card it runs as a CUDA graph
+  (``cuda_graph=``, ``serving/cuda_graph.py``): warmed up eagerly and
+  captured at the first decode, replayed at every later one. Prefill,
+  admission and chunked ``lm_extend`` stay eager: their shapes and the
+  host-int ``start`` vary.
 
 Where the JAX engine casts f32 params to the activation dtype inside every
 jitted step, this eager engine casts once, at construction, by the same
@@ -44,6 +50,7 @@ import torch
 from repro_torch import nn
 from repro_torch.models import init_lm_cache, lm_decode, lm_prefill
 from repro_torch.models.common import ModelConfig
+from repro_torch.serving.cuda_graph import StepGraph
 
 
 def cast_params(params, dtype: torch.dtype):
@@ -56,6 +63,34 @@ def cast_params(params, dtype: torch.dtype):
     if params.dtype == torch.float32 and params.dim() >= 2:
         return params.to(dtype)
     return params
+
+
+def _next_or_logits(logits: torch.Tensor, greedy: bool) -> torch.Tensor:
+    """A decode step's result: the (B,) argmax tokens, or the (B, V) logits
+    the caller samples from."""
+    return torch.argmax(logits.float(), dim=-1) if greedy else logits
+
+
+def make_serve_step(cfg: ModelConfig, greedy: bool = True,
+                    fused: bool = False) -> Callable:
+    """serve_step(params, token, pos, caches) -> (token' or logits, caches).
+
+    The port of ``repro.serving.make_serve_step``: one ``lm_decode`` of the
+    slot table under ``nn.fuse(fused)``, ``pos`` a scalar or a per-slot
+    ``(B,)`` vector. The caches are updated in place
+    (``nn.kv_cache_update``), where the JAX engine donates them. With
+    ``greedy`` the step ends in the argmax and returns (B,) int64 tokens;
+    otherwise it returns the (B, V) logits and the caller draws from them
+    with its own generator (JAX draws inside the step, from a key), so a
+    step captured as a CUDA graph and the eager step draw alike. ``params``
+    is the working copy (``cast_params``): the engine casts once where JAX
+    casts inside every step.
+    """
+    def serve_step(params, token, pos, caches):
+        with nn.fuse(fused):
+            logits, caches = lm_decode(params, token, pos, caches, cfg)
+        return _next_or_logits(logits, greedy), caches
+    return serve_step
 
 
 @dataclasses.dataclass
@@ -150,6 +185,12 @@ class Engine:
     Runs on the device ``params`` live on: the hand-written kernels on the
     card, the plain PyTorch versions on the CPU (``repro_torch.nn``'s
     default backend).
+
+    ``cuda_graph``: ``None`` runs the decode step as a CUDA graph on the
+    card and eagerly on the CPU; ``False`` runs it eagerly (the counterpart
+    of the JAX engine under ``jax.disable_jit()``, what the graph is held
+    against); ``True`` on the CPU raises. A capture or replay that fails
+    raises: nothing falls back to the eager step.
     """
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
@@ -157,10 +198,17 @@ class Engine:
                  greedy: bool = True, pad_id: int = PAD_ID, seed: int = 0,
                  min_prefill_bucket: int = MIN_PREFILL_BUCKET,
                  fused: bool = False,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 cuda_graph: Optional[bool] = None):
         self.cfg = cfg
         self.fused = fused
         self.device = params["final_norm"]["scale"].device
+        on_card = self.device.type == "cuda"
+        if cuda_graph and not on_card:
+            raise ValueError(f"cuda_graph=True needs the params on a CUDA "
+                             f"device, not {self.device}")
+        self.cuda_graph = on_card if cuda_graph is None else cuda_graph
+        self._run_step: Optional[Callable] = None     # built at the first decode
         self.params = cast_params(params, cfg.activation_dtype)
         self.max_batch = max_batch
         self.max_len = max_len
@@ -319,6 +367,34 @@ class Engine:
         engine with dummy requests, then measure cleanly."""
         self.stats = EngineStats()
 
+    # -- the decode step ---------------------------------------------------
+    def _decode_step(self) -> Callable:
+        """The step over its device inputs (:meth:`_decode_inputs`): the
+        slot table's next tokens, or its logits (``greedy=False``). It
+        closes over the params and the cache, never over the engine, so a
+        captured graph does not keep a deleted engine alive."""
+        step = make_serve_step(self.cfg, greedy=self.greedy, fused=self.fused)
+        params, caches = self.params, self._caches
+        return lambda token, pos: step(params, token, pos, caches)[0]
+
+    def _decode_inputs(self) -> List[np.ndarray]:
+        """The host arrays the step reads: tokens and per-slot positions."""
+        return [self._cur.astype(np.int64), self._pos]
+
+    def _decode(self) -> np.ndarray:
+        """One decode step of the whole slot table -> (B,) next tokens on
+        the host. A graph engine's first call warms the step up and
+        captures it (:class:`StepGraph`); later calls replay it."""
+        inputs = self._decode_inputs()
+        if self._run_step is None:
+            step, dev = self._decode_step(), self.device
+            self._run_step = StepGraph(step, inputs, dev) if self.cuda_graph \
+                else lambda *a: step(*(torch.from_numpy(x).to(dev) for x in a))
+        out = self._run_step(*inputs)
+        if not self.greedy:
+            out = self._sample(out)
+        return out.cpu().numpy()
+
     # -- stepping ----------------------------------------------------------
     @property
     def active(self) -> int:
@@ -335,13 +411,7 @@ class Engine:
             return finished
 
         t0 = self._timer()
-        with nn.fuse(self.fused):
-            logits, self._caches = lm_decode(
-                self.params,
-                torch.from_numpy(self._cur.astype(np.int64)).to(self.device),
-                torch.from_numpy(self._pos).to(self.device), self._caches,
-                self.cfg)
-        nxt_host = self._sample(logits).cpu().numpy()
+        nxt_host = self._decode()
         self.stats.decode_s += self._timer() - t0
         self.stats.decode_steps += 1
 
@@ -371,7 +441,8 @@ class Engine:
 
 
 from repro_torch.serving.paged import (BlockAllocator, PagedEngine,  # noqa: E402
-                                       PrefixCache)
+                                       PrefixCache, make_paged_decode_step)
 
 __all__ = ["Engine", "EngineStats", "Request", "cast_params",
-           "BlockAllocator", "PagedEngine", "PrefixCache"]
+           "make_serve_step", "BlockAllocator", "PagedEngine", "PrefixCache",
+           "make_paged_decode_step"]

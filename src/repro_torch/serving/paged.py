@@ -9,14 +9,18 @@ append-only, so no copy-on-write is ever needed.
 
 Three mechanisms ride on the block tables:
 
-* **paged decode**: every step gathers each sequence's blocks into a
-  contiguous ``(B, max_len, ...)`` view (``nn.paged_kv_gather``), runs the
-  UNCHANGED ``lm_decode`` on it, then writes each sequence's one new KV row
-  back into its block (``nn.paged_kv_write``). Stale rows in the view lie
-  past each row's ``pos + 1`` valid keys, the same lengths the contiguous
-  engine's decode reads, which is what makes paged decode bit-identical to
-  it; under ``fused=True`` the decode attention is ``decode_core`` over
-  the gathered view;
+* **paged decode** (:func:`make_paged_decode_step`): every step gathers
+  each sequence's blocks into a contiguous ``(B, max_len, ...)`` view
+  (``nn.paged_kv_gather``), runs the UNCHANGED ``lm_decode`` on it, then
+  writes each sequence's one new KV row back into its block
+  (``nn.paged_kv_write``). Stale rows in the view lie past each row's
+  ``pos + 1`` valid keys, the same lengths the contiguous engine's decode
+  reads, which is what makes paged decode bit-identical to it; under
+  ``fused=True`` the decode attention is ``decode_core`` over the gathered
+  view. On the card the step runs as a CUDA graph, as the contiguous
+  engine's does: the tokens, positions and block tables are static
+  buffers written before each replay, the pools fixed tensors, the
+  gathered view and the step's scratch in the graph's pool;
 * **prefix cache**: full prompt blocks are registered in a hash-chain
   keyed :class:`PrefixCache`; later prompts sharing the prefix re-point
   their table at the cached blocks and prefill only the suffix. Shared
@@ -46,7 +50,49 @@ import torch
 from repro_torch import nn
 from repro_torch.models import init_lm_cache, lm_decode, lm_extend
 from repro_torch.models.common import ModelConfig
-from repro_torch.serving import Engine, Request, _next_pow2
+from repro_torch.serving import Engine, Request, _next_or_logits, _next_pow2
+
+
+# ---------------------------------------------------------------------------
+# the paged decode step: gather view -> unchanged model -> write back
+# ---------------------------------------------------------------------------
+
+def _gather_tree(pools: List[dict], tables: torch.Tensor,
+                 max_len: int) -> List[dict]:
+    """The contiguous (B, max_len, ...) view of every layer's pools."""
+    return [{n: nn.paged_kv_gather(p, tables, max_len)
+             for n, p in pool.items()} for pool in pools]
+
+
+def _writeback_tree(pools: List[dict], caches: List[dict],
+                    tables: torch.Tensor, pos: torch.Tensor) -> None:
+    """Each row's new KV (at ``pos`` in the decoded view) into its block."""
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    at = pos.long()
+    for pool, c in zip(pools, caches):
+        for n, p in pool.items():
+            nn.paged_kv_write(p, c[n][rows, at][:, None], tables, pos)
+
+
+def make_paged_decode_step(cfg: ModelConfig, max_len: int,
+                           greedy: bool = True, fused: bool = False):
+    """paged_step(params, token, pos, pools, tables) -> (token' or logits,
+    pools).
+
+    The port of ``repro.serving.paged.make_paged_decode_step`` on one
+    device: gathers the block tables into a contiguous view, runs the
+    UNCHANGED ``lm_decode`` (the tail of ``make_serve_step``: the argmax,
+    or the logits for the caller to sample), and writes each sequence's
+    new KV row back into its block, in place. ``pos`` is (B,) int32 and
+    ``tables`` (B, blocks per sequence) int32, both on the pools' device.
+    """
+    def paged_step(params, token, pos, pools, tables):
+        with nn.fuse(fused):
+            caches = _gather_tree(pools, tables, max_len)
+            logits, caches = lm_decode(params, token, pos, caches, cfg)
+            _writeback_tree(pools, caches, tables, pos)
+        return _next_or_logits(logits, greedy), pools
+    return paged_step
 
 
 # ---------------------------------------------------------------------------
@@ -241,11 +287,18 @@ class PagedEngine(Engine):
     def _new_caches(self):
         return None             # the pools below take the contiguous cache's place
 
-    # -- the paged programs: gather view -> unchanged model -> write back --
-    def _gather(self, tables: torch.Tensor) -> List[dict]:
-        """The contiguous (B, max_len, ...) view of every layer's pools."""
-        return [{n: nn.paged_kv_gather(p, tables, self.max_len)
-                 for n, p in pool.items()} for pool in self._pools]
+    # -- the paged programs ------------------------------------------------
+    def _decode_step(self):
+        step = make_paged_decode_step(self.cfg, self.max_len,
+                                      greedy=self.greedy, fused=self.fused)
+        params, pools = self.params, self._pools
+        return lambda token, pos, tables: step(params, token, pos, pools,
+                                               tables)[0]
+
+    def _decode_inputs(self) -> List[np.ndarray]:
+        """Tokens, positions and the block tables, as they stand after
+        ``_ensure_block``: blocks allocated between replays are seen."""
+        return [self._cur.astype(np.int64), self._pos, self._tables]
 
     def _scatter(self, caches: List[dict], row: torch.Tensor, start: int,
                  width: int, lo: int, hi: int) -> None:
@@ -378,7 +431,7 @@ class PagedEngine(Engine):
         toks[0, :len(real)] = real
         t0 = self._timer()
         with nn.fuse(self.fused):
-            caches = self._gather(st["row"][None])
+            caches = _gather_tree(self._pools, st["row"][None], self.max_len)
             logits, caches = lm_extend(
                 self.params, torch.from_numpy(toks).to(self.device), start,
                 caches, self.cfg)
@@ -431,20 +484,7 @@ class PagedEngine(Engine):
             self._ensure_block(i)
 
         t0 = self._timer()
-        dev = self.device
-        tables = torch.from_numpy(self._tables).to(dev)
-        pos = torch.from_numpy(self._pos).to(dev)
-        with nn.fuse(self.fused):
-            caches = self._gather(tables)
-            logits, caches = lm_decode(
-                self.params, torch.from_numpy(self._cur.astype(np.int64)).to(dev),
-                pos, caches, self.cfg)
-            rows = torch.arange(self.max_batch, device=dev)
-            at = pos.long()
-            for pool, c in zip(self._pools, caches):
-                for n, p in pool.items():
-                    nn.paged_kv_write(p, c[n][rows, at][:, None], tables, pos)
-        nxt_host = self._sample(logits).cpu().numpy()
+        nxt_host = self._decode()
         self.stats.decode_s += self._timer() - t0
         self.stats.decode_steps += 1
 
@@ -464,4 +504,5 @@ class PagedEngine(Engine):
         return finished
 
 
-__all__ = ["BlockAllocator", "PagedEngine", "PrefixCache"]
+__all__ = ["BlockAllocator", "PagedEngine", "PrefixCache",
+           "make_paged_decode_step"]

@@ -95,6 +95,25 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
+def _code_without_docstrings(path: pathlib.Path) -> str:
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            del body[0]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["traffic/traces.py"])
+def test_verbatim_copy_pinned(module):
+    """A module the port copies whole (numpy only) keeps the original's
+    code; its docstrings may say where it came from."""
+    got = _code_without_docstrings(REPO / "src" / "repro_torch" / module)
+    assert got == _code_without_docstrings(REPO / "src" / "repro" / module)
+
+
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")

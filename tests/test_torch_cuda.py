@@ -7,6 +7,8 @@ On the card (where jax, which tests/conftest.py imports, may be absent):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -959,3 +961,186 @@ def test_reduced_vision_kernel_path_matches_plain_path(card, arch):
     for i in range(2):      # the kernel against the plain NMS, same boxes
         assert torch.equal(keep[i], ref.nms(boxes[i].float(), scores[i], 0.5,
                                             cfg.det_score_threshold))
+
+
+# -- the decode step as a CUDA graph ----------------------------------------
+
+def _graph_serve(cfg, params, prompts, paged, graph, new_tokens=8, **kw):
+    """(tokens in prompt order, launches, engine) of one run; max_batch 2
+    over 5 prompts, so slots are freed and refilled between replays, and
+    8-token blocks, so a sequence takes a new block mid-decode. A cache of
+    256 splits decode_core over it: the split kernel's counters are used
+    under the graph."""
+    E = PagedEngine if paged else Engine
+    extra = dict(block_size=8) if paged else {}
+    eng = E(cfg, params, max_batch=2, max_len=256, cuda_graph=graph, **extra,
+            **kw)
+    ops.reset_launches()
+    uids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    done = {r.uid: r.output for r in eng.run()}
+    torch.cuda.synchronize()
+    return [done[u] for u in uids], dict(ops.launches), eng
+
+
+def _graph_prompts(cfg):
+    rng = np.random.default_rng(4)
+    # 5 + 8 and 7 + 8 tokens cross the first 8-token block while decoding
+    return [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+            for n in (5, 7, 14, 3, 9)]
+
+
+def _counters_zero():
+    torch.cuda.synchronize()
+    return all(not b.any() for b in _build._COUNTERS.values())
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_graph_gives_the_eager_tokens_on_card(card, paged, fused,
+                                                     greedy):
+    """The graph replays the eager step's kernels: the same tokens (with
+    greedy=False the same draws from the same seed: sampling stays outside
+    the graph), the same launches, replays counted, and the kernels'
+    counters zero after the replays."""
+    cfg = reduced(get_config("stablelm-3b"))
+    params = init_lm(card, cfg)
+    prompts = _graph_prompts(cfg)
+    kw = dict(fused=fused, greedy=greedy, seed=3)
+    want, want_launches, eager = _graph_serve(cfg, params, prompts, paged,
+                                              False, **kw)
+    got, launches, eng = _graph_serve(cfg, params, prompts, paged, True, **kw)
+    assert eng.cuda_graph and not eager.cuda_graph
+    assert got == want
+    assert launches == want_launches
+    steps = eng.stats.decode_steps
+    assert steps == eager.stats.decode_steps > len(prompts)
+    assert launches["decode_core"] == cfg.n_layers * steps
+    assert _counters_zero()
+    if paged:
+        assert eng.allocator.free_blocks + len(eng.prefix_cache) == \
+            eng.allocator.num_blocks - 1
+
+
+def test_decode_graph_counts_each_replay_on_card(card):
+    """ops.launches after N more replays: N times the captured record."""
+    cfg = reduced(get_config("llama2-7b"))
+    params = init_lm(card, cfg)
+    eng = Engine(cfg, params, max_batch=2, max_len=256)
+    eng.add_request([5, 6, 7], max_new_tokens=3)
+    eng.run()                                   # warm-up, capture, replay
+    rec = {k: v for k, v in eng._run_step._launches.items() if v}
+    assert rec["decode_core"] == cfg.n_layers and rec["rms_norm"] > 0
+    ops.reset_launches()
+    eng.add_request([8, 9], max_new_tokens=6)   # prefill, then 5 replays
+    eng.run()
+    assert eng.stats.decode_steps == 2 + 5
+    assert ops.launches["decode_core"] == 5 * cfg.n_layers
+    assert ops.launches["attention_core"] == cfg.n_layers   # the prefill
+    # the eager prefill launches the norms a step does, 2 a layer + 1
+    assert rec["rms_norm"] == 2 * cfg.n_layers + 1
+    assert ops.launches["rms_norm"] == (1 + 5) * rec["rms_norm"]
+    assert _counters_zero()
+
+
+def test_no_counter_buffer_is_made_under_capture_on_card(card):
+    """The warm-up step makes the capture stream's counters; one first
+    asked for while a stream is captured raises."""
+    cfg = reduced(get_config("llama2-7b"))
+    params = init_lm(card, cfg)
+    eng = Engine(cfg, params, max_batch=4, max_len=256)
+    assert attn.decode_splits(4, cfg.n_kv_heads, 256, _build.sm_count(0)) > 1
+    eng.add_request(list(range(1, 40)), max_new_tokens=3)
+    eng.run()
+    stream = eng._run_step._stream.cuda_stream
+    assert (torch.device("cuda", 0), stream) in _build._COUNTERS
+    unseen = max(k[1] for k in _build._COUNTERS) + 1
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with pytest.raises(RuntimeError, match="captured"):
+        with torch.cuda.graph(graph, stream=side):
+            _build.counters(torch.device("cuda", 0), unseen, 8)
+    assert (torch.device("cuda", 0), unseen) not in _build._COUNTERS
+    assert _counters_zero()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_deleting_a_graph_engine_frees_its_memory_on_card(card, paged):
+    cfg = reduced(get_config("stablelm-3b"))
+    params = init_lm(card, cfg)
+    prompts = _graph_prompts(cfg)
+    _graph_serve(cfg, params, prompts, paged, True)  # the capture stream's state
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    _, _, eng = _graph_serve(cfg, params, prompts, paged, True)
+    held = torch.cuda.memory_allocated() - before
+    del eng
+    gc.collect()
+    assert held > 0
+    assert torch.cuda.memory_allocated() - before <= 1 << 20, held
+
+
+def test_decode_step_reads_nothing_on_the_host_on_card(card):
+    """One eager step of each engine's step under
+    set_sync_debug_mode("error"): nothing waits for the card."""
+    from repro_torch.models import init_lm_cache
+    from repro_torch.serving import make_paged_decode_step, make_serve_step
+    cfg = reduced(get_config("stablelm-3b"))
+    params = init_lm(card, cfg)
+    token = torch.tensor([3, 4], device="cuda")
+    pos = torch.tensor([5, 9], dtype=torch.int32, device="cuda")
+    caches = init_lm_cache(cfg, 2, 64, device="cuda")
+    pools = init_lm_cache(cfg, 17, 8, device="cuda")
+    tables = torch.arange(1, 17, dtype=torch.int32, device="cuda").reshape(2, 8)
+    steps = [lambda f: make_serve_step(cfg, fused=f)(params, token, pos, caches),
+             lambda f: make_paged_decode_step(cfg, 64, fused=f)(
+                 params, token, pos, pools, tables)]
+    for step in steps:
+        for fused in (False, True):
+            step(fused)                         # kernels built, counters made
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with nn.debug_bounds():
+                    step(fused)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_decode_graph_under_debug_bounds_on_card(card):
+    """The paged ops' device-side bound checks (torch._assert_async)
+    capture: the graph under debug_bounds gives the eager tokens. A replay
+    under other switches than the capture's raises."""
+    cfg = reduced(get_config("stablelm-3b"))
+    params = init_lm(card, cfg)
+    prompts = _graph_prompts(cfg)
+    with nn.debug_bounds():
+        want, _, _ = _graph_serve(cfg, params, prompts, True, False)
+        got, _, eng = _graph_serve(cfg, params, prompts, True, True)
+    assert got == want
+    eng.add_request(prompts[0], max_new_tokens=4)
+    with pytest.raises(RuntimeError, match="debug_bounds"):
+        eng.run()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_decode_graph_replays_the_eager_logits_bit_for_bit_on_card(card, fused):
+    """One step's logits: the graph's replay against its warm-up (the eager
+    step) on the same inputs and cache, bit for bit."""
+    from repro_torch.models import init_lm_cache
+    from repro_torch.serving import make_serve_step
+    from repro_torch.serving.cuda_graph import StepGraph
+    cfg = reduced(get_config("llama2-7b"))
+    params = init_lm(card, cfg)
+    caches = init_lm_cache(cfg, 4, 256, device="cuda")
+    for c in caches:
+        for t in c.values():
+            t.copy_(torch.randn(t.shape, generator=card, device="cuda"))
+    step = make_serve_step(cfg, greedy=False, fused=fused)
+    inputs = [np.array([3, 5, 7, 9], np.int64),
+              np.array([200, 17, 0, 255], np.int32)]
+    graph = StepGraph(lambda t, p: step(params, t, p, caches)[0], inputs,
+                      torch.device("cuda", 0))
+    eager = graph(*inputs).clone()
+    assert torch.equal(graph(*inputs), eager)
+    assert torch.equal(graph(*inputs), eager)
