@@ -7,8 +7,10 @@
 Phases, each printing JSON lines:
 
 1. device  - requires CUDA; prints the card's name and power limit (as
-             ``nvidia-smi --query-gpu=name,power.limit`` gives them) and
-             builds the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+             ``nvidia-smi --query-gpu=name,power.limit`` gives them),
+             builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+             and prints the ``h100`` spec the modeled views price on
+             (``core/hardware.H100``) beside the card's total memory and SMs;
 2. kernels - holds each of the fourteen kernels against its plain PyTorch
              version on the card, in bf16 and f32, at the main paths' shapes
              (llama2-7b; stablelm-3b's LayerNorm at 2560, SwiGLU at 6912,
@@ -94,9 +96,15 @@ Phases, each printing JSON lines:
              ``lm_forward`` (b1 s16, bf16): ``bf16`` / ``fused`` /
              ``int8-qdq`` / ``int8-qdq+fused`` (``nn.fake_quant("int8")``:
              both operands of every GEMM site round-trip through int8),
-             each a measured split with its QDQ share; the QDQ kernel path
-             against the QDQ plain path and QDQ fused against QDQ unfused,
-             under the anchored logit rule;
+             through the profiling API (``core/workload.py``: a
+             ``Workload`` a variant with ``QuantizeDequantTransform`` /
+             ``FusionTransform``): the ``wallclock`` backend, whose calls
+             give exact launches per forward, and the ``measured`` split
+             with its QDQ share; beside each, the ``eager-modeled:h100``
+             and ``eager-modeled:a100`` views of one capture, the measured
+             profile's drift against ``h100`` and the capture's fusion
+             report; the QDQ kernel path against the QDQ plain path and QDQ
+             fused against QDQ unfused, under the anchored logit rule;
    encode  - bert-base (b1 and b8, s128) and the vit-b16 embeddings stub
              (b1, s197) through ``lm_forward`` at full width and depth in
              bf16, unfused and fused: launches, the kernel path's logits
@@ -109,11 +117,13 @@ Phases, each printing JSON lines:
              NMS kernel against the plain NMS on the kernel path's own
              boxes, and a measured profile of each (batch 1) in which the
              detector must show RoI, Interpolation and Reduction time;
-             then vit-b16-cls at b1 under ``int8-qdq``, unfused and fused
+             then vit-b16-cls at b1 through phase ``qdq``'s 2x2
              (``conv2d``'s QDQ), checked and profiled the same way;
    micro   - the Table-2 NonGEMM micro-benchmark (``core/microbench``,
              f32): one line per operator, the fused dequant row through its
-             kernel;
+             kernel; then ``h100`` calibrated from these rows
+             (``core/calibrate.py``) and the ``calibrated:h100`` view of
+             every variant phase ``qdq`` kept, beside its drift;
    kernel_sites - the §4.5 kernel-site table (``bench/sections``): per
              site the eager chain's bytes against the kernel's, and the
              kernel against its plain version (the cross-entropy site
@@ -205,7 +215,6 @@ TRAFFIC_CHUNK = 64
 #: (``paged_frac``, as JAX's traffic section attributes it)
 PAGED_SITES = ("paged_kv_gather", "paged_kv_write", "paged_kv_scatter",
                "kv_cache_update")
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
               "float32": 67e12}      # outside the tensor cores
 # |kernel - plain| <= atol + rtol * |plain|: both compute in f32; bf16 output
@@ -288,6 +297,9 @@ QDQ_ARCHS = ("llama2-7b", "gpt2-xl")
 #: (label, fake-quant mode, fused)
 QDQ_VARIANTS = (("bf16", None, False), ("fused", None, True),
                 ("int8-qdq", "int8", False), ("int8-qdq+fused", "int8", True))
+#: the qdq phase's eager wall: the median of this many forwards after one
+#: warm-up (which warms cuBLAS), through the ``wallclock`` backend
+WALL_REPEATS = 5
 # softmax_xent's output is f32 whatever the logits' dtype, from the same
 # logits on both sides: JAX's sweep tolerance (tests/test_kernels.py)
 XENT_TOL = {"bfloat16": (1e-5, 1e-5), "float32": (1e-5, 1e-5)}
@@ -354,7 +366,9 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
 # ---------------------------------------------------------------------------
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    from repro_torch.core.hardware import H100
+
+    t_bytes = nbytes / H100.hbm_bw
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1530,8 +1544,8 @@ def traffic(torch, nn, ops, _build, init_lm, get_config, launched: dict):
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     token = torch.ones(b, dtype=torch.int64, device="cuda")
     step = make_paged_decode_step(cfg, max_len, greedy=True, fused=False)
-    prof, wall, per = measured(
-        torch, nn, ops, lambda: step(params, token, pos, pools, tables)[0], (),
+    _, prof, wall, per = measured(
+        ops, lambda: step(params, token, pos, pools, tables)[0], (),
         f"{TRAFFIC_ARCH} paged decode b{b} L{max_len}", False)
     paged_s = sum(t for (_, site), t in prof.op_seconds.items()
                   if site in PAGED_SITES)
@@ -1557,8 +1571,8 @@ def profile(torch, nn, ops, params, cfg, fused: bool, rng, seq: int = 16):
 
     ptoks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, seq))).cuda()
     name = f"{cfg.name} {'fused' if fused else 'unfused'} b-1 s-{seq} bf16"
-    prof, wall_ms, per = measured(torch, nn, ops, lm_forward,
-                                  (params, ptoks, cfg), name, fused)
+    _, prof, wall_ms, per = measured(ops, lm_forward, (params, ptoks, cfg),
+                                     name, fused)
     want = per_forward_launches(cfg, fused)
     if per != want:
         fail(f"profile: {name}: launched {per} per forward, expected {want}")
@@ -1596,13 +1610,15 @@ def check_anchored(phase, what, bad, got, vs, anchor, **info):
 
 
 def qdq(torch, nn, ops, fwd, args32, args, per_forward, name, launches,
-        paths_only: bool = False):
+        kept: list, paths_only: bool = False):
     """Phase ``qdq`` for one model: ``fwd(*args)`` (``args32``: the same
     with f32 activations) under ``nn.fake_quant("int8")`` on the kernel
     path against the plain path, fused against unfused, under the anchored
     logit rule; then (not with ``paths_only``) the measured 2x2 of
-    QDQ_VARIANTS. ``per_forward(fused)``: the kernel launches of one
-    forward, which QDQ does not change."""
+    QDQ_VARIANTS through the profiling API (:func:`qdq_2x2`), whose
+    (name, variant, profile, records) go to ``kept``.
+    ``per_forward(fused)``: the kernel launches of one forward, which QDQ
+    does not change."""
     out = {}
     with nn.fake_quant("int8"):
         for backend, fused in (("cuda", False), ("torch", False),
@@ -1630,16 +1646,80 @@ def qdq(torch, nn, ops, fwd, args32, args, per_forward, name, launches,
         fail(f"qdq: {name} logits past their limits: " + "; ".join(bad))
     if paths_only:
         return
+    kept += [(name, *k) for k in qdq_2x2(ops, fwd, args, per_forward, name)]
+
+
+def qdq_2x2(ops, fwd, args, per_forward, name) -> list:
+    """The measured 2x2 of QDQ_VARIANTS through the profiling API
+    (:func:`measured`: one ``Workload`` a variant over ``fwd(*args)`` on
+    the card), then one capture of each variant priced on ``h100`` and
+    ``a100`` (``model_records``, the ``eager-modeled`` view), the drift of
+    the measured profile against each, and the fusion report of the
+    capture. Returns [(variant, measured profile, the records the modeled
+    views priced)] for the calibrated view after phase ``micro``."""
+    from repro_torch.core import GPU_A100, H100, capture, fuse_records, model_records
+
+    kept = []
     for label, mode, fused in QDQ_VARIANTS:
-        with nn.fake_quant(mode):
-            prof, wall, per = measured(torch, nn, ops, fwd, args,
-                                       f"{name} {label}", fused)
-        if per != per_forward(fused):
-            fail(f"qdq: {name} {label} launched {per} per forward")
+        w, prof, wall, per = measured(ops, fwd, args, f"{name} {label}", fused,
+                                      mode)
+        if w.variant != label or per != per_forward(fused):
+            fail(f"qdq: {name} {w.variant} launched {per} per forward, "
+                 f"expected {per_forward(fused)}")
         share = qdq_share(prof)
         emit_profile("qdq", prof, wall, per, variant=label, **share)
         if (share["qdq_ms"] > 0) != (mode is not None):
             fail(f"qdq: {name} {label}: QDQ time {share['qdq_ms']} ms")
+        fn, fargs = w.build()
+        raw = capture(fn, *fargs)
+        records = raw
+        for t in w.transforms:
+            records = t.rewrite_records(records, w)
+        for hw in (H100, GPU_A100):
+            emit_modeled(f"eager-modeled:{hw.name}",
+                         model_records(records, w.name, hw), prof, variant=label)
+        report = fuse_records(raw)[1]
+        emit(phase="qdq", model=w.name, variant=label,
+             fusion_report=report.to_dict(), records_fused=report.records_fused)
+        kept.append((label, prof, records))
+    return kept
+
+
+def calibrated(kept, rows) -> None:
+    """The ``calibrated:h100`` view of phase ``qdq``: ``h100`` fitted once
+    from the Table-2 ``rows`` phase ``micro`` has just measured
+    (``calibrate_from_microbench(rows=...)``, JAX's default ops), applied
+    to the records each measured variant kept, beside its drift."""
+    from repro_torch.core import H100, calibrate_from_microbench, model_records
+
+    cal = calibrate_from_microbench(H100, rows=rows)
+    emit(phase="qdq", calibration=cal.to_dict())
+    for name, label, prof, records in kept:
+        emit_modeled("calibrated:h100",
+                     model_records(records, prof.name, cal,
+                                   mode=f"calibrated_{H100.name}"),
+                     prof, variant=label)
+
+
+def emit_modeled(view, modeled, measured, **info):
+    """One JSON line of a modeled profile of the records a measured one
+    ran: its split and per-group ms, and the measured profile's drift
+    against it (measured / modeled per group, the worst in doublings)."""
+    from repro_torch.core import drift_by_group, max_abs_log2_drift
+
+    split = modeled.split
+    drift = drift_by_group(measured.group_seconds, modeled.group_seconds)
+    emit(phase="qdq", model=modeled.name, view=view, mode=modeled.mode,
+         n_ops=modeled.n_ops, modeled_ms=round(modeled.total_seconds * 1e3, 4),
+         measured_ms=round(measured.total_seconds * 1e3, 4),
+         gemm_frac=round(split["gemm_frac"], 4),
+         nongemm_frac=round(split["nongemm_frac"], 4),
+         group_ms={g: round(t * 1e3, 4) for g, t in
+                   sorted(modeled.group_seconds.items(), key=lambda kv: -kv[1])},
+         drift_by_group={g: round(r, 4) for g, r in drift.items()},
+         max_abs_log2_drift=round(max_abs_log2_drift(drift), 4), **info)
+    if not (modeled.total_seconds > 0 and drift):
+        fail(f"qdq: {modeled.name} {view}: nothing modeled")
 
 
 def emit_profile(phase, prof, wall_ms, per_forward, **info):
@@ -1667,24 +1747,28 @@ def emit_profile(phase, prof, wall_ms, per_forward, **info):
         fail(f"{phase}: {prof.name}: no device time measured")
 
 
-def measured(torch, nn, ops, fn, args, name, fused, n_warm=6):
-    """(profile, median eager wall ms, launches per call) of ``fn(*args)``
-    on the kernel path: ``n_warm`` timed calls on the host clock (the first,
-    which warms cuBLAS, left out of the median), then the per-op profile."""
-    from repro_torch.core import profile_measured
+def measured(ops, fn, args, name, fused, mode=None):
+    """(workload, measured profile, median eager wall ms, launches per call)
+    of ``fn(*args)`` on the kernel path, through the profiling API: a
+    ``Workload`` over the call, with ``QuantizeDequantTransform(mode)``
+    where ``mode`` is set and ``FusionTransform`` where ``fused``; its
+    ``wallclock`` backend (one warm-up call, which warms cuBLAS, then the
+    median of WALL_REPEATS; their launches give the launches per call),
+    then its ``measured`` backend."""
+    from repro_torch.core import (FusionTransform, QuantizeDequantTransform,
+                                  Workload)
 
-    walls = []
+    w = Workload(name=name, arch=name.split()[0], dtype="bfloat16",
+                 builder=lambda w, device: ((lambda _: fn(*args)), (), None))
+    w = w.with_transform(*([QuantizeDequantTransform(mode)] if mode else []),
+                         *([FusionTransform()] if fused else []))
     ops.reset_launches()
-    with nn.fuse(fused):
-        for _ in range(n_warm):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(*args)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        per = {k: v // n_warm for k, v in ops.launches.items() if v}
-        prof = profile_measured(fn, *args, name=name, repeats=3)
-    return prof, statistics.median(walls[1:]) * 1e3, per
+    wall = w.profile("wallclock", repeats=WALL_REPEATS)
+    calls = WALL_REPEATS + 1
+    if any(v % calls for v in ops.launches.values()):
+        fail(f"{name}: {dict(ops.launches)} launches in {calls} calls")
+    per = {k: v // calls for k, v in ops.launches.items() if v}
+    return w, w.profile("measured"), wall.total_seconds * 1e3, per
 
 
 def _max_diff(a, b) -> float:
@@ -1766,8 +1850,8 @@ def encode(torch, nn, ops, init_lm, lm_forward, arch, cases, launches,
     x = inputs(b, s)
     for fused in (False, True):
         name = f"{arch} {'fused' if fused else 'unfused'} b-{b} s-{s} bf16"
-        prof, wall, per = measured(torch, nn, ops, lm_forward,
-                                   (params, x, cfg), name, fused)
+        _, prof, wall, per = measured(ops, lm_forward, (params, x, cfg),
+                                      name, fused)
         if per != encoder_launches(cfg, fused):
             fail(f"encode: {name}: launched {per} per forward")
         emit_profile("encode", prof, wall, per)
@@ -1900,8 +1984,8 @@ def vision(torch, nn, ops, arch, launches, paths_only: bool = False):
 
     for fused in () if paths_only else (False, True):
         name = f"{arch} {'fused' if fused else 'unfused'} b-1 {size}px bf16"
-        prof, wall, per = measured(torch, nn, ops, vision_forward,
-                                   (params, imgs[:1], cfg), name, fused)
+        _, prof, wall, per = measured(ops, vision_forward,
+                                      (params, imgs[:1], cfg), name, fused)
         if per != per_forward(fused, 1):
             fail(f"vision: {name}: launched {per} per forward")
         g = prof.group_seconds
@@ -1916,7 +2000,8 @@ def vision(torch, nn, ops, arch, launches, paths_only: bool = False):
     return nms_inputs
 
 
-def qdq_vision(torch, nn, ops, launches, paths_only: bool = False):
+def qdq_vision(torch, nn, ops, launches, kept: list,
+               paths_only: bool = False):
     """Phase ``qdq`` for vit-b16-cls at b1 (224 px): the patch ``conv2d``
     and every ``linear`` under ``nn.fake_quant("int8")``, as for the
     served models."""
@@ -1932,7 +2017,7 @@ def qdq_vision(torch, nn, ops, launches, paths_only: bool = False):
     qdq(torch, nn, ops, vision_forward,
         (params, imgs, cfg.replace(dtype="float32")), (params, imgs, cfg),
         lambda fused: encoder_launches(cfg, fused),
-        f"vit-b16-cls b-1 {cfg.image_size}px bf16", launches, paths_only)
+        f"vit-b16-cls b-1 {cfg.image_size}px bf16", launches, kept, paths_only)
 
 
 # ---------------------------------------------------------------------------
@@ -1957,6 +2042,7 @@ def main(argv=None) -> int:
     from repro_torch import nn
     from repro_torch.configs import get_config
     from repro_torch.core import graph
+    from repro_torch.core.hardware import H100
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models import init_lm, lm_forward
     from repro_torch.serving import Engine, PagedEngine
@@ -1973,10 +2059,15 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     logs = _build.build()
+    props = torch.cuda.get_device_properties(0)
     emit(phase="device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          built=sorted(logs), build_s=round(time.perf_counter() - t0, 3))
+    # the spec the modeled views price on, beside what the card reports
+    emit(phase="device", spec=dataclasses.asdict(H100), card=dict(
+        nvidia_smi=smi, total_memory=props.total_memory,
+        sms=props.multi_processor_count))
 
     # -- phase 2: kernels --------------------------------------------------
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -1985,6 +2076,7 @@ def main(argv=None) -> int:
 
     # -- phases 3 and 4, one model at a time -------------------------------
     launches = dict.fromkeys(SOURCES, 0)
+    qdq_kept = []           # (model, variant, measured profile, records)
     nms_inputs = None
     decode_lengths = {}
     for arch in ARCHS:
@@ -2071,7 +2163,7 @@ def main(argv=None) -> int:
                 (params, toks, cfg.replace(dtype="float32")),
                 (params, toks, cfg),
                 lambda fused, c=cfg: per_forward_launches(c, fused),
-                f"{arch} b-1 s-16 bf16", launches, args.paths_only)
+                f"{arch} b-1 s-16 bf16", launches, qdq_kept, args.paths_only)
         # the last step of the 4 slots serving the first 4 requests, cut off
         # at their 16th token
         decode_lengths[arch] = [n + NEW_TOKENS - 1 for n in plens[:4]]
@@ -2096,7 +2188,7 @@ def main(argv=None) -> int:
     for arch in VISION:
         nms_inputs = vision(torch, nn, ops, arch, launches,
                             args.paths_only) or nms_inputs
-    qdq_vision(torch, nn, ops, launches, args.paths_only)
+    qdq_vision(torch, nn, ops, launches, qdq_kept, args.paths_only)
     if args.paths_only:
         return 0
 
@@ -2110,6 +2202,7 @@ def main(argv=None) -> int:
             fail(f"micro: {r.name}: no device time measured ({r})")
     for k, n in ops.launches.items():
         launches[k] += n
+    calibrated(qdq_kept, rows)
 
     # -- phase kernel_sites: the §4.5 table -----------------------------------
     from repro_torch.bench.sections import section_kernels

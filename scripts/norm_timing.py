@@ -32,12 +32,24 @@ import subprocess
 import sys
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS = 67e12                  # outside the tensor cores
 
 
+@functools.lru_cache(maxsize=None)
+def _h100():
+    """This tree's ``core/hardware.H100``, loaded from its file: ``--src``
+    may put a tree without it first on the path, and the package import
+    would pull in that tree's kernels."""
+    path = Path(__file__).resolve().parents[1] / "src/repro_torch/core/hardware.py"
+    spec = importlib.util.spec_from_file_location("_norm_timing_hardware", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod.H100
+
+
 def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_bytes, t_ops = nbytes / _h100().hbm_bw, flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 

@@ -10,11 +10,8 @@ flushed, median of 20), the kernel, the plain version, the bound of the
 bytes, ``F.cross_entropy(logits, labels, reduction="none")`` (the same
 function; on bf16 logits it returns bf16) and ``torch.amax(logits, -1)``
 (a yardstick that reads the same bytes once, not the same function), and
-the launch plan (``softmax_xent.xent_plan``, where the tree has one). The
-timer's flush leaves the L2 full of dirty lines, which a kernel reading
-less than the L2 writes back as it reads; ``clean_ms`` times the kernel
-after a flush followed by a read, which leaves the lines clean. An empty
-kernel on the same timer gives the launch floor. ``chip_smoke.py`` phase
+the launch plan (``softmax_xent.xent_plan``, where the tree has one). An
+empty kernel on the same timer gives the launch floor. ``chip_smoke.py`` phase
 5 prints these rows through :func:`time_xent`.
 
     python3 scripts/xent_timing.py                        # this tree
@@ -86,15 +83,13 @@ def nbytes(x, lab) -> int:
         + 4 * x.shape[0]
 
 
-def time_xent(torch, ops, ref, entry, gen, xent=None, floor=True,
-              clean=None) -> dict:
+def time_xent(torch, ops, ref, entry, gen, xent=None, floor=True) -> dict:
     """{key: entry(...)} for every shape of SHAPES; ``entry(shape, kernel,
     plain, library, nbytes, flops)`` times one (chip_smoke.py's, or
     :func:`main`'s). ``library`` is ``F.cross_entropy`` per row;
     ``amax_ms`` is ``torch.amax(logits, -1)`` on the same timer. ``xent``:
     the tree's ``kernels.softmax_xent`` (each row then names its plan);
-    ``floor``: add the empty kernel; ``clean``: a timer whose flush leaves
-    the L2 clean (each row then has ``clean_ms``)."""
+    ``floor``: add the empty kernel."""
     import torch.nn.functional as F
 
     out = {}
@@ -110,8 +105,6 @@ def time_xent(torch, ops, ref, entry, gen, xent=None, floor=True,
         out[key]["amax_ms"] = entry("torch.amax of the same logits",
                                     lambda: torch.amax(x, -1), None, None, 0,
                                     0)["ms"]
-        if clean is not None:
-            out[key]["clean_ms"] = clean(lambda: ops.softmax_xent(x, lab))
         if xent is not None and hasattr(xent, "xent_plan"):
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             out[key]["plan"] = xent.xent_plan(*shape, x.dtype, sms)._asdict()
@@ -122,24 +115,6 @@ def time_xent(torch, ops, ref, entry, gen, xent=None, floor=True,
         out["empty kernel"] = entry("<<<1, 32>>> of an empty kernel (launch floor)",
                                     lambda: norms.empty_kernel(dev), None, None, 0, 0)
     return out
-
-
-def clean_timer(torch, graph):
-    """A ``graph.Timer`` whose flush, after zeroing its 128 MB, reads them:
-    the L2 then holds clean lines of the flush buffer, and a timed kernel
-    writes nothing back as it reads."""
-    class Clean(graph.Timer):
-        def __call__(self, fn) -> float:
-            import statistics
-            for _ in range(self.warmup):
-                fn()
-            ts = []
-            for _ in range(self.iters):
-                self.flush.zero_()
-                self.flush.sum(dtype=torch.int64)
-                ts.append(graph.time_once(fn, (), {}, self.floor)[1])
-            return statistics.median(ts) * 1e3
-    return Clean()
 
 
 def candidates(xent, rows: int, vocab: int, dtype, sms: int) -> dict:
@@ -291,8 +266,7 @@ def main(argv=None) -> int:
                     bound=nt.bound_ms(nb, flops))
 
     gen = torch.Generator("cuda").manual_seed(SEED)
-    for key, tm in time_xent(torch, ops, ref, entry, gen, xent,
-                             clean=clean_timer(torch, graph)).items():
+    for key, tm in time_xent(torch, ops, ref, entry, gen, xent).items():
         b_ms, b_by = tm.pop("bound")
         print(json.dumps({"label": args.label, "kernel": key, "card": smi, **tm,
                           "bound_ms": b_ms, "bound_by": b_by}), flush=True)

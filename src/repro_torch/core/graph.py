@@ -16,6 +16,13 @@ overhead is not counted (an eager run pays it on top; compare the
 function's un-instrumented wall time). An op that mutates an input (an
 in-place cache write) runs once only: running it again would change the
 state the rest of the function reads.
+
+Each record carries the dataflow identities the fusion pass reads
+(``core/fusion.py``): a serial per live tensor, given the first time the
+capture sees the tensor and anew to every output, as a jaxpr gives every
+equation new output vars. The serials sit in a weak dictionary keyed by
+tensor identity, so a freed tensor's reused ``id()`` never inherits a
+serial and fakes an edge. PyTorch runs eagerly: ``trip_count`` is 1.
 """
 
 from __future__ import annotations
@@ -24,13 +31,29 @@ import dataclasses
 import math
 import statistics
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .taxonomy import OpGroup, classify
+
+_DTYPE_BYTES = {
+    "float32": 4, "float64": 8, "float16": 2, "bfloat16": 2,
+    "int64": 8, "int32": 4, "int16": 2, "int8": 1,
+    "uint64": 8, "uint32": 4, "uint16": 2, "uint8": 1,
+    "bool": 1, "complex64": 8, "complex128": 16,
+    "float8_e4m3fn": 1, "float8_e5m2": 1, "float8_e4m3fnuz": 1,
+    "float8_e5m2fnuz": 1,
+}
+
+
+def dtype_bytes(dtype) -> int:
+    """Bytes an element of ``dtype`` takes: a ``torch.dtype`` or its string
+    (``"torch.bfloat16"``, or JAX's ``"bfloat16"``); 4 when unknown."""
+    return _DTYPE_BYTES.get(str(dtype).removeprefix("torch."), 4)
 
 
 @dataclasses.dataclass
@@ -48,6 +71,12 @@ class OpRecord:
     out_dtypes: tuple
     flops: float            # analytic estimate from the shapes
     bytes_accessed: float   # tensor inputs + outputs
+    trip_count: int = 1     # always 1: PyTorch runs eagerly, no loop bodies
+    params: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: tensor serials (see the module docstring), only meaningful within
+    #: one captured stream: the fusion pass's producer -> consumer check
+    in_var_ids: tuple = dataclasses.field(default=(), repr=False)
+    out_var_ids: tuple = dataclasses.field(default=(), repr=False)
     device: str = "cpu"     # device type the op ran on
 
     @property
@@ -99,7 +128,9 @@ def estimate_flops(prim: str, group: OpGroup, in_shapes, out_shapes) -> float:
     return 0.0
 
 
-def _record(index: int, func, scope: str, args, kwargs, out) -> OpRecord:
+def _record(index: int, func, scope: str, args, kwargs, out,
+            serial) -> OpRecord:
+    """``serial(t, fresh)``: the tensor's serial, a new one if ``fresh``."""
     prim = str(func.overloadpacket)
     ins, outs = _tensors((args, kwargs)), _tensors(out)
     in_shapes = tuple(tuple(t.shape) for t in ins)
@@ -112,6 +143,8 @@ def _record(index: int, func, scope: str, args, kwargs, out) -> OpRecord:
         out_shapes=out_shapes, out_dtypes=tuple(str(t.dtype) for t in outs),
         flops=estimate_flops(prim, group, in_shapes, out_shapes),
         bytes_accessed=float(nbytes),
+        in_var_ids=tuple(serial(t, False) for t in ins),
+        out_var_ids=tuple(serial(t, True) for t in outs),
         device=(ins + outs)[0].device.type if ins + outs else "cpu")
 
 
@@ -164,7 +197,10 @@ class Timer:
     run timed by :func:`time_once` as the per-op profile times an op
     (device time only, the empty event pair subtracted), with the L2 cache
     flushed before each run: a main path finds its operands cold, with GBs
-    of weights passing between two launches of one layer's kernel.
+    of weights passing between two launches of one layer's kernel. The
+    flush zeroes 128 MB and then reads them, so the L2 holds clean lines:
+    zeroing alone would leave ~50 MB dirty, and a timed kernel would pay
+    their write-back as it reads.
 
     :meth:`eager` is the other view: host clock over back-to-back calls,
     synchronised once — what a call costs an eager loop, host dispatch
@@ -181,6 +217,7 @@ class Timer:
         ts = []
         for _ in range(self.iters):
             self.flush.zero_()
+            self.flush.sum(dtype=torch.int64)
             ts.append(time_once(fn, (), {}, self.floor)[1])
         return statistics.median(ts) * 1e3
 
@@ -203,6 +240,14 @@ class _OpMode(TorchDispatchMode):
         self.records: List[OpRecord] = []
         self.timed: List[TimedOp] = []
         self._floor: Optional[float] = None     # measured at the first card op
+        self._serials = WeakIdKeyDictionary()
+        self._next_serial = 0
+
+    def _serial(self, t: torch.Tensor, fresh: bool) -> int:
+        if fresh or t not in self._serials:
+            self._serials[t] = self._next_serial
+            self._next_serial += 1
+        return self._serials[t]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from repro_torch import nn
@@ -221,7 +266,8 @@ class _OpMode(TorchDispatchMode):
             if not func._schema.is_mutable:
                 for _ in range(self.repeats):
                     best = min(best, time_once(func, args, kwargs, floor)[1])
-        rec = _record(len(self.records), func, scope, args, kwargs, out)
+        rec = _record(len(self.records), func, scope, args, kwargs, out,
+                      self._serial)
         self.records.append(rec)
         if self.repeats is not None:
             self.timed.append(TimedOp(rec, best))
@@ -244,3 +290,19 @@ def timed_run(fn: Callable, *args, repeats: int = 3, **kwargs):
     with _OpMode(repeats=repeats) as mode:
         out = fn(*args, **kwargs)
     return out, mode.timed
+
+
+def harvest_shapes(records: Iterable[OpRecord]) -> dict:
+    """Paper Table 2: realistic input shapes per NonGEMM op site.
+
+    Returns ``{(group, op_site): [in_shapes, ...]}`` with duplicates removed,
+    harvested from a real capture — the paper's "input argument
+    specification extracted from real data".
+    """
+    out: dict = {}
+    for r in records:
+        key = (r.group.value, r.op_site)
+        shapes = out.setdefault(key, [])
+        if r.in_shapes not in shapes:
+            shapes.append(r.in_shapes)
+    return out

@@ -16,10 +16,11 @@ Per op:
 * ``eager_us`` — the sum of the per-op times of one call, each op
   dispatched and synchronised alone (``core.graph.timed_run``): device
   times on the card, host times on the CPU.
-* ``bound_us`` — ``bytes_touched`` over 3.35 TB/s, the H100 SXM data
-  sheet's memory rate: the least time an H100 could take to move the
-  call's inputs and outputs once, whatever device ran it. It takes the
-  place of JAX's ``tpu_model_us`` (a TPU v5e model, not carried over).
+* ``bound_us`` — ``bytes_touched`` over ``hardware.H100.hbm_bw`` (3.35
+  TB/s, the H100 SXM data sheet's memory rate): the least time an H100
+  could take to move the call's inputs and outputs once, whatever device
+  ran it. It takes the place of JAX's ``tpu_model_us`` (a TPU v5e model,
+  not carried over).
 """
 
 from __future__ import annotations
@@ -36,10 +37,8 @@ from repro_torch import nn
 from repro_torch.kernels import ops
 
 from .graph import Timer, _tensors, timed_run
+from .hardware import H100
 from .taxonomy import OpGroup
-
-#: H100 SXM memory rate (NVIDIA data sheet), bytes/s
-H100_HBM_BYTES_PER_S = 3.35e12
 
 
 @dataclasses.dataclass
@@ -375,7 +374,7 @@ def run_micro(name: str, shape: Optional[tuple] = None,
     return MicroResult(name=name, group=op.group.value, shape=shape,
                        dtype=dtype, device=dev.type, device_us=device_us,
                        eager_us=eager_us,
-                       bound_us=1e6 * nbytes / H100_HBM_BYTES_PER_S,
+                       bound_us=1e6 * nbytes / H100.hbm_bw,
                        bytes_touched=nbytes)
 
 

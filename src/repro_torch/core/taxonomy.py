@@ -158,3 +158,11 @@ def classify(op_name: str, scope_path: str = "") -> Tuple[OpGroup, str]:
     if tagged is not None:
         return tagged
     return classify_op(op_name), op_name
+
+
+def is_gemm(group: OpGroup) -> bool:
+    return group == OpGroup.GEMM
+
+
+def is_nongemm(group: OpGroup) -> bool:
+    return group in NONGEMM_GROUPS

@@ -233,3 +233,202 @@ def test_untagged_qdq_chain_has_an_aten_group(fn):
     for prim in ("abs", "amax", "max", "div", "round", "clamp", "_to_copy",
                  "new_full", "mul"):
         assert ttax.classify(f"aten.{prim}")[0] is not ttax.OpGroup.OTHER
+
+
+# ---------------------------------------------------------------------------
+# the profiling API's copies (core/hardware, fusion, calibrate, report, and
+# the bench gates the renderers read)
+# ---------------------------------------------------------------------------
+
+def test_the_five_jax_specs_copied_field_for_field():
+    from repro.core import hardware as jhw
+
+    from repro_torch.core import hardware as thw
+    assert set(thw.BY_NAME) == set(jhw.BY_NAME) | {"h100"}
+    assert [f.name for f in dataclasses.fields(thw.HardwareSpec)] == \
+        [f.name for f in dataclasses.fields(jhw.HardwareSpec)]
+    assert thw.ANY_GROUP == jhw.ANY_GROUP
+    for name, spec in jhw.BY_NAME.items():
+        assert dataclasses.asdict(thw.BY_NAME[name]) == \
+            dataclasses.asdict(spec)
+
+
+def test_fusion_patterns_copied():
+    from repro.core import fusion as jfusion
+
+    from repro_torch.core import fusion as tfusion
+    from repro_torch.kernels import ops
+    got = [(p.name, [(g.value, s) for g, s in p.sites], p.min_records)
+           for p in tfusion.FUSION_PATTERNS]
+    want = [(p.name, [(g.value, s) for g, s in p.sites], p.min_records)
+            for p in jfusion.FUSION_PATTERNS]
+    assert got == want
+    renamed = {"attn_template:decode": "decode_core", "fused_rope": "rope"}
+    for p, jp in zip(tfusion.FUSION_PATTERNS, jfusion.FUSION_PATTERNS):
+        assert p.kernel == renamed.get(jp.kernel, jp.kernel)
+        assert p.kernel is None or p.kernel in ops.KERNELS
+
+
+@pytest.mark.parametrize("module,jmodule,names", [
+    ("bench/schema.py", "bench/schema.py",
+     ("_is_num", "check_fusion_invariant", "check_vision_invariant",
+      "check_platforms_invariant")),
+    ("core/calibrate.py", "core/calibrate.py",
+     ("fit_factors", "calibrate", "save_calibration", "load_calibration",
+      "drift_by_group", "max_abs_log2_drift")),
+    ("core/fusion.py", "core/fusion.py",
+     ("_out_bytes", "_in_bytes", "scope_prefix", "_site_runs",
+      "_dataflow_connects", "_match", "find_fusable_chains",
+      "fused_bytes_model", "_fused_record", "fuse_records", "fusion_report")),
+    ("core/profiler.py", "core/profiler.py",
+     ("model_records", "_accelerated_eager_profile")),
+    ("core/roofline.py", "core/roofline.py",
+     ("gemm_nongemm_split", "train_model_flops", "decode_model_flops",
+      "attention_flops")),
+])
+def test_pure_functions_copied(module, jmodule, names):
+    """Each function's code equals the original's but its docstring."""
+    def strip(path):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                    and isinstance(body[0].value, ast.Constant) \
+                    and isinstance(body[0].value.value, str):
+                del body[0]
+        return {n.name: ast.dump(n) for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name in names}
+    got = strip(REPO / "src" / "repro_torch" / module)
+    want = strip(REPO / "src" / "repro" / jmodule)
+    assert set(got) == set(names) == set(want)
+    for name in names:
+        assert got[name] == want[name], name
+
+
+def test_schema_gate_constants_copied():
+    from repro.bench import schema as jschema
+
+    from repro_torch.bench import schema as tschema
+    for name in ("FUSION_VARIANT_PAIRS", "FUSION_RESIDUAL_FLOOR",
+                 "PLATFORM_SWEEP", "PLATFORM_GEMM_MARGIN", "PLATFORM_NPU"):
+        assert getattr(tschema, name) == getattr(jschema, name)
+
+
+def _profiles(pkg):
+    """Three ModelProfiles of the same numbers in package ``pkg``."""
+    groups = [{"gemm": 2e-3, "normalization": 4e-4, "activation": 3e-4,
+               "memory": 1e-4},
+              {"gemm": 1e-3, "quantization": 9e-4, "fused": 2e-4,
+               "control": 1e-5},
+              {"gemm": 5e-4, "roi": 4e-4, "interpolation": 3e-4,
+               "reduction": 2e-4}]
+    return [pkg.ModelProfile(name=f"case{i}", mode=m,
+                             group_seconds=dict(g),
+                             total_seconds=sum(g.values()),
+                             op_seconds={(k, k): v for k, v in g.items()},
+                             n_ops=7 + i)
+            for i, (g, m) in enumerate(zip(groups, ("eager_cpu", "eager_a100",
+                                                    "accelerated_tpu_v5e")))]
+
+
+def _rows():
+    share = dict(total_s=1.5e-3, gemm_frac=0.6, nongemm_frac=0.35,
+                 group_fracs={"gemm": 0.6, "reduction": 0.05, "memory": 0.1})
+    breakdown = [dict(case="a", mode=m, **share) for m in
+                 ("eager_cpu", "eager_a100", "accelerated_tpu")]
+    top = [dict(r, top_group="memory", top_pct=12.5) for r in breakdown]
+    micro = [dict(operator="rms_norm", group="normalization",
+                  shape=[1, 8, 64], jit_us=3.25, eager_us=9.5,
+                  tpu_model_us=0.12)]
+    kernels = [dict(site="rms_norm", eager_mb=12.0, xla_mb=8.0, pallas_mb=4.0,
+                    eager_over_pallas=3.0, xla_over_pallas=2.0, allclose=True)]
+    roofline = [dict(mesh="16x16", label="baseline", model="kernels",
+                     arch="llama", shape="s2k", compute_s=0.5, memory_s=0.25,
+                     collective_s=0.125, dominant="compute",
+                     useful_ratio=0.9, mfu=0.4),
+                dict(mesh="16x16", label="baseline", model="xla_only",
+                     arch="gpt", shape="s2k", status="skipped", skipped="oom"),
+                dict(mesh="16x16", label="baseline", model="xla_only",
+                     arch="gpt", shape="s4k", status="error")]
+    quantized = [dict(case="a", mode="eager_a100", variant=v, qdq_frac=q,
+                      **dict(share, nongemm_frac=n))
+                 for v, q, n in (("fp32", 0.0, 0.3), ("int8-qdq", 0.2, 0.5))]
+    fusion = [dict(case="a", mode="eager_a100", variant=v, fused_frac=f,
+                   n_ops=n, **dict(share, nongemm_frac=s, total_s=t))
+              for v, f, n, s, t in (("fp32", 0.0, 90, 0.4, 2e-3),
+                                    ("fused", 0.1, 40, 0.2, 1e-3),
+                                    ("int8-qdq", 0.0, 120, 0.6, 3e-3),
+                                    ("int8-qdq+fused", 0.3, 70, 0.7, 2e-3))]
+    vision = [dict(case="det", mode="eager_a100", kind="detection", variant=v,
+                   roi_frac=0.1, interp_frac=0.05, **dict(share, total_s=t))
+              for v, t in (("fp32", 2e-3), ("fused", 1e-3))]
+    platforms = [dict(case="m", platform=p, kind="modeled", total_s=1e-3,
+                      gemm_s=g, gemm_frac=0.5, nongemm_frac=s)
+                 for p, g, s in (("cpu", 4e-2, 0.1), ("membound_dimm", 1.2e-2, 0.2),
+                                 ("tpu_v5e", 6e-3, 0.3), ("a100", 2.4e-3, 0.35),
+                                 ("npu_ryzen", 1.2e-3, 0.6))]
+    platforms += [dict(case="m", platform="cpu", kind=k, total_s=1e-3,
+                       gemm_s=1e-3, gemm_frac=0.5, nongemm_frac=0.5,
+                       drift={"gemm": 1.5}, max_abs_log2_drift=0.58)
+                  for k in ("measured", "calibrated")]
+    serving = [dict(case="s", phase="engine", requests=4,
+                    decode_tok_per_s=120.5, mean_ttft_s=0.05,
+                    mean_queue_wait_s=0.01, mean_decode_tok_latency_s=0.008),
+               dict(case="s", phase="decode", mode="eager_a100", **share)]
+    sharded = [dict(case="s", tp=2, devices=2, decode_tok_per_s=90.0,
+                    per_device_tok_per_s=45.0, modeled_step_s=1.2e-5,
+                    modeled_eff=0.8, collective_frac=0.1, parity_ok=True)]
+    return dict(breakdown=breakdown, opgroups=breakdown, top_table=top,
+                micro=micro, micro_harvested=micro, kernels=kernels,
+                roofline=roofline, serving=serving, serving_sharded=sharded,
+                quantized=quantized, fusion=fusion, vision=vision,
+                platforms=platforms)
+
+
+def test_report_renderers_copied():
+    """Every renderer gives JAX's text on the same profiles and rows."""
+    from repro.core import profiler as jprofiler
+    from repro.core import report as jreport
+
+    from repro_torch.core import profiler as tprofiler
+    from repro_torch.core import report as treport
+    assert [g.value for g in treport.GROUP_ORDER] == \
+        [g.value for g in jreport.GROUP_ORDER]
+    tp, jp = _profiles(tprofiler), _profiles(jprofiler)
+    for fn in ("breakdown_table", "group_table", "top_group_table",
+               "breakdown_csv"):
+        assert getattr(treport, fn)(tp) == getattr(jreport, fn)(jp), fn
+    assert [treport.profile_row(p) for p in tp] == \
+        [jreport.profile_row(p) for p in jp]
+    assert treport.shift_summary(tp[:1], tp[1:]) == \
+        jreport.shift_summary(jp[:1], jp[1:])
+    assert set(treport.SECTION_RENDERERS) == set(jreport.SECTION_RENDERERS)
+    rows = _rows()
+    for name, renderer in treport.SECTION_RENDERERS.items():
+        got = renderer(rows[name])
+        assert got == jreport.SECTION_RENDERERS[name](rows[name]), name
+        section = dict(name=name, title=name, status="ok", rows=rows[name],
+                       wall_s=1.0)
+        assert treport.render_section(section) == \
+            jreport.render_section(section)
+    sections = [dict(name=n, status="ok", rows=r, wall_s=0.5 + i)
+                for i, (n, r) in enumerate(rows.items())]
+    assert treport.render_timing_table(sections) == \
+        jreport.render_timing_table(sections)
+    failed = dict(name="x", status="failed", error="Traceback\nBoom", rows=[])
+    assert treport.render_section(failed) == jreport.render_section(failed)
+    assert treport.breakdown_csv(tp) != ""
+
+
+def test_profiling_api_modules_isolated():
+    """The profiling API's modules are among the files the import check
+    reads, and none of them imports jax or repro."""
+    names = ("calibrate.py", "fusion.py", "hardware.py", "report.py",
+             "roofline.py", "workload.py")
+    core = REPO / "src" / "repro_torch" / "core"
+    for f in [core / n for n in names] + \
+            [REPO / "src" / "repro_torch" / "bench" / "schema.py"]:
+        assert f.exists(), f
+        assert not [m for m in _imports(f)
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")], f
+        assert "import jax" not in f.read_text()

@@ -1144,3 +1144,105 @@ def test_decode_graph_replays_the_eager_logits_bit_for_bit_on_card(card, fused):
     eager = graph(*inputs).clone()
     assert torch.equal(graph(*inputs), eager)
     assert torch.equal(graph(*inputs), eager)
+
+
+# ---------------------------------------------------------------------------
+# the profiling API on the card
+# ---------------------------------------------------------------------------
+
+def _per_forward(cfg, fused):
+    """Kernel launches of one reduced ``lm_forward`` on the kernel path
+    (no qk-norm or post-norm in these configs); QDQ changes none."""
+    n = cfg.n_layers
+    out = {"attention_core": n}
+    if cfg.norm == "rmsnorm":
+        out.update(rms_norm=n * (2 - fused) + 1, swiglu=n)
+        if fused:
+            out.update(fused_add_rms_norm=n, rope=2 * n)
+    else:
+        out["layer_norm"] = n + 1 if fused else 2 * n + 1
+        if fused:
+            out["fused_add_layer_norm"] = n
+    return out
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl"])
+def test_measured_2x2_through_the_api_on_card(card, arch):
+    from repro_torch.core import (FusionTransform, QuantizeDequantTransform,
+                                  Workload, drift_by_group, max_abs_log2_drift)
+
+    base = Workload(name=arch, arch=arch, batch=1, seq=16, dtype="bfloat16")
+    cfg = reduced(get_config(arch))
+    for mode, fused in ((None, False), (None, True), ("int8", False),
+                        ("int8", True)):
+        w = base.with_transform(
+            *([QuantizeDequantTransform(mode)] if mode else []),
+            *([FusionTransform()] if fused else []))
+        ops.reset_launches()
+        wall = w.profile("wallclock", repeats=3)
+        assert {k: v for k, v in ops.launches.items() if v} == \
+            {k: 4 * v for k, v in _per_forward(cfg, fused).items()}, w.variant
+        assert wall.total_seconds > 0
+        prof = w.profile("measured")
+        assert prof.mode == "measured_cuda" and prof.split["gemm_s"] > 0
+        quant = prof.group_seconds.get("quantization", 0.0) + \
+            prof.op_seconds.get(("fused", "fused_qdq"), 0.0)
+        assert (quant > 0) == (mode is not None), w.variant
+        modeled = w.profile("eager-modeled:h100")
+        assert modeled.mode == "eager_h100" and modeled.n_ops > 0
+        drift = drift_by_group(prof.group_seconds, modeled.group_seconds)
+        assert drift and max_abs_log2_drift(drift) > 0
+        # the capture runs on the card: its records say so
+        assert {t.record.device for t in prof.timed_ops} == {"cuda"}
+
+
+def test_calibrated_backend_fits_on_card(card):
+    from repro_torch.core import Workload, get_backend
+
+    b = get_backend("calibrated")
+    assert b.name == "calibrated:h100"
+    assert {g for g, _ in b.cal.factors} >= {"normalization", "activation",
+                                             "elementwise"}
+    assert all(f > 0 for _, f in b.cal.factors)
+    p = Workload(name="g", arch="gpt2-xl", dtype="bfloat16").profile(b)
+    assert p.mode == "calibrated_h100" and p.total_seconds > 0
+
+
+def test_timer_flush_leaves_clean_lines_on_card(card):
+    """Before each timed run the flush zeroes its 128 MB and then reads
+    them (so the L2 holds clean lines); a read-only kernel timed after it
+    is not slower than after a flush that only zeroes (dirty lines, each
+    written back as the kernel's reads evict it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import graph
+
+    x = torch.randn(8 << 20, device="cuda")         # 32 MB, under the L2
+    timer = graph.Timer(iters=4, warmup=1)
+    seen = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    with Spy():
+        timer(lambda: torch.amax(x))
+    assert seen[:1] == ["aten.amax"]                  # the warm-up
+    assert seen[1:] == ["aten.zero_", "aten.sum", "aten.amax"] * 4
+
+    class Dirty(graph.Timer):
+        def __call__(self, fn):
+            import statistics
+            for _ in range(self.warmup):
+                fn()
+            ts = []
+            for _ in range(self.iters):
+                self.flush.zero_()
+                ts.append(graph.time_once(fn, (), {}, self.floor)[1])
+            return statistics.median(ts) * 1e3
+
+    clean, dirty = graph.Timer(iters=50), Dirty(iters=50)
+    c1, d1, d2, c2 = (t(lambda: torch.amax(x)) for t in (clean, dirty, dirty,
+                                                         clean))
+    assert min(c1, c2) <= max(d1, d2), (c1, c2, d1, d2)

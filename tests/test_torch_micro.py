@@ -15,6 +15,7 @@ from repro.core import microbench as jmicro  # noqa: E402
 
 from repro_torch.bench.sections import section_kernels  # noqa: E402
 from repro_torch.core import microbench as micro  # noqa: E402
+from repro_torch.core.hardware import H100  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 #: reduced shapes of the rows whose Table-2 shape is large on the CPU
@@ -48,7 +49,7 @@ def test_every_entry_runs_on_the_cpu(name):
     assert (r.name, r.group) == (name, micro.registry()[name].group.value)
     assert r.device == "cpu" and r.dtype == "float32"
     assert r.device_us > 0 and r.eager_us > 0 and r.bytes_touched > 0
-    assert math.isclose(r.bound_us, 1e6 * r.bytes_touched / 3.35e12)
+    assert math.isclose(r.bound_us, 1e6 * r.bytes_touched / H100.hbm_bw)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
