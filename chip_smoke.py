@@ -21,7 +21,10 @@ Phases, each printing JSON lines:
              qk-norm; the encoders' and the detector's full-mask attention;
              the detector's NMS; the Table-2 dequant row; the §4.5
              cross-entropy site and gemma3's 262144-token vocabulary, with
-             few rows split over many CTAs) and
+             few rows split over many CTAs; the bench's quick tier: the
+             16-token prefills of llama2-7b and gpt2-xl b1 and b8, bert-base
+             b1, stablelm-3b's 16-token chunks over a 64-deep paged view
+             and its 3- and 4-slot decode over 64 keys) and
              odd ones (attention head dims 34, 48, 80, 96, Sq = 1, a causal
              q_offset with Sq < Skv, a chunk whose keys and values past it
              are NaN; decode over 4096 keys in 64 splits and
@@ -78,7 +81,8 @@ Phases, each printing JSON lines:
              chunks and decode steps need, counters zero, every block back
              to the allocator or the prefix cache, memory back; (a) is
              repeated and timed as ``serve`` is, beside the ``Engine``;
-   traffic - stablelm-3b through ``repro_torch.traffic`` (every drive
+   traffic - stablelm-3b at full width, its first 8 layers, through
+             ``repro_torch.traffic`` (every drive
              primed on its trace's shadow first): (a) a Poisson trace through
              the ``Engine`` and the cold ``PagedEngine``, tokens identical;
              (b) 16 requests at 8/s in real time through the ``PagedEngine``
@@ -89,10 +93,12 @@ Phases, each printing JSON lines:
              NonGEMM split of one eager paged decode step and ``paged_frac``;
 4. profile - a per-op measured profile of ``lm_forward`` (batch 1, seq 16)
              on the kernel path, unfused and fused, for the three models,
-             and gemma3-27b at seq 2048, where its window bites, unfused
-             and fused (its GeGLU kernel at the 2048 bucket): the measured
+             and gemma3-27b (its first 6 layers) at seq 16 and 2048,
+             where its window bites, unfused and fused (its GeGLU kernel at
+             the 2048 bucket): the measured
              GEMM / NonGEMM split;
-   qdq     - for llama2-7b and gpt2-xl, the paper's §4.4 2x2 on one eager
+   qdq     - for llama2-7b and gpt2-xl at their first 4 layers, the
+             paper's §4.4 2x2 on one eager
              ``lm_forward`` (b1 s16, bf16): ``bf16`` / ``fused`` /
              ``int8-qdq`` / ``int8-qdq+fused`` (``nn.fake_quant("int8")``:
              both operands of every GEMM site round-trip through int8),
@@ -128,6 +134,20 @@ Phases, each printing JSON lines:
              site the eager chain's bytes against the kernel's, and the
              kernel against its plain version (the cross-entropy site
              through softmax_xent);
+   bench   - ``python -m repro_torch.bench run --quick --out
+             results/bench_h100.json`` in a process of its own (the paper's
+             tables at bench widths: the four quick LM cases at full width,
+             two layers, f32, measured on the card beside the modeled eager
+             A100; the QDQ and fusion 2x2, vision, the platform sweep with
+             ``calibrated:h100``, Table 2 and its harvested rows, the
+             kernel sites, stablelm-3b at its published size served in bf16
+             and under traffic in f32): rc 0, the artifact validates, every
+             section ``ok`` but ``serving_sharded`` and ``roofline``
+             (skipped, with their reasons), the harvested rows llama2-7b's
+             capture gives, every kernel site allclose, the traffic parity
+             true;
+             the kernels it launched (its last line) join the record, each
+             of the twelve the quick tier reaches at least once;
 5. timing  - kernel, plain version, one PyTorch library call computing the
              same function (where there is one) and the card's bound, at the
              main paths' shapes, gemma3-27b's global causal prefill and ring
@@ -159,6 +179,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -195,6 +216,10 @@ SHARED_PREFIX, SUFFIX, LONG_PROMPTS = 160, 40, (300, 400)
 EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
+#: the depth gemma3-27b's profiles run at: the first layers of the served
+#: params, one repeat of its five-local, one-global pattern (at 62 layers
+#: its four profiles took 44 s of the script's time; PERF.md §6, PR 24)
+PROFILE_LAYERS = {"gemma3-27b": 6}
 NEW_TOKENS = 16
 #: each served run repeated on the same engine, its decode graph captured:
 #: decode tok/s as the median and spread of the repeats (two single runs
@@ -207,8 +232,12 @@ MEM_SLACK = 64 << 20
 #: bytes a cached key or value element takes (bf16 caches)
 KV_BYTES = 2
 #: phase traffic: the JAX traffic case's model (repro/bench/cases.py:44-46)
-#: at full size, through the PagedEngine with these blocks and chunks
+#: at full width and TRAFFIC_LAYERS deep (at its 32 layers the phase took
+#: 73 s of the script's time; phase bench serves the model whole under
+#: JAX's traffic section), through the PagedEngine with these blocks and
+#: chunks
 TRAFFIC_ARCH = "stablelm-3b"
+TRAFFIC_LAYERS = 8
 TRAFFIC_ENGINE = dict(max_batch=4, max_len=512, block_size=16)
 TRAFFIC_CHUNK = 64
 #: the op sites of the paged bookkeeping in a decode step's profile
@@ -293,6 +322,10 @@ SOURCES = {
 #: QDQ makes f32 temporaries of its 262144 x 5376 tied embedding, 5.6 GB
 #: each, beside 54 GB of weights)
 QDQ_ARCHS = ("llama2-7b", "gpt2-xl")
+#: the depth phase qdq runs them at: the first layers of the served
+#: params, so that the script keeps its time with phase bench (the 2x2's
+#: per-op profiles grow with depth; the bench's cases are cut alike)
+QDQ_LAYERS = 4
 #: JAX's variant labels (core/workload.py ``Workload.variant``) of the 2x2:
 #: (label, fake-quant mode, fused)
 QDQ_VARIANTS = (("bf16", None, False), ("fused", None, True),
@@ -312,6 +345,24 @@ Y_BITS_DIFFER_MAX = 0.01
 ENCODERS = (("bert-base", ((1, 128), (8, 128))), ("vit-b16", ((1, 197),)))
 VISION = ("vit-b16-cls", "detector-vit-s")
 VISION_BATCH, VISION_FORWARDS = 8, 8
+#: phase bench: the quick tier of ``python -m repro_torch.bench`` in a
+#: process of its own, its artifact here (under the checkout's results/)
+BENCH_OUT = "results/bench_h100.json"
+BENCH_TIMEOUT_S = 900
+#: the sections the quick tier skips, each with a word of its reason
+BENCH_SKIPS = {"serving_sharded": "tensor-parallel serving is not ported",
+               "roofline": "no dry-run artifacts"}
+#: the micro_harvested rows of the quick tier: of the sites the section
+#: runs, llama2-7b's b1 s16 capture holds only its RMSNorm (the SiLU sits
+#: in the swiglu site, the residual adds in residual_add, the softmax in
+#: the flash-attention site), as JAX's capture of the model does
+BENCH_HARVESTED = [("rms_norm", [1, 16, 4096], "cuda")]
+#: what the quick tier launches: every kernel but the window fragment and
+#: GeGLU, which only gemma3-27b's full-tier case runs
+BENCH_KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
+                 "fused_add_layer_norm", "rope", "swiglu", "attention_core",
+                 "decode_core", "attention_full", "nms",
+                 "dequant_add_rms_norm", "softmax_xent")
 
 
 def emit(**kw) -> None:
@@ -451,8 +502,9 @@ def check_kernels(torch, ops, ref, gen):
         # gemma3-27b's zero-centred norms (5376) and its qk-norm (128, off),
         # at the decode step and at s2048; a partial last row group (21
         # rows of 128, 16 a CTA); the widest rows of body B (bf16) and of
-        # body C's 16-byte loads (f32)
+        # body C's 16-byte loads (f32); the bench's llama2-7b b1 s16
         for shape, zc in [((4, 1, 4096), False), ((1, 256, 4096), False),
+                          ((1, 16, 4096), False),
                           ((2, 33, 257), False), ((3, 7, 1000), True),
                           ((4, 1, 5376), True), ((1, 37, 32, 128), False),
                           ((3, 7, 128), False), ((1, 2048, 32, 128), False),
@@ -470,8 +522,12 @@ def check_kernels(torch, ops, ref, gen):
             exact("fused_add_rms_norm", r, wr, dtname, case, body=bd)
         # gpt2-xl's width and stablelm-3b's; a row whose mean is far from
         # zero (1e3 + N(0,1)); the Table-2 Segformer rows (32 wide) and
-        # bert-base at b8
+        # bert-base at b8; the bench's gpt2-xl b1 and b8 s16, bert-base b1,
+        # and stablelm-3b's 16-token chunks and 3-slot decode
         for shape, mean in [((4, 1, 1600), 0.0), ((1, 256, 1600), 3.0),
+                            ((1, 16, 1600), 0.0), ((8, 16, 1600), 3.0),
+                            ((1, 128, 768), 3.0), ((1, 16, 2560), 0.0),
+                            ((3, 1, 2560), 0.0),
                             ((4, 1, 2560), 0.0), ((1, 256, 2560), 3.0),
                             ((2, 33, 257), 0.0), ((3, 7, 1000), 0.0),
                             ((2, 1600), 1e3), ((2, 16384, 32), 0.0),
@@ -496,8 +552,12 @@ def check_kernels(torch, ops, ref, gen):
         # walked by a grid stride); a decode column near 4095; rows of
         # more vectors than a CTA's threads (in chunks); half at its 6144
         # limit, scalar; stablelm-3b's decode step and prefill (head dim 80,
-        # a quarter rotated: half 10, scalar)
+        # a quarter rotated: half 10, scalar); the bench's llama2-7b s16,
+        # stablelm-3b's 16-token chunk at 16 and its 3-slot decode
         for b, s, h, d, frac, p0, column in [(4, 1, 32, 80, 0.25, 215, True),
+                                             (1, 16, 32, 128, 1.0, 0, False),
+                                             (1, 16, 32, 80, 0.25, 16, False),
+                                             (3, 1, 32, 80, 0.25, 40, True),
                                              (1, 256, 32, 80, 0.25, 0, False),
                                              (4, 1, 32, 128, 1.0, 186, False),
                                              (1, 256, 32, 128, 1.0, 0, False),
@@ -525,8 +585,11 @@ def check_kernels(torch, ops, ref, gen):
         # of 1; both on a view 4 elements into its storage (8-byte aligned,
         # not 16), and one element in (the scalar body), and at finite
         # extremes of the gate (e^-g, e^-2z and g^3 overflowing, the
-        # denominator past 2^126), each naming its plan
+        # denominator past 2^126), each naming its plan; the bench's
+        # llama2-7b s16 and stablelm-3b's chunk and 3-slot decode
         for kernel, shapes in (("swiglu", [(4, 1, 11008), (1, 256, 11008),
+                                           (1, 16, 11008), (1, 16, 6912),
+                                           (3, 1, 6912),
                                            (4, 1, 6912), (1, 256, 6912),
                                            (2, 37, 257), (1, 13)]),
                                ("geglu", [(4, 1, 21504), (1, 256, 21504),
@@ -580,7 +643,14 @@ def check_kernels(torch, ops, ref, gen):
                 (2, 1, 70, 4, 2, 128, 128, 69),       # Sq = 1
                 (1, 100, 300, 8, 4, 128, 128, 200),   # q_offset, Sq < Skv
                 (1, 256, 256, 32, 32, 80, 80, 0),     # stablelm-3b prefill
-                (1, 64, 512, 32, 32, 80, 80, 448)]:   # its last 64-chunk
+                (1, 64, 512, 32, 32, 80, 80, 448),    # its last 64-chunk
+                (1, 16, 16, 32, 32, 128, 128, 0),     # bench: llama2-7b s16,
+                (1, 16, 16, 25, 25, 64, 64, 0),       # gpt2-xl b1 and b8,
+                (8, 16, 16, 25, 25, 64, 64, 0),
+                (1, 16, 16, 32, 32, 80, 80, 0),       # stablelm-3b's bucket
+                (1, 16, 64, 32, 32, 80, 80, 0),       # and its 16-token
+                (1, 16, 64, 32, 32, 80, 80, 16),      # chunks over a
+                (1, 16, 64, 32, 32, 80, 80, 32)]:     # 64-deep paged view
             q = randn((b, sq, hq, dk), dt)
             k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dv), dt)
             compare("attention_core", ops.attention_core(q, k, v, q_offset=off),
@@ -611,6 +681,8 @@ def check_kernels(torch, ops, ref, gen):
                 (4, 512, 32, 32, 128, 128, [1, 200, 512, 0]),   # llama, a dead slot
                 (4, 512, 25, 25, 64, 64, [186, 512, 0, 72]),    # gpt2-xl
                 (4, 512, 32, 32, 80, 80, [216, 20, 61, 512]),   # stablelm-3b
+                (4, 64, 32, 32, 80, 80, [17, 4, 21, 64]),       # bench serving
+                (3, 64, 32, 32, 80, 80, [40, 7, 0]),            # bench traffic
                 (4, 1024, 32, 16, 128, 128, [1024, 1024, 1024, 53]),  # rings
                 (4, 2048, 32, 16, 128, 128, [1516, 1116, 1031, 53]),  # gemma3
                 (3, 100, 8, 2, 64, 64, [0, 37, 100]),           # GQA 8/2
@@ -635,6 +707,7 @@ def check_kernels(torch, ops, ref, gen):
                 (1, 197, 197, 12, 12, 64, 64),     # the vit-b16 stub
                 (1, 196, 196, 12, 12, 64, 64),     # vit-b16-cls
                 (8, 128, 128, 12, 12, 64, 64),     # bert-base b8
+                (1, 128, 128, 12, 12, 64, 64),     # bert-base b1 (bench)
                 (2, 256, 1024, 6, 6, 64, 64),      # detector refinement
                 (1, 37, 301, 4, 2, 64, 32),        # GQA, Dv != Dk, odd
                 (1, 21, 23, 2, 2, 34, 18),         # scalar tile staging
@@ -1436,7 +1509,8 @@ def serve(torch, ops, _build, E, params, cfg, prompts, fused: bool,
 
 def traffic(torch, nn, ops, _build, init_lm, get_config, launched: dict):
     """Phase ``traffic`` (JAX's traffic section, ``repro/bench/sections.py``
-    ``traffic_rows``, on the card): TRAFFIC_ARCH at full size, every drive
+    ``traffic_rows``, on the card): TRAFFIC_ARCH at full width,
+    TRAFFIC_LAYERS deep, every drive
     primed first on its trace's shadow (kernels built, decode graph
     captured). (a) parity: a Poisson trace through the ``Engine`` and the
     cold ``PagedEngine``, identical tokens; (b) load: a Poisson trace at
@@ -1453,7 +1527,8 @@ def traffic(torch, nn, ops, _build, init_lm, get_config, launched: dict):
                                      shared_prefix_trace)
 
     cfg = get_config(TRAFFIC_ARCH).replace(dtype="bfloat16",
-                                           param_dtype="bfloat16")
+                                           param_dtype="bfloat16",
+                                           n_layers=TRAFFIC_LAYERS)
     params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
     vocab = cfg.vocab_size
 
@@ -1576,7 +1651,7 @@ def profile(torch, nn, ops, params, cfg, fused: bool, rng, seq: int = 16):
     want = per_forward_launches(cfg, fused)
     if per != want:
         fail(f"profile: {name}: launched {per} per forward, expected {want}")
-    emit_profile("profile", prof, wall_ms, per)
+    emit_profile("profile", prof, wall_ms, per, layers=cfg.n_layers)
 
 
 def qdq_share(prof) -> dict:
@@ -2021,6 +2096,91 @@ def qdq_vision(torch, nn, ops, launches, kept: list,
 
 
 # ---------------------------------------------------------------------------
+# phase bench: python -m repro_torch.bench run --quick
+# ---------------------------------------------------------------------------
+
+def bench(launched: dict) -> float:
+    """Phase ``bench``: the quick tier of the bench CLI in a process of its
+    own, as a user runs it: rc 0, the artifact validates, every section
+    ``ok`` but the two BENCH_SKIPS (skipped, with their reasons), every
+    kernel site allclose, the traffic parity rows true, the breakdown's
+    measured rows the card's own device times, the harvested micro rows
+    those of BENCH_HARVESTED; the sections' status and
+    wall, and the breakdown and top-table rows printed. The process's
+    kernel launches (its last line) are added to ``launched``; each of
+    BENCH_KERNELS must have launched. Returns the phase's wall seconds."""
+    from repro_torch.bench.schema import BenchResult
+
+    out = REPO / BENCH_OUT
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench", "run", "--quick",
+         "--out", str(out)], cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+        timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench: rc {proc.returncode}\n{proc.stdout[-4000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    art = BenchResult.load(str(out))        # validates
+    for s in art.sections:
+        emit(phase="bench", section=s.name, status=s.status,
+             wall_s=round(s.wall_s, 3), rows=len(s.rows),
+             **({"reason": s.error} if s.status == "skipped" else {}))
+    not_ok = {s.name: (s.status, s.error or "") for s in art.sections
+              if s.status != "ok"}
+    if set(not_ok) != set(BENCH_SKIPS) or any(
+            status != "skipped" or BENCH_SKIPS[name] not in error
+            for name, (status, error) in not_ok.items()):
+        fail(f"bench: sections not ok: {not_ok}")
+    for name in ("breakdown", "top_table"):
+        for r in art.section(name).rows:
+            emit(phase="bench", section=name, case=r["case"], mode=r["mode"],
+                 total_ms=round(r["total_s"] * 1e3, 4),
+                 gemm_pct=round(100 * r["gemm_frac"], 2),
+                 nongemm_pct=round(100 * r["nongemm_frac"], 2),
+                 **({"top_group": r["top_group"],
+                     "top_pct": round(r["top_pct"], 2)}
+                    if "top_group" in r else {}))
+    measured = [r for r in art.section("breakdown").rows
+                if r["mode"].startswith("measured")]
+    if len(measured) != len(art.cases) or \
+            {r["mode"] for r in measured} != {"measured_cuda"}:
+        fail(f"bench: the breakdown's measured rows are not the card's: "
+             f"{[(r['case'], r['mode']) for r in measured]}")
+    harvested = [(r["operator"], r["shape"], r["device"])
+                 for r in art.section("micro_harvested").rows]
+    if harvested != BENCH_HARVESTED:
+        fail(f"bench: micro_harvested gave {harvested}, the llama2-7b "
+             f"capture's sites give {BENCH_HARVESTED}")
+    sites = art.section("kernels").rows
+    if not sites or not all(r["allclose"] for r in sites):
+        fail(f"bench: a kernel site disagrees with its plain version: {sites}")
+    traffic = {r["phase"]: r for r in art.section("traffic").rows}
+    if not (traffic["parity"]["parity_ok"] and traffic["prefix"]["parity_ok"]):
+        fail(f"bench: traffic parity: {traffic['parity']}, {traffic['prefix']}")
+    tail = proc.stdout.strip().splitlines()[-1]
+    if not tail.startswith("kernel launches "):
+        fail(f"bench: no launch counts at the end of its output: {tail!r}")
+    counts = json.loads(tail[len("kernel launches "):])
+    if counts != art.meta["kernel_launches"]:
+        fail(f"bench: printed launches {counts} differ from the artifact's "
+             f"{art.meta['kernel_launches']}")
+    emit(phase="bench", wall_s=round(wall, 2), artifact=BENCH_OUT,
+         device_name=art.meta["device_name"],
+         power_limit_w=art.meta["power_limit_w"],
+         total_section_s=round(art.meta["total_wall_s"], 2),
+         launches={k: n for k, n in counts.items() if n})
+    missing = [k for k in BENCH_KERNELS if not counts.get(k)]
+    if missing:
+        fail(f"bench: kernels the quick tier never launched: {missing}")
+    for k, n in counts.items():
+        launched[k] += n
+    return wall
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
 
@@ -2048,6 +2208,13 @@ def main(argv=None) -> int:
     from repro_torch.serving import Engine, PagedEngine
 
     t_start = time.perf_counter()
+    walls = {}          # phase -> wall seconds, in the done line
+    t_mark = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name] = round(walls.get(name, 0.0) + now - t_mark[0], 2)
+        t_mark[0] = now
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2069,11 +2236,13 @@ def main(argv=None) -> int:
         nvidia_smi=smi, total_memory=props.total_memory,
         sms=props.multi_processor_count))
 
+    lap("device")
     # -- phase 2: kernels --------------------------------------------------
     gen = torch.Generator("cuda").manual_seed(SEED)
     if not args.paths_only:
         worst = check_kernels(torch, ops, ref, gen)
 
+    lap("kernels")
     # -- phases 3 and 4, one model at a time -------------------------------
     launches = dict.fromkeys(SOURCES, 0)
     qdq_kept = []           # (model, variant, measured profile, records)
@@ -2153,23 +2322,30 @@ def main(argv=None) -> int:
                         launches[k] += n
             compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len,
                           extend_prompt)
+        lap(f"{arch} serve")
         if not args.paths_only:
+            pcfg = cfg.replace(n_layers=PROFILE_LAYERS.get(arch, cfg.n_layers))
             for seq, fused in PROFILES.get(arch, ((16, False), (16, True))):
-                profile(torch, nn, ops, params, cfg, fused, rng, seq)
+                profile(torch, nn, ops, params, pcfg, fused, rng, seq)
+        lap(f"{arch} profile")
         if arch in QDQ_ARCHS:
             toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
                                                  (1, 16))).cuda()
+            qcfg = cfg.replace(n_layers=QDQ_LAYERS)     # the first layers
             qdq(torch, nn, ops, lm_forward,
-                (params, toks, cfg.replace(dtype="float32")),
-                (params, toks, cfg),
-                lambda fused, c=cfg: per_forward_launches(c, fused),
-                f"{arch} b-1 s-16 bf16", launches, qdq_kept, args.paths_only)
+                (params, toks, qcfg.replace(dtype="float32")),
+                (params, toks, qcfg),
+                lambda fused, c=qcfg: per_forward_launches(c, fused),
+                f"{arch} b-1 s-16 bf16 {QDQ_LAYERS} layers", launches,
+                qdq_kept, args.paths_only)
+            lap(f"{arch} qdq")
         # the last step of the 4 slots serving the first 4 requests, cut off
         # at their 16th token
         decode_lengths[arch] = [n + NEW_TOKENS - 1 for n in plens[:4]]
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        lap(f"{arch} free")
 
     # -- phase traffic: the PagedEngine under trace-driven load --------------
     if not args.paths_only:
@@ -2177,6 +2353,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    lap("traffic")
     # -- phase encode: bert-base and the vit-b16 stub -----------------------
     for arch, cases in ENCODERS:
         encode(torch, nn, ops, init_lm, lm_forward, arch, cases, launches,
@@ -2184,6 +2361,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    lap("encode")
     # -- phase vision: vit-b16-cls and detector-vit-s -----------------------
     for arch in VISION:
         nms_inputs = vision(torch, nn, ops, arch, launches,
@@ -2192,6 +2370,7 @@ def main(argv=None) -> int:
     if args.paths_only:
         return 0
 
+    lap("vision")
     # -- phase micro: the Table-2 suite, f32 ----------------------------------
     from repro_torch.core.microbench import run_suite
     ops.reset_launches()
@@ -2204,6 +2383,7 @@ def main(argv=None) -> int:
         launches[k] += n
     calibrated(qdq_kept, rows)
 
+    lap("micro")
     # -- phase kernel_sites: the §4.5 table -----------------------------------
     from repro_torch.bench.sections import section_kernels
     ops.reset_launches()
@@ -2214,10 +2394,17 @@ def main(argv=None) -> int:
         launches[k] += n
     if len(sites) != 6 or not all(r["allclose"] for r in sites):
         fail(f"kernel_sites: a kernel disagrees with its plain version: {sites}")
+
+    lap("kernel_sites")
+    # -- phase bench: the quick tier of the bench CLI ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_s = bench(launches)
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"kernels never launched on the main paths: {missing}")
 
+    lap("bench")
     # -- phase 5: timing ---------------------------------------------------
     timing = time_kernels(torch, ops, ref, gen, decode_lengths, graph,
                           nms_inputs)
@@ -2235,7 +2422,9 @@ def main(argv=None) -> int:
             "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms",
                                                          "amax_ms")
                                      if k in tm}})
-    emit(phase="done", seconds=round(time.perf_counter() - t_start, 2))
+    lap("timing")
+    emit(phase="done", seconds=round(time.perf_counter() - t_start, 2),
+         bench_s=round(bench_s, 2), phase_s=walls)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,10 +183,12 @@ def calibrate_from_microbench(hw: HardwareSpec,
     names = tuple(names or DEFAULT_CALIBRATION_OPS)
     if rows is None:
         samples = microbench_samples(hw, names, repeats=repeats)
+        device = "cuda"
     else:
         samples = micro_row_samples(rows, hw, names)
+        device = "+".join(sorted({r.device for r in rows}))
     return calibrate(hw, samples,
-                     source=f"microbench:{','.join(names)}@cuda")
+                     source=f"microbench:{','.join(names)}@{device}")
 
 
 @lru_cache(maxsize=None)

@@ -5,8 +5,11 @@ A copy of ``repro.core.report`` over the port's
 renderer's text to the original's on the same inputs). Everything renders
 as aligned text / CSV. The verdict lines of the fusion, vision and
 platforms renderers read the shared gates of ``repro_torch.bench.schema``.
-JAX's ``render_artifact`` renders a whole bench artifact; it comes with
-the port of the bench's artifact schema.
+:func:`render_artifact` renders a whole bench artifact
+(``repro_torch.bench``). One renderer differs by design:
+:func:`render_kernel_rows` reads the port's kernel-site rows
+(``eager_mb``, ``kernel_mb``, ``eager_over_kernel``), where JAX's reads
+its XLA and Pallas byte counts.
 """
 
 from __future__ import annotations
@@ -181,15 +184,15 @@ def render_micro_rows(rows: Iterable[dict]) -> str:
 
 
 def render_kernel_rows(rows: Iterable[dict]) -> str:
+    """§4.5 kernel sites: the eager chain's traffic against the
+    hand-written kernel's boundary traffic, and its allclose."""
     buf = io.StringIO()
-    buf.write(f"{'kernel site':<20} {'eager_MB':>9} {'xla_MB':>8} "
-              f"{'pallas_MB':>10} {'eager/pallas':>13} {'xla/pallas':>11} "
-              f"{'allclose':>9}\n")
+    buf.write(f"{'kernel site':<20} {'eager_MB':>9} {'kernel_MB':>10} "
+              f"{'eager/kernel':>13} {'allclose':>9}\n")
     for r in rows:
         buf.write(f"{r['site']:<20} {r['eager_mb']:>9.1f} "
-                  f"{r['xla_mb']:>8.1f} {r['pallas_mb']:>10.1f} "
-                  f"{r['eager_over_pallas']:>12.2f}x "
-                  f"{r['xla_over_pallas']:>10.2f}x "
+                  f"{r['kernel_mb']:>10.1f} "
+                  f"{r['eager_over_kernel']:>12.2f}x "
                   f"{str(bool(r['allclose'])):>9}\n")
     return buf.getvalue()
 
@@ -444,3 +447,18 @@ def render_section(section) -> str:
     if renderer is None:
         return head + f"({len(d.get('rows', []))} rows; no renderer)\n"
     return head + renderer(d.get("rows", []))
+
+
+def render_artifact(result) -> str:
+    """Render a whole BenchResult (or its dict form) — the human report."""
+    d = result if isinstance(result, dict) else result.to_dict()
+    version = d["jax_version"]
+    if not version.startswith("torch "):
+        version = f"jax {version}"
+    parts = [f"bench artifact: schema v{d['schema_version']}, "
+             f"tier={d['tier']}, backend={d['backend']}, "
+             f"{version}, {len(d['cases'])} case(s)\n"]
+    parts += [render_section(s) for s in d["sections"]]
+    parts += ["=== section wall-clock ===\n" +
+              render_timing_table(d["sections"])]
+    return "\n".join(parts)

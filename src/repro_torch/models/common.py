@@ -121,6 +121,10 @@ class ModelConfig:
         return self.n_layers // len(self.block_pattern)
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def is_vision(self) -> bool:
         return self.image_size > 0
 
@@ -147,6 +151,87 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # --- analytic parameter counts (the bench's parameter budget) ------
+    # A copy of the JAX config's (a test pins the code); they mirror the
+    # init functions exactly, which a test asserts on reduced configs.
+    def _ffn_params(self, d_ff: int) -> int:
+        d = self.d_model
+        mult = 3 if self.ffn in ("swiglu", "geglu") else 2
+        c = mult * d * d_ff
+        if self.ffn_bias:
+            c += d_ff + d
+        return c
+
+    def _mixer_params(self, kind: str) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        hq, hkv = self.n_heads, self.n_kv_heads
+        if kind in ("attn", "local"):
+            if self.mla:
+                r = self.kv_lora_rank
+                return (d * r + d * self.qk_rope_dim + r
+                        + d * hq * (self.qk_nope_dim + self.qk_rope_dim)
+                        + r * hq * self.qk_nope_dim
+                        + r * hq * self.v_head_dim
+                        + hq * self.v_head_dim * d)
+            c = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+            if self.qkv_bias:
+                c += hq * hd + 2 * hkv * hd
+            if self.qk_norm:
+                c += 2 * hd
+            return c
+        if kind == "rec":
+            w = self.lru_width or d
+            return (2 * d * w + w * d + self.conv_width * w + w
+                    + 2 * (w * w + w) + w)
+        if kind == "mlstm":
+            di = int(d * self.mlstm_proj_factor)
+            return (2 * d * di + self.conv_width * di + di + 3 * di * di
+                    + 2 * (di * self.n_heads + self.n_heads) + di + di * d)
+        if kind == "slstm":
+            nh = self.n_heads
+            dh = d // nh
+            d_ff_s = int(d * self.slstm_ff_factor)
+            return (d * 4 * d + 4 * d + nh * dh * 4 * dh + d
+                    + d * 2 * d_ff_s + d_ff_s * d)
+        raise ValueError(kind)
+
+    def _block_params(self, kind: str, layer_idx: int) -> int:
+        d = self.d_model
+        norm_p = 2 * d if self.norm == "layernorm" else d
+        c = self._mixer_params(kind) + norm_p
+        if kind in ("mlstm", "slstm"):
+            return c  # single pre-norm, mixer-internal FFN (sLSTM)
+        c += norm_p  # norm2
+        if self.post_norm:
+            c += 2 * norm_p
+        if self.is_moe and layer_idx >= self.first_dense_layers:
+            c += d * self.n_experts
+            c += self.n_experts * self._ffn_params(self.moe_d_ff)
+            if self.n_shared_experts:
+                c += self._ffn_params(self.moe_d_ff * self.n_shared_experts)
+        else:
+            c += self._ffn_params(self.d_ff)
+        return c
+
+    def param_counts(self) -> dict:
+        d = self.d_model
+        counts = {}
+        if self.input_mode == "tokens":
+            counts["embed"] = self.vocab_size * d
+        if not self.tie_embeddings or self.input_mode != "tokens":
+            counts["head"] = self.vocab_size * d
+        if self.pos_emb == "learned":
+            counts["pos"] = self.max_position * d
+        counts["final_norm"] = 2 * d if self.norm == "layernorm" else d
+        counts["blocks"] = sum(
+            self._block_params(kind, i)
+            for i, kind in enumerate(self.layer_kinds()))
+        counts["total"] = sum(v for k, v in counts.items() if k != "total")
+        return counts
+
+    def n_params(self) -> int:
+        return int(self.param_counts()["total"])
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -405,6 +405,10 @@ def test_report_renderers_copied():
     assert set(treport.SECTION_RENDERERS) == set(jreport.SECTION_RENDERERS)
     rows = _rows()
     for name, renderer in treport.SECTION_RENDERERS.items():
+        if name == "kernels":
+            # the port's kernel rows carry its own keys (kernel_mb, not
+            # xla_mb / pallas_mb): test_kernel_rows_render_the_ports_own_sites
+            continue
         got = renderer(rows[name])
         assert got == jreport.SECTION_RENDERERS[name](rows[name]), name
         section = dict(name=name, title=name, status="ok", rows=rows[name],
@@ -420,14 +424,39 @@ def test_report_renderers_copied():
     assert treport.breakdown_csv(tp) != ""
 
 
+def test_kernel_rows_render_the_ports_own_sites():
+    """The §4.5 renderer reads the rows the port's kernels section gives,
+    alone and through a whole artifact."""
+    from repro_torch.bench.sections import section_kernels
+    from repro_torch.core import report as treport
+
+    rows = section_kernels("cpu")
+    text = treport.render_kernel_rows(rows)
+    lines = text.splitlines()
+    assert lines[0].split() == ["kernel", "site", "eager_MB", "kernel_MB",
+                                "eager/kernel", "allclose"]
+    assert [ln.split()[0] for ln in lines[1:]] == [r["site"] for r in rows]
+    assert all(ln.split()[-1] == "True" for ln in lines[1:])
+    section = dict(name="kernels", title="§4.5", status="ok", rows=rows,
+                   wall_s=1.0)
+    assert treport.render_section(section) == "=== §4.5 ===\n" + text
+    artifact = dict(schema_version=1, tier="quick", backend="cpu",
+                    jax_version="torch " + torch.__version__, cases=[],
+                    sections=[section])
+    assert text in treport.render_artifact(artifact)
+
+
 def test_profiling_api_modules_isolated():
-    """The profiling API's modules are among the files the import check
-    reads, and none of them imports jax or repro."""
+    """The profiling API's and the bench's modules are among the files the
+    import check reads, and none of them imports jax or repro."""
     names = ("calibrate.py", "fusion.py", "hardware.py", "report.py",
              "roofline.py", "workload.py")
     core = REPO / "src" / "repro_torch" / "core"
-    for f in [core / n for n in names] + \
-            [REPO / "src" / "repro_torch" / "bench" / "schema.py"]:
+    bench = REPO / "src" / "repro_torch" / "bench"
+    bench_modules = ("__init__.py", "__main__.py", "cases.py", "compare.py",
+                     "runner.py", "schema.py", "sections.py")
+    assert sorted(p.name for p in bench.glob("*.py")) == sorted(bench_modules)
+    for f in [core / n for n in names] + [bench / n for n in bench_modules]:
         assert f.exists(), f
         assert not [m for m in _imports(f)
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")], f

@@ -1246,3 +1246,27 @@ def test_timer_flush_leaves_clean_lines_on_card(card):
     c1, d1, d2, c2 = (t(lambda: torch.amax(x)) for t in (clean, dirty, dirty,
                                                          clean))
     assert min(c1, c2) <= max(d1, d2), (c1, c2, d1, d2)
+
+
+def test_bench_section_timeout_drains_the_card_on_card(card):
+    """A section cut by its deadline while the card still has its work
+    queued comes back ``timeout``; the runner waits for that work, so the
+    next section starts on an idle card and runs."""
+    from repro_torch.bench.runner import BenchContext, Section, run_section
+
+    ctx = BenchContext(tier="quick", cases=[], device="cuda")
+    x = torch.randn((4096, 4096), generator=card, device="cuda")
+
+    def slow(c):
+        for _ in range(100_000):         # ~2 ms each: far past the deadline
+            torch.mm(x, x)
+        return []
+
+    r = run_section(Section(name="s", title="t", fn=slow, timeout_s=0.5), ctx)
+    assert r.status == "timeout" and r.rows == []
+    y = x[:2, :2].clone()
+    nxt = run_section(Section(name="n", title="t",
+                              fn=lambda c: [{"sum": float((y * 2).sum())}]),
+                      ctx)
+    assert nxt.status == "ok" and nxt.wall_s < 0.5
+    assert nxt.rows[0]["sum"] == float(y.sum() * 2)
