@@ -45,8 +45,32 @@ Phases, each printing JSON lines:
              labels in the first and last spans and outside [0, V), each
              naming its plan); NMS keep
              masks and the dequant kernel's ``r`` must be identical;
+             MLA's shapes: attention_core at Dk 192 / Dv 128 (s16, s256,
+             the last 64-token chunk of a 512-deep cache at q_offset 448)
+             and decode_core's wide body at Dk 576 / Dv 512, one KV head
+             for 16 query heads (kv 512 with ragged lengths, 1 and 0 among
+             them, and 4096 keys in many splits), bf16 and f32;
+   moe     - qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a dense first
+             layer) at full width and depth in bf16 (random weights from
+             a seeded generator on the card), one after the other, each
+             freed before the next: one MoE layer of the served weights on
+             256 tokens against a reference computed apart from
+             ``models/moe.py``, at the config's capacity and at 0.5 (choices
+             dropped); unfused and fused, the ``Engine`` serves 6 requests
+             of 16 new tokens, eager then graphed, tokens identical, with
+             ``serve``'s repeats, launch and counter checks and its graph
+             vs eager line (the step's byte bound reads every expert's
+             weights); the ``PagedEngine`` graphed, cold with the
+             ``Engine``'s tokens exactly and in 64-token chunks with prefix
+             hits, every request finished and every block back; the
+             (token, layer) pairs whose top-k experts differ between the
+             kernel and plain paths; the kernel path's logits against the
+             plain path's (and fused against unfused) under the anchored
+             rule; the measured split of one eager b1 s16 forward with the
+             shares of the MoE sites, beside its ``eager-modeled:h100`` view;
 3. serve   - for each of llama2-7b, stablelm-3b, gpt2-xl and gemma3-27b at
-             full width and depth in bf16 (random weights from a seeded
+             full width in bf16, at the depth SERVE_LAYERS gives (their
+             first 8, 8, 12 and 12 layers; random weights from a seeded
              generator on the card), the continuous-batching ``Engine``
              unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
@@ -164,7 +188,9 @@ Phases, each printing JSON lines:
              ``torch.amax`` (``scripts/xent_timing.py``); rope at
              stablelm-3b's decode step (the scalar plan) and attention_core
              at the last 64-token chunk of a 512-deep cache beside SDPA with
-             the causal-offset mask spelled out.
+             the causal-offset mask spelled out; MLA's prefill (s256) and its
+             absorbed decode (kv 512, the serve run's lengths) beside SDPA,
+             also in the kernels line under each kernel's ``mla``.
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -214,6 +240,13 @@ SHARED_PREFIX, SUFFIX, LONG_PROMPTS = 160, 40, (300, 400)
 #: compare_paths' chunked prefill: a prompt of EXTEND_PROMPT tokens as
 #: lm_prefill of the first EXTEND_FIRST, then lm_extend in chunks of CHUNK
 EXTEND_PROMPT, EXTEND_FIRST = 300, 128
+#: the depth phases 3, 4 and paged serve the dense models at, full width,
+#: their first layers (gemma3-27b two repeats of its five-local, one-global
+#: pattern): phase moe serves the MoE models at full depth, and at full
+#: depth these four took 220 s of the script's time (PERF.md §6, PR 24),
+#: past the time the script is held to
+SERVE_LAYERS = {"llama2-7b": 8, "stablelm-3b": 8, "gpt2-xl": 12,
+                "gemma3-27b": 12}
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 #: the depth gemma3-27b's profiles run at: the first layers of the served
@@ -359,6 +392,23 @@ BENCH_SKIPS = {"serving_sharded": "tensor-parallel serving is not ported",
 BENCH_HARVESTED = [("rms_norm", [1, 16, 4096], "cuda")]
 #: what the quick tier launches: every kernel but the window fragment and
 #: GeGLU, which only gemma3-27b's full-tier case runs
+#: phase moe: the mixture-of-experts models at full size in bf16, one after
+#: the other (28.6 and 31.4 GB of weights), served at full depth
+MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
+#: phase moe's layer check: one MoE layer of the served weights on this
+#: many tokens, at the config's capacity factor and at one that drops
+#: choices for certain, against a reference computed apart from
+#: models/moe.py (its own top-k, capacity walk and per-expert products, in
+#: f32); a token row may differ from it by this fraction of its norm (bf16
+#: roundings of the products, the activation and the combine: a few 2^-9;
+#: a dropped choice read back, or a kept one lost, moves a row by its
+#: gate, 1/6 to 1/2 of it)
+MOE_LAYER_TOKENS = 256
+MOE_LAYER_CFS = (None, 0.5)
+MOE_ROW_RTOL = 0.03
+#: the op sites whose share phase moe's measured split prints
+MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
+             "expert_ffn")
 BENCH_KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
                  "fused_add_layer_norm", "rope", "swiglu", "attention_core",
                  "decode_core", "attention_full", "nms",
@@ -385,7 +435,8 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
     ``fused_add_rms_norm``; LayerNorm models two a layer and the final one,
     of which fusion folds one into ``fused_add_layer_norm``. SwiGLU is a
     kernel fused or not; unfused GeGLU and rope are the plain op chains, as
-    in the JAX package."""
+    in the JAX package. MLA adds its latent's RMSNorm a layer; an MoE layer
+    runs SwiGLU on its experts and, with shared experts, on theirs."""
     n = cfg.n_layers
     n_local = cfg.layer_kinds().count("local")
     if extend and n_local:
@@ -397,7 +448,7 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
     else:
         out = {"attention_core": n - n_local, "attention_window": n_local}
     if cfg.norm == "rmsnorm":
-        per_layer = 2 + 2 * cfg.post_norm + 2 * cfg.qk_norm
+        per_layer = 2 + 2 * cfg.post_norm + 2 * cfg.qk_norm + cfg.mla
         out["rms_norm"] = n * (per_layer - fused) + 1
         if fused:
             out["fused_add_rms_norm"] = n
@@ -406,7 +457,8 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
         if fused:
             out["fused_add_layer_norm"] = n
     if cfg.ffn == "swiglu" or (fused and cfg.ffn == "geglu"):
-        out[cfg.ffn] = n
+        n_moe = n - cfg.first_dense_layers if cfg.is_moe else 0
+        out[cfg.ffn] = n + n_moe * bool(cfg.n_shared_experts)
     if fused and cfg.pos_emb == "rope":
         out["rope"] = 2 * n
     return {k: v for k, v in out.items() if v}
@@ -441,7 +493,8 @@ def glu_sweep(torch, gen, dt, n: int = 1 << 16):
 
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
-    ones, bf16 and f32. Returns {kernel: max abs error over its cases}."""
+    ones, bf16 and f32. Returns ({kernel: max abs error over its cases},
+    the same over the MLA shapes)."""
     from repro_torch.kernels import attn_template, norms, rope
     from repro_torch.kernels import softmax_xent as xent
     from repro_torch.kernels import swiglu as glu
@@ -459,11 +512,12 @@ def check_kernels(torch, ops, ref, gen):
                 + mean).to(dt)
 
     def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False,
-                body=None, **extra):
+                body=None, mla=False, **extra):
         """``rms_scaled``: atol times the plain output's RMS where that is
         below 1 (the window fragment's cases, see the note at TOL);
         ``body``: the row norms' plan body, printed with the case, as is
-        ``extra`` (rope's plan)."""
+        ``extra`` (rope's plan); ``mla``: an MLA shape, whose worst error
+        is kept apart too."""
         torch.cuda.synchronize()
         atol, rtol = tol[dtname]
         err = (got.float() - want.float()).abs()
@@ -479,6 +533,8 @@ def check_kernels(torch, ops, ref, gen):
         if not ok:
             fail(f"{name} {case} {dtname}: kernel disagrees with plain version")
         worst[name] = max(worst[name], float(err.max()))
+        if mla:
+            worst_mla[name] = max(worst_mla.get(name, 0.0), float(err.max()))
 
     def exact(name, got, want, dtname, case, body=None):
         torch.cuda.synchronize()
@@ -490,6 +546,7 @@ def check_kernels(torch, ops, ref, gen):
                  "version's (one f32 add, rounded once, on both sides)")
 
     worst = dict.fromkeys(SOURCES, 0.0)
+    worst_mla = {}
     bodies = set()
 
     def body(x, dt, *others):
@@ -650,12 +707,17 @@ def check_kernels(torch, ops, ref, gen):
                 (1, 16, 16, 32, 32, 80, 80, 0),       # stablelm-3b's bucket
                 (1, 16, 64, 32, 32, 80, 80, 0),       # and its 16-token
                 (1, 16, 64, 32, 32, 80, 80, 16),      # chunks over a
-                (1, 16, 64, 32, 32, 80, 80, 32)]:     # 64-deep paged view
+                (1, 16, 64, 32, 32, 80, 80, 32),      # 64-deep paged view
+                (1, 16, 16, 16, 16, 192, 128, 0),     # deepseek-v2-lite's
+                (1, 256, 256, 16, 16, 192, 128, 0),   # MLA prefill, and its
+                (1, 64, 512, 16, 16, 192, 128, 448),  # last 64-chunk
+                (2, 37, 200, 4, 2, 192, 128, 100)]:   # its GQA, a ragged chunk
             q = randn((b, sq, hq, dk), dt)
             k, v = randn((b, skv, hkv, dk), dt), randn((b, skv, hkv, dv), dt)
             compare("attention_core", ops.attention_core(q, k, v, q_offset=off),
                     ref.attention(q, k, v, q_offset=off), dtname,
-                    f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} dv={dv} q_offset={off}")
+                    f"q{[b, sq, hq, dk]} kv{[b, skv, hkv]} dv={dv} q_offset={off}",
+                    mla=dk > 128)
         # a chunk of a chunked prefill over a deeper cache whose rows past
         # the chunk are NaN (stale rows of a paged cache are finite, NaN
         # shows any of them read): the output stays finite and equals the
@@ -699,6 +761,29 @@ def check_kernels(torch, ops, ref, gen):
             compare("decode_core", got, ref.decode_attention(q, k, v, n), dtname,
                     f"q{[b, 1, hq, dk]} kv{[b, t, hkv]} dv={dv} lengths={lens} "
                     f"n_split={attn_template.decode_splits(b, hkv, t, sms)}")
+            if 0 in lens and got[lens.index(0)].float().abs().any():
+                fail("decode_core: lengths 0 must give exact zeros")
+        # decode's wide body: deepseek-v2-lite's absorbed MLA decode (q
+        # [B,1,16,576] over the latent keys [B,T,1,576] and values
+        # [B,T,1,512], scale 1/sqrt(192)) at kv 512 with ragged lengths, 1
+        # and 0 among them, and over 4096 keys in many splits; a group of 8
+        # at Dv 256 (two key phases in P.V)
+        for b, t, hq, dk, dv, lens in [
+                (4, 512, 16, 576, 512, [1, 0, 300, 512]),
+                (4, 512, 16, 576, 512, [64, 65, 511, 129]),
+                (2, 4096, 16, 576, 512, [4096, 17]),
+                (3, 200, 8, 264, 256, [200, 3, 0])]:
+            q = randn((b, 1, hq, dk), dt)
+            k, v = randn((b, t, 1, dk), dt), randn((b, t, 1, dv), dt)
+            n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            sc = 1.0 / math.sqrt(192)
+            got = ops.decode_core(q, k, v, n, scale=sc)
+            compare("decode_core", got,
+                    ref.decode_attention(q, k, v, n, scale=sc), dtname,
+                    f"q{[b, 1, hq, dk]} kv{[b, t, 1]} dv={dv} lengths={lens} "
+                    f"scale=1/sqrt(192) n_split="
+                    f"{attn_template.decode_splits(b, 1, t, sms)} (wide body)",
+                    mla=True)
             if 0 in lens and got[lens.index(0)].float().abs().any():
                 fail("decode_core: lengths 0 must give exact zeros")
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
@@ -806,7 +891,7 @@ def check_kernels(torch, ops, ref, gen):
         if not (got[at + 1] and not got[above + 1]):
             fail(f"nms {case}: IoU exactly 0.5 must keep (box {at + 1}), one "
                  f"ulp above suppress (box {above + 1})")
-    return worst
+    return worst, worst_mla
 
 
 def random_boxes(rng, n, span=60.0):
@@ -1034,6 +1119,45 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         lambda: F.scaled_dot_product_attention(qt1, kt1, vt1, attn_mask=mask),
         2 * (2 * b * hq * dh + 2 * kv * hkv * dh), 4 * kv * hq * dh, "bfloat16")
 
+    # MLA (deepseek-v2-lite-16b): attention_core's (192, 128) instantiation
+    # at its 256-token prefill bucket, causal SDPA beside it; decode_core's
+    # wide body on the absorbed decode of its 4 slots over a 512-deep latent
+    # cache at the serve run's lengths, SDPA beside it with the mask spelled
+    # out and the one KV head expanded to the 16 query heads
+    b, s, h, dk, dv = 1, 256, 16, 192, 128
+    q, k, v = randn((b, s, h, dk)), randn((b, s, h, dk)), randn((b, s, h, dv))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    visible = s * (s + 1) // 2
+    mla_prefill = entry(
+        f"q,k[1,{s},{h},{dk}] v[1,{s},{h},{dv}] bf16 causal "
+        "(deepseek-v2-lite MLA prefill bucket)",
+        lambda: ops.attention_core(q, k, v), lambda: ref.attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        2 * b * s * h * (2 * dk + 2 * dv),
+        2 * b * h * visible * (dk + dv), "bfloat16", body)
+    b, t, h, dk, dv = 4, 512, 16, 576, 512
+    lens_l = decode_lengths["deepseek-v2-lite-16b"]
+    sc = 1.0 / math.sqrt(192)
+    q1 = randn((b, 1, h, dk))
+    k1, v1 = randn((b, t, 1, dk)), randn((b, t, 1, dv))
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None])[:, None, None, :]
+    qt1 = q1.transpose(1, 2).contiguous()
+    kt1, vt1 = (a.expand(b, t, h, a.shape[3]).transpose(1, 2).contiguous()
+                for a in (k1, v1))
+    kv = sum(lens_l)
+    mla_decode = entry(
+        f"q[4,1,{h},{dk}] kv[4,{t},1,{dk}/{dv}] bf16 lengths={lens_l} "
+        "scale=1/sqrt(192) (deepseek-v2-lite absorbed MLA decode)",
+        lambda: ops.decode_core(q1, k1, v1, lens, scale=sc),
+        lambda: ref.decode_attention(q1, k1, v1, lens, scale=sc),
+        lambda: F.scaled_dot_product_attention(qt1, kt1, vt1, attn_mask=mask,
+                                               scale=sc),
+        2 * (b * h * dk + kv * (dk + dv) + b * h * dv),
+        2 * kv * h * (dk + dv), "bfloat16")
+    extra["attention_core mla prefill"] = mla_prefill
+    extra["decode_core mla"] = mla_decode
+
     # attention_core at the last 64-token chunk of a chunked prefill into a
     # 512-deep cache (stablelm-3b, q_offset 448); the library call is SDPA
     # with the causal-offset mask spelled out
@@ -1080,6 +1204,7 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
             2 * (2 * b * h * dh + 2 * kv * h * dh), 4 * kv * h * dh, "bfloat16")
         if arch == "llama2-7b":
             out["attention_core"], out["decode_core"] = attn, dec
+            attn["mla"], dec["mla"] = mla_prefill, mla_decode
         else:
             extra["attention_core"], extra["decode_core"] = attn, dec
     # attention_full: vit-b16-cls's 196 tokens (the kernels line), the
@@ -1286,7 +1411,8 @@ def check_memory_back(torch, before: int, what: str) -> int:
 def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
     """The bytes one decode step must move at positions ``pos``: every
     weight once (an untied embedding's and a learned position table's
-    lookups read one row a slot, a tied one is read whole by the logits),
+    lookups read one row a slot, a tied one is read whole by the logits;
+    the MoE dispatch runs every expert, so every expert's weights),
     each row's ``pos + 1`` cached keys and values in every layer (a ring's
     at most its window) and, paged, the (B, max_len) view gathered: read
     from the pools once and written once."""
@@ -1297,6 +1423,8 @@ def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
         if t is not None and (table == "pos" or "head" in params):
             weights -= (t.shape[0] - b) * t.shape[1] * t.element_size()
     kv_row = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * KV_BYTES
+    if cfg.mla:                       # the latent and the rope key
+        kv_row = (cfg.kv_lora_rank + cfg.qk_rope_dim) * KV_BYTES
     keys = sum(min(int(p) + 1, cfg.window_size if kind == "local" else max_len)
                for kind in cfg.layer_kinds() for p in pos)
     view = 2 * b * max_len * kv_row * cfg.n_layers if paged else 0
@@ -1501,6 +1629,224 @@ def serve(torch, ops, _build, E, params, cfg, prompts, fused: bool,
     del engine
     out["mem_extra"] = check_memory_back(torch, mem0, what)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase moe: qwen2-moe-a2.7b and deepseek-v2-lite-16b served at full size
+# ---------------------------------------------------------------------------
+
+def moe_reference(torch, p, x, cfg):
+    """One MoE layer on x (1, T, D), computed apart from models/moe.py:
+    the router logits by the same bf16 product, the softmax in f32, each
+    token's top k by a stable descending sort on the host (ties to the
+    lower expert), the capacity walk over the flat (token, choice) stream
+    in a host loop, each expert's SwiGLU FFN on its kept rows in f32 and
+    the gate-weighted sum, plus the shared experts in f32. Returns (y (T,
+    D) f32, dropped choices)."""
+    import torch.nn.functional as F
+
+    t, e, k = x.shape[1], cfg.n_experts, cfg.top_k
+    logits = torch.matmul(x, p["router"])[0]
+    probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+    ids = np.argsort(-probs, axis=-1, kind="stable")[:, :k]
+    gates = np.take_along_axis(probs, ids, -1)
+    gates = gates / np.maximum(gates.sum(-1, keepdims=True), 1e-9)
+    cap = max(int(t * k / e * cfg.capacity_factor), 4)
+    seen, kept = np.zeros(e, np.int64), np.zeros((t, k), bool)
+    for i in range(t):
+        for j in range(k):
+            kept[i, j] = seen[ids[i, j]] < cap
+            seen[ids[i, j]] += 1
+    xf = x[0].float()
+
+    def ffn(w, h, ex=None):
+        pick = (lambda a: a.float()) if ex is None else (lambda a: a[ex].float())
+        return (F.silu(h @ pick(w["w_gate"])) * (h @ pick(w["w_up"]))) \
+            @ pick(w["w_down"])
+    y = torch.zeros_like(xf)
+    for ex in range(e):
+        rows, js = np.nonzero((ids == ex) & kept)
+        if len(rows):
+            r = torch.from_numpy(rows).cuda()
+            g = torch.from_numpy(gates[rows, js]).float().cuda()
+            y.index_add_(0, r, ffn(p["experts"], xf[r], ex) * g[:, None])
+    if cfg.n_shared_experts:
+        y += ffn(p["shared"], xf)
+    return y, int((~kept).sum())
+
+
+def moe_layer_check(torch, ops, gen, params, cfg) -> None:
+    """The last layer's MoE on MOE_LAYER_TOKENS random rows, on the kernel
+    path, against :func:`moe_reference`, at each of MOE_LAYER_CFS; fails
+    where a token row differs by more than MOE_ROW_RTOL of its norm, or no
+    choice was dropped at the low capacity."""
+    from repro_torch.models import moe as M
+
+    p = params["layers"][-1]["moe"]
+    x = (torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=gen,
+                     device="cuda")).to(torch.bfloat16)
+    for cf in MOE_LAYER_CFS:
+        c = cfg if cf is None else cfg.replace(capacity_factor=cf)
+        before = ops.launches["swiglu"]
+        y, _ = M.moe_forward(p, x, c, with_aux=False)
+        want, dropped = moe_reference(torch, p, x, c)
+        torch.cuda.synchronize()
+        err = (y[0].float() - want).norm(dim=-1) / want.norm(dim=-1)
+        worst = float(err.max())
+        swiglus = ops.launches["swiglu"] - before
+        emit(phase="moe", model=cfg.name, step="layer vs reference",
+             tokens=MOE_LAYER_TOKENS, capacity_factor=c.capacity_factor,
+             capacity=M.capacity(MOE_LAYER_TOKENS, c), dropped_choices=dropped,
+             worst_row_rel_err=worst, limit=MOE_ROW_RTOL,
+             swiglu_launches=swiglus)
+        if not worst <= MOE_ROW_RTOL or not torch.isfinite(y).all():
+            fail(f"moe: {cfg.name} cf={c.capacity_factor}: a token row "
+                 f"{worst:.4f} of its norm from the reference")
+        if cf is not None and dropped == 0:
+            fail(f"moe: {cfg.name} cf={cf} dropped no choice")
+        if swiglus != 1 + bool(cfg.n_shared_experts):
+            fail(f"moe: {cfg.name}: {swiglus} swiglu launches in one layer")
+
+
+def routing_swaps(torch, nn, params, cfg, prompts, fused: bool,
+                  max_len: int) -> None:
+    """Prints how many (token, MoE layer) pairs choose another top-k set
+    of experts on the kernel path than on the plain path, over the
+    prefills of ``prompts``: the routing is discontinuous, so an ulp apart
+    upstream can swap an expert near a tie."""
+    from repro_torch.models import lm_prefill
+    from repro_torch.models import moe as M
+
+    orig = M.top_k
+
+    def routes(backend):
+        got = []
+
+        def record(probs, k):
+            vals, idx = orig(probs, k)
+            got.append(torch.sort(idx, dim=-1).values)
+            return vals, idx
+        M.top_k = record
+        try:
+            with nn.backend(backend), nn.fuse(fused):
+                for prompt in prompts:
+                    lm_prefill(params, torch.tensor([prompt], device="cuda"),
+                               cfg, max_len=max_len)
+        finally:
+            M.top_k = orig
+        return got
+    kern, plain = routes("cuda"), routes("torch")
+    swapped = sum(int((a != b).any(-1).sum()) for a, b in zip(kern, plain))
+    emit(phase="moe", model=cfg.name, fused=fused,
+         step="routing swaps, kernel vs plain path (prefills)",
+         prompt_lens=[len(p) for p in prompts], swapped_token_layers=swapped,
+         token_layers=sum(a.shape[0] * a.shape[1] for a in kern))
+
+
+def moe_split(torch, nn, ops, params, cfg, rng) -> None:
+    """The measured split of one eager b1 s16 ``lm_forward`` (the kernel
+    path, unfused) through ``Workload.profile("measured")``, with the
+    shares of the MoE sites, beside the ``eager-modeled:h100`` view of its
+    capture."""
+    from repro_torch.core import H100, capture, model_records
+    from repro_torch.models import lm_forward
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 16))).cuda()
+    name = f"{cfg.name} unfused b-1 s-16 bf16"
+    w, prof, wall_ms, per = measured(ops, lm_forward, (params, toks, cfg),
+                                     name, False)
+    if per != per_forward_launches(cfg, False):
+        fail(f"moe: {name}: launched {per} per forward, expected "
+             f"{per_forward_launches(cfg, False)}")
+    sites = {}
+    for (g, site), t, _ in prof.top_op_sites(10 ** 6):
+        if site in MOE_SITES:
+            sites[site] = sites.get(site, 0.0) + t
+    emit_profile("moe", prof, wall_ms, per, layers=cfg.n_layers,
+                 site_frac={k: round(sites.get(k, 0.0) / prof.total_seconds, 4)
+                            for k in MOE_SITES},
+                 site_ms={k: round(sites.get(k, 0.0) * 1e3, 4)
+                          for k in MOE_SITES})
+    missing = [k for k in MOE_SITES if not sites.get(k)]
+    if missing:
+        fail(f"moe: {name}: no device time at the sites {missing}")
+    fn, args = w.build()
+    modeled = model_records(capture(fn, *args), w.name, H100)
+    emit_modeled("eager-modeled:h100", modeled, prof, phase="moe")
+
+
+def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+        launches: dict, decode_lengths: dict, paths_only: bool = False) -> None:
+    """Phase ``moe``: each of MOE_ARCHS at full size in bf16 (random
+    weights from SEED): its MoE layer against the reference; then unfused
+    and fused, the ``Engine`` (4 slots, ``max_len`` 512, 6 requests of
+    NEW_TOKENS tokens) eager and graphed, tokens identical, decode tok/s
+    and the replay beside the step's byte bound; the ``PagedEngine``
+    graphed, cold with the Engine's tokens, and in 64-token chunks with
+    prefix hits, every request finished and every block back;
+    the routing swaps and the kernel path's logits against the plain
+    path's under the anchored rule; and the measured split of one eager
+    forward. Each model's memory comes back before the next. The lengths
+    of the last decode step of the first 4 requests go to
+    ``decode_lengths`` (phase 5 times the MLA decode there)."""
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+        t0 = time.perf_counter()
+        mem0 = torch.cuda.memory_allocated()
+        params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
+        torch.cuda.synchronize()
+        emit(phase="moe", step="init", config=cfg.name,
+             n_params=sum(t.numel() for t in _leaves(params)),
+             init_s=round(time.perf_counter() - t0, 3),
+             mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+        rng = np.random.default_rng(SEED)
+        plens = [int(n) for n in rng.integers(5, 201, 6)]
+        prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+                   for n in plens]
+        chunked_set = paged_prompts(np.random.default_rng(SEED + 1), cfg)
+        decode_lengths[arch] = [n + NEW_TOKENS - 1 for n in plens[:4]]
+        moe_layer_check(torch, ops, gen, params, cfg)
+        max_len = 512
+        for fused in (False, True):
+            if not paths_only:
+                eager = serve(torch, ops, _build, Engine, params, cfg, prompts,
+                              fused, max_len, "engine", cuda_graph=False,
+                              repeats=REPEATS)
+                graphed = serve(torch, ops, _build, Engine, params, cfg,
+                                prompts, fused, max_len, "engine",
+                                same_as=eager["tokens"], repeats=REPEATS)
+                emit_graph_vs_eager("moe", cfg, fused, "engine", graphed, eager)
+                # the PagedEngine as it serves by default, its step graphed:
+                # cold, the Engine's tokens exactly; chunked with prefix
+                # hits, held to finishing (a chunk's tokens set the
+                # capacity, so the routing may differ from a whole prefill)
+                p_graph = serve(torch, ops, _build, PagedEngine, params, cfg,
+                                prompts, fused, max_len, "cold",
+                                want=graphed["tokens"], exact=True,
+                                block_size=BLOCK_SIZE, prefix_caching=False,
+                                chunk_size=None)
+                c_graph = serve(torch, ops, _build, PagedEngine, params, cfg,
+                                chunked_set, fused, max_len, "chunked+cached",
+                                block_size=BLOCK_SIZE, prefix_caching=True,
+                                chunk_size=CHUNK)
+                for run in (eager, graphed, p_graph, c_graph):
+                    for k, n in run["launches"].items():
+                        launches[k] += n
+            routing_swaps(torch, nn, params, cfg, prompts[:4], fused, max_len)
+            compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len)
+        if not paths_only:
+            moe_split(torch, nn, ops, params, cfg, rng)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the weights are gone (state made once in the process, the shared
+        # capture stream's workspace among it, may stay)
+        left = torch.cuda.memory_allocated() - mem0
+        emit(phase="moe", step="freed", config=cfg.name, left_bytes=left)
+        if left > 1 << 30:
+            fail(f"moe: {cfg.name}: {left} bytes left after its weights were "
+                 "freed")
 
 
 # ---------------------------------------------------------------------------
@@ -1776,7 +2122,7 @@ def calibrated(kept, rows) -> None:
                      prof, variant=label)
 
 
-def emit_modeled(view, modeled, measured, **info):
+def emit_modeled(view, modeled, measured, phase="qdq", **info):
     """One JSON line of a modeled profile of the records a measured one
     ran: its split and per-group ms, and the measured profile's drift
     against it (measured / modeled per group, the worst in doublings)."""
@@ -1784,7 +2130,7 @@ def emit_modeled(view, modeled, measured, **info):
 
     split = modeled.split
     drift = drift_by_group(measured.group_seconds, modeled.group_seconds)
-    emit(phase="qdq", model=modeled.name, view=view, mode=modeled.mode,
+    emit(phase=phase, model=modeled.name, view=view, mode=modeled.mode,
          n_ops=modeled.n_ops, modeled_ms=round(modeled.total_seconds * 1e3, 4),
          measured_ms=round(measured.total_seconds * 1e3, 4),
          gemm_frac=round(split["gemm_frac"], 4),
@@ -1794,7 +2140,7 @@ def emit_modeled(view, modeled, measured, **info):
          drift_by_group={g: round(r, 4) for g, r in drift.items()},
          max_abs_log2_drift=round(max_abs_log2_drift(drift), 4), **info)
     if not (modeled.total_seconds > 0 and drift):
-        fail(f"qdq: {modeled.name} {view}: nothing modeled")
+        fail(f"{phase}: {modeled.name} {view}: nothing modeled")
 
 
 def emit_profile(phase, prof, wall_ms, per_forward, **info):
@@ -2240,16 +2586,22 @@ def main(argv=None) -> int:
     # -- phase 2: kernels --------------------------------------------------
     gen = torch.Generator("cuda").manual_seed(SEED)
     if not args.paths_only:
-        worst = check_kernels(torch, ops, ref, gen)
+        worst, worst_mla = check_kernels(torch, ops, ref, gen)
 
     lap("kernels")
-    # -- phases 3 and 4, one model at a time -------------------------------
     launches = dict.fromkeys(SOURCES, 0)
+    decode_lengths = {}
+    # -- phase moe: qwen2-moe-a2.7b and deepseek-v2-lite-16b, full size -----
+    moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+        launches, decode_lengths, args.paths_only)
+
+    lap("moe")
+    # -- phases 3 and 4, one model at a time -------------------------------
     qdq_kept = []           # (model, variant, measured profile, records)
     nms_inputs = None
-    decode_lengths = {}
     for arch in ARCHS:
-        cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+        cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16",
+                                       n_layers=SERVE_LAYERS[arch])
         t0 = time.perf_counter()
         params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
         torch.cuda.synchronize()
@@ -2422,6 +2774,12 @@ def main(argv=None) -> int:
             "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms",
                                                          "amax_ms")
                                      if k in tm}})
+        if "mla" in tm:         # MLA's shapes, beside the main path's
+            m = tm["mla"]
+            kernels[-1]["mla"] = {
+                "shape": m["shape"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "library_ms": m["library_ms"], "bound_ms": m["bound"][0],
+                "bound_by": m["bound"][1], "max_abs_err": worst_mla[name]}
     lap("timing")
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2),
          bench_s=round(bench_s, 2), phase_s=walls)

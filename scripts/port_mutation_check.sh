@@ -1,15 +1,19 @@
 #!/bin/bash
 # What chip_smoke.py's checks see of a kernel broken on purpose.
 #
-# Each mutation copies chip_smoke.py and src/ into build/mutants/<name>/,
-# changes one kernel source there with sed, and runs the copy's
-# chip_smoke.py on the card (phase 2 stops at the first kernel that
-# disagrees with its plain version). The checkout is never modified.
+# Each mutation copies chip_smoke.py, src/, scripts/ and tests/ into
+# build/mutants/<name>/, changes one source there with sed (a kernel under
+# csrc/, or a module of src/repro_torch/ where the name has a slash), and
+# runs the copy's chip_smoke.py on the card (phase 2 stops at the first
+# kernel that disagrees with its plain version, phase moe at the first MoE
+# layer that disagrees with its reference). A mutation marked cpu runs the
+# copy's CPU tests instead (they import jax: run it where the JAX package
+# is installed). The checkout is never modified.
 #
 #   bash scripts/port_mutation_check.sh             # every mutation
 #   bash scripts/port_mutation_check.sh nms_ge ...  # the named ones
 #
-# from the repo root, on a GPU machine.
+# from the repo root, on a GPU machine (the cpu ones anywhere).
 #
 # Writes each run's output to build/mutants/<name>.txt and prints, per
 # mutation, the exit code and the failing check.
@@ -18,15 +22,25 @@ ONLY="$*"
 R=$(pwd)
 OUT=$R/build/mutants
 mkdir -p "$OUT"
-mut() {  # name, source file under csrc/, sed script
+mut() {  # name, source (csrc/ file, or path under src/repro_torch/), sed
+         # script[, "cpu" and the pytest arguments that must fail]
   if [ -n "$ONLY" ] && ! [[ " $ONLY " == *" $1 "* ]]; then
     return
   fi
   local d=$OUT/$1 src=src/repro_torch/kernels/csrc/$2
-  rm -rf "$d"; mkdir -p "$d"; cp -r "$R/chip_smoke.py" "$R/src" "$R/scripts" "$d/"
+  [[ $2 == */* ]] && src=src/repro_torch/$2
+  rm -rf "$d"; mkdir -p "$d"
+  cp -r "$R/chip_smoke.py" "$R/src" "$R/scripts" "$R/tests" "$R/pyproject.toml" "$d/"
   sed -i "$3" "$d/$src"
   if cmp -s "$R/$src" "$d/$src"; then echo "mutation $1 NOT APPLIED"; return; fi
   diff "$R/$src" "$d/$src"
+  if [ "${4:-}" = cpu ]; then
+    (cd "$d" && PYTHONPATH=src timeout 400 python3 -m pytest -q -x \
+       -p no:cacheprovider "${@:5}") > "$OUT/$1.txt" 2>&1
+    echo "mutation $1 (CPU tests): rc=$?"
+    grep -E '^(FAILED|ERROR)|passed|failed' "$OUT/$1.txt" | head -3 | cut -c 1-400
+    return
+  fi
   (cd "$d" && timeout 400 python3 chip_smoke.py) > "$OUT/$1.txt" 2>&1
   echo "mutation $1: rc=$?"
   grep -E '"ok": false|RuntimeError' "$OUT/$1.txt" | head -3 | cut -c 1-400
@@ -74,6 +88,19 @@ mut window_late_start attention.cu \
 # the bf16 body skipping the causal mask on the diagonal tile
 mut attn_diag_unmasked attention.cu \
   's/const bool diag = MASK != kFull \&\& k0/const bool diag = false \&\& k0/'
+# decode's wide body (MLA's Dv 512) never running its last P.V column
+# group: columns 508-511 of every head stay zero
+mut decode_wide_drops_last_group decode.cu \
+  's/^    if (ph < nph) {$/    if (ph < nph \&\& !(PW == 4 \&\& col == ncol - 1)) {/'
+# the MoE combine ignoring keep: a dropped choice reads the clamped row
+# e*C - 1 of another token (phase moe's layer reference catches it)
+mut moe_combine_ignores_keep models/moe.py \
+  's/gathered = torch.where(keep\[0, :, None\], gathered, 0.0)/gathered = gathered/'
+# top-k breaking ties toward the higher index (torch.topk may; jax.lax.top_k
+# takes the lower): the CPU tie test against JAX fails
+mut topk_ties_high models/moe.py \
+  's/vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)/vals, idx = (t.flip(-1) for t in torch.sort(probs, dim=-1, stable=True))/' \
+  cpu tests/test_torch_moe.py -k ties
 # decode's merge adding the splits' accumulators without e^(m_s - m)
 mut decode_combine_no_rescale decode.cu \
   's/a += w \* __ldcg(pa + s \* GD + oi);/a += __ldcg(pa + s * GD + oi);/'

@@ -10,7 +10,9 @@ when ``cfg.scan_layers`` (the default, kept by ``reduced``):
 ``len(lead) + r * len(pattern) + j`` is slice ``r`` of position ``j``. The
 port's params hold one dict per layer (``params["layers"]``) in layer
 order, lead, then scan, then trail; ``init_lm_cache``'s caches unstack the
-same way (a ring's int32 ``"pos"`` side-car crosses as it is). Every
+same way (a ring's int32 ``"pos"`` side-car and MLA's ``"c"`` / ``"kr"``
+cross as they are). An MoE layer's expert leaves keep their leading (E,)
+dim; deepseek-v2-lite's dense first layer is ``lead``. Every
 other top-level entry (``embed``, absent where the config takes
 embeddings; the learned position table ``pos``, ``final_norm``, ``head``)
 is carried as it is, and an entry this module does not know raises
@@ -47,13 +49,14 @@ def _map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
-def _unstack(stacked: List[Any], cfg: ModelConfig) -> List[Any]:
-    """Per-layer trees from the per-pattern-position stacks, in layer order."""
+def _unstack(stacked: List[Any], cfg: ModelConfig, n_rep: int) -> List[Any]:
+    """Per-layer trees from the per-pattern-position stacks of ``n_rep``
+    repeats, in layer order."""
     pattern = cfg.block_pattern
     if len(stacked) != len(pattern):
         raise ValueError(f"{len(stacked)} stacks for a pattern of {len(pattern)}")
     layers = []
-    for r in range(cfg.n_rep):
+    for r in range(n_rep):
         for j in range(len(pattern)):
             s = stacked[j]
             layers.append(s[r] if isinstance(s, list)
@@ -62,13 +65,23 @@ def _unstack(stacked: List[Any], cfg: ModelConfig) -> List[Any]:
 
 
 def _layers(tree: dict, cfg: ModelConfig) -> List[Any]:
-    """Every layer's tree in layer order: lead, the unstacked scan, trail."""
-    layers = [*tree.get("lead", []), *_unstack(tree["scan"], cfg),
-              *tree.get("trail", [])]
+    """Every layer's tree in layer order: lead, the unstacked scan, trail.
+    The scan holds the layers the leaders and the trail leave: an MoE
+    config's ``first_dense_layers`` dense leaders are ``lead``, with
+    another structure than the MoE layers of the scan."""
+    lead, trail = tree.get("lead", []), tree.get("trail", [])
+    n_rep = (cfg.n_layers - len(lead) - len(trail)) // len(cfg.block_pattern)
+    layers = [*lead, *_unstack(tree["scan"], cfg, n_rep), *trail]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree for "
                          f"{cfg.n_layers}")
     return layers
+
+
+def tensors_from_jax(tree: Any, device="cuda") -> Any:
+    """Any tree of numpy leaves (a JAX ``init_moe`` / ``init_mla`` tree,
+    a cache) as the same tree of tensors, lists for tuples."""
+    return _map(lambda a: _tensor(a, device), tree)
 
 
 #: top-level entries of ``init_lm``'s tree carried as they are
@@ -83,9 +96,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if unknown:
         raise ValueError(f"{cfg.name}: params entries the bridge does not "
                          f"know: {unknown}")
-    out = {k: _map(lambda a: _tensor(a, device), tree[k])
+    out = {k: tensors_from_jax(tree[k], device)
            for k in _CARRIED if k in tree}
-    out["layers"] = [_map(lambda a: _tensor(a, device), layer)
+    out["layers"] = [tensors_from_jax(layer, device)
                      for layer in _layers(tree, cfg)]
     return out
 
@@ -108,7 +121,7 @@ def vision_params_from_jax(tree: dict, cfg: ModelConfig,
     if len(tree["blocks"]) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(tree['blocks'])} blocks for "
                          f"{cfg.n_layers} layers")
-    return {k: _map(lambda a: _tensor(a, device), v) for k, v in tree.items()}
+    return {k: tensors_from_jax(v, device) for k, v in tree.items()}
 
 
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
@@ -118,5 +131,5 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
     if unknown:
         raise ValueError(f"{cfg.name}: cache entries the bridge does not "
                          f"know: {unknown}")
-    return [_map(lambda a: _tensor(a, device), layer)
+    return [tensors_from_jax(layer, device)
             for layer in _layers(tree, cfg)]

@@ -10,10 +10,13 @@ llama2-7b, bert-base and the ``vit-b16`` embeddings stub), gemma3-27b
 ported features, stablelm-3b (the serving case: LayerNorm, MHA of head
 dim 80, rope on a quarter of it), granite-3-8b (GQA 32/8, tied),
 chameleon-34b (qk-norm, GQA 64/8) and qwen1.5-110b (QKV biases, GQA 64/8;
-220 GB of bf16 weights, so it runs reduced, on the CPU only), run through
-the LM stack; the vision family (``vit-b16-cls``,
-``repro/configs/vit_b16.py``, and ``detector-vit-s``,
-``repro/configs/detector_vit_s.py``) through ``repro_torch.models.vision``.
+220 GB of bf16 weights, so it runs reduced, on the CPU only), and the
+mixture-of-experts configs qwen2-moe-a2.7b
+(``repro/configs/qwen2_moe_a2_7b.py``) and deepseek-v2-lite-16b (MLA,
+``repro/configs/deepseek_v2_lite_16b.py``), run through the LM stack;
+the vision family (``vit-b16-cls``, ``repro/configs/vit_b16.py``, and
+``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
+``repro_torch.models.vision``.
 """
 
 from __future__ import annotations
@@ -190,6 +193,66 @@ _CONFIGS: Dict[str, ModelConfig] = {
         causal=False,               # encoder-only: no decode shapes
         tie_embeddings=True,
     ),
+    # Qwen1.5-MoE-A2.7B (repro/configs/qwen2_moe_a2_7b.py): every layer
+    # MoE, 60 routed experts top-4 and 4 shared, of width 1408
+    "qwen2-moe-a2.7b": ModelConfig(
+        remat_policy="proj",
+        name="qwen2-moe-a2.7b",
+        family="moe",
+        n_layers=24,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=16,
+        head_dim=128,
+        d_ff=1408,
+        vocab_size=151936,
+        block_pattern=("attn",),
+        n_experts=60,
+        top_k=4,
+        n_shared_experts=4,
+        moe_d_ff=1408,
+        capacity_factor=1.25,
+        first_dense_layers=0,
+        pos_emb="rope",
+        norm="rmsnorm",
+        ffn="swiglu",
+        qkv_bias=True,
+        causal=True,
+        tie_embeddings=False,
+        fsdp=True,
+    ),
+    # DeepSeek-V2-Lite (repro/configs/deepseek_v2_lite_16b.py): MLA over a
+    # 512-d latent and a 64-d rope key; a dense first layer (d_ff 10944),
+    # then MoE, 64 routed experts top-6 and 2 shared, of width 1408
+    "deepseek-v2-lite-16b": ModelConfig(
+        remat_policy="proj",
+        name="deepseek-v2-lite-16b",
+        family="moe",
+        n_layers=27,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=16,
+        d_ff=10944,
+        vocab_size=102400,
+        block_pattern=("attn",),
+        mla=True,
+        kv_lora_rank=512,
+        qk_nope_dim=128,
+        qk_rope_dim=64,
+        v_head_dim=128,
+        n_experts=64,
+        top_k=6,
+        n_shared_experts=2,
+        moe_d_ff=1408,
+        capacity_factor=1.25,
+        first_dense_layers=1,
+        pos_emb="rope",
+        norm="rmsnorm",
+        ffn="swiglu",
+        causal=True,
+        tie_embeddings=False,
+        fsdp=True,
+    ),
     # the embeddings stub: the LM stack on precomputed patch embeddings
     "vit-b16": ModelConfig(
         name="vit-b16",
@@ -281,6 +344,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests (as ``repro.configs.reduced``)."""
     pat = cfg.block_pattern
     n_layers = len(pat) if len(pat) > 1 else 2
+    if cfg.is_moe and cfg.first_dense_layers:
+        n_layers += cfg.first_dense_layers
     n_heads = min(cfg.n_heads, 4)
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
     while n_heads % n_kv:
@@ -305,6 +370,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         dtype="float32",
         param_dtype="float32",
     )
+    if cfg.is_moe:
+        kw.update(n_experts=8, top_k=min(cfg.top_k, 2), moe_d_ff=2 * d_model,
+                  n_shared_experts=min(cfg.n_shared_experts, 1))
+    if cfg.mla:
+        kw.update(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
+                  v_head_dim=32, head_dim=48)
     kw["window_size"] = min(cfg.window_size, 64)
     if cfg.is_vision:
         # a 4x4 patch grid (16 tokens) keeps the CPU forward tiny while

@@ -15,6 +15,11 @@ Both kernels read and write the JAX layouts directly — q (B,S,Hq,Dk),
 k (B,T,Hkv,Dk), v (B,T,Hkv,Dv) — so no operand is transposed or padded.
 Callers go through ``repro_torch.kernels.ops``.
 
+Head dims: both up to 128, and MLA's: the causal prefill at Dk 192 / Dv
+128 and the absorbed decode at Dk 576 / Dv 512 with one KV head for a
+group of 16 (:data:`PREFILL_MAX_DIMS`, :data:`DECODE_MAX_DIMS`); a pair
+outside raises.
+
 In bf16 the prefill kernels run their products on the tensor cores
 (``mma.sync``; P goes to P.V as two bf16 terms, its bf16 head and the
 bf16 of the remainder, ``csrc/attention.cu``); in f32 they keep the FMA
@@ -32,9 +37,42 @@ import torch
 
 from . import _build
 
-#: the largest head dims and GQA group the kernels take (csrc kDMax/kGMax)
-MAX_HEAD_DIM = 128
+#: the (Dk, Dv) each kernel takes (csrc ``dims_taken``). Prefill: both up
+#: to 128, or, causal only, MLA's pair, Dk 192 with Dv 128 (128 + 64 /
+#: 128; the window and full masks have no such model).
+#: Decode: both up to 128, or Dk up to 576 and Dv up to 512, a multiple of
+#: 4, in its wide body (MLA's absorbed decode, 512 + 64 / 512)
+PREFILL_MAX_DIMS = (192, 128)
+DECODE_MAX_DIMS = (576, 512)
+#: the largest head dims of the kernels' common instantiation
+COMMON_MAX_DIM = 128
+#: the largest GQA group decode takes (csrc kGMax)
 MAX_GQA_GROUP = 32
+
+
+def prefill_dims_taken(dk: int, dv: int, causal: bool = True) -> bool:
+    """Whether the prefill kernels have an instantiation for (Dk, Dv):
+    both up to 128, or MLA's (192, 128) for the causal one."""
+    if 0 < dk <= COMMON_MAX_DIM and 0 < dv <= COMMON_MAX_DIM:
+        return True
+    return causal and (dk, dv) == PREFILL_MAX_DIMS
+
+
+def decode_dims_taken(dk: int, dv: int) -> bool:
+    """Whether ``csrc/decode.cu`` has a body for (Dk, Dv): its common one
+    (both up to 128) or its wide one (:func:`decode_wide`)."""
+    if dk <= 0 or dv <= 0:
+        return False
+    if not decode_wide(dk, dv):
+        return True
+    return dk <= DECODE_MAX_DIMS[0] and dv <= DECODE_MAX_DIMS[1] and dv % 4 == 0
+
+
+def decode_wide(dk: int, dv: int) -> bool:
+    """Whether (Dk, Dv) runs decode's wide body: tiles of 32 keys (bf16)
+    or 16 (f32) and four P.V columns a thread, where 64-key tiles of a
+    576 / 512 head would not fit a block's shared memory."""
+    return dk > COMMON_MAX_DIM or dv > COMMON_MAX_DIM
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p

@@ -54,17 +54,27 @@
 //   * Q is staged once, in K's second stage, and leaves it for registers
 //     before tile 1 arrives: two stages of K and V are all the shared
 //     memory (70 KB at head dim 128), so 3 CTAs of 4 warps fit an SM;
-//   * templated on the largest padded head dim (DMAX 64 or 128) and on
-//     whether both head dims equal it: then every fragment loop has a
-//     compile-time trip count, the body needs under 170 registers and is
-//     bound to 3 CTAs an SM (12 warps); other dims take the same body
-//     with runtime trip counts. A later head dim (192, 256) is another
-//     instantiation, at more registers.
+//   * templated on the largest padded head dims (DKMAX, DVMAX): (64, 64),
+//     (128, 128) and, causal only, MLA's prefill (192, 128), apart, since a (192, 192)
+//     body would hold 24 output tiles of accumulators where Dv needs 16,
+//     and on whether both head dims equal them: then every fragment loop
+//     has a compile-time trip count, the body needs under 170 registers
+//     and is bound to 3 CTAs an SM (12 warps; 2 CTAs at Dk 192, whose Q
+//     fragments take 48 registers more); other dims up to 128 take the
+//     same body with runtime trip counts, MLA's pair only its exact one.
+//     A later head dim (256) is another instantiation.
 // f32, Table 2's micro-benchmark path (attn_kernel): the FMA body. TF32
 //   products would keep ~3 decimal digits, outside f32's 2e-5 limit, so
 //   it stays on the CUDA cores: 256 threads per 64-row q tile, tiles
 //   widened to f32 in shared memory (common.cuh stage_rows), thread t
-//   owning 4 query rows (t/16) and every 16th score and output column.
+//   owning 4 query rows (t/16) and every 16th score and output column;
+//   instantiated for Dk and Dv up to 128 and, apart (its Q and K staging
+//   runs more copies a thread), for Dk 192 with Dv 128.
+//
+// The head dims taken are both up to 128, or, with the causal mask only
+// (MLA's prefill and chunked prefill; no window or full-mask model has
+// them), Dk 192 with Dv 128 (dims_taken); the entry refuses any other
+// pair.
 //
 // What both bodies do alike:
 //   * one CTA per (b*Hq, q tile); the TPU grid's sequential KV axis
@@ -102,14 +112,22 @@ constexpr int kBK = 64;        // keys per staged tile
 constexpr int kThreads = 256;
 constexpr int kRows = 4;       // query rows per thread
 constexpr int kGroup = 16;     // threads per row group (one half warp)
-constexpr int kDMax = 128;     // largest Dk and Dv taken
+constexpr int kDMax = 128;     // largest Dk and Dv of the common instantiation
+constexpr int kDkWide = 192;   // MLA's Dk (nope 128 + rope 64), with Dv 128
 constexpr int kSCols = kBK / kGroup;    // score columns per thread
-constexpr int kOCols = kDMax / kGroup;  // output columns per thread
 
 // the mask fragments (MASK): causal, causal within a window, full
 constexpr int kCausal = 0;
 constexpr int kWindow = 1;
 constexpr int kFull = 2;
+
+// The head dims an instantiation takes: both up to 128, or, for the
+// causal mask (MLA's prefill and chunks), Dk 192 with Dv 128; nothing
+// else is computed
+__host__ __device__ __forceinline__ bool dims_taken(int dk, int dv, int mask) {
+  if (dk > 0 && dv > 0 && dk <= kDMax && dv <= kDMax) return true;
+  return mask == kCausal && dk == kDkWide && dv == kDMax;
+}
 
 size_t smem_bytes(int dk, int dv) {
   return sizeof(float) *
@@ -130,12 +148,15 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <typename T, bool VEC, int MASK>
+// DKMAX / DVMAX: the largest Dk / Dv the instantiation takes (the staging
+// copies' trip counts and the output columns a thread owns)
+template <typename T, bool VEC, int MASK, int DKMAX, int DVMAX>
 __global__ void __launch_bounds__(kThreads)
     attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
                        int window, float scale) {
+  constexpr int kOCols = DVMAX / kGroup;  // output columns per thread
   extern __shared__ float smem[];
   const int ldq = Dk + 1, ldk = Dk + 1, ldp = kBK + 1;
   float* Qs = smem;              // kBQ x ldq
@@ -151,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = (tid / kGroup) * kRows;  // first query row of this thread
   const int cg = tid % kGroup;            // column phase
 
-  repro::stage_rows<T, kBQ, kThreads, kDMax, VEC>(
+  repro::stage_rows<T, kBQ, kThreads, DKMAX, VEC>(
       Qs, ldq, q + ((static_cast<int64_t>(b) * Sq + q0) * Hq + h) * Dk,
       static_cast<int64_t>(Hq) * Dk, min(kBQ, Sq - q0), Dk);
 
@@ -177,9 +198,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile is consumed (and Q is stored)
     const int valid = min(kBK, kv_end - k0);  // zeros past the causal limit
     const int64_t row0 = static_cast<int64_t>(b) * Skv + k0;
-    repro::stage_rows<T, kBK, kThreads, kDMax, VEC>(
+    repro::stage_rows<T, kBK, kThreads, DKMAX, VEC>(
         Ks, ldk, k + (row0 * Hkv + hk) * Dk, kv_stride_k, valid, Dk);
-    repro::stage_rows<T, kBK, kThreads, kDMax, VEC>(
+    repro::stage_rows<T, kBK, kThreads, DVMAX, VEC>(
         Vs, Dv, v + (row0 * Hkv + hk) * Dv, kv_stride_v, valid, Dv);
     __syncthreads();
 
@@ -363,11 +384,23 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int ld,
   }
 }
 
-// EXACT: both head dims equal DMAX, so every fragment loop has a
-// compile-time trip count and the body fits 3 CTAs of 4 warps (or 6 of 2)
-// on an SM; otherwise the padded dims are runtime values
-template <int MASK, int DMAX, int WARPS, bool EXACT>
-__global__ void __launch_bounds__(WARPS * 32, EXACT ? 12 / WARPS : 1)
+// the 16-byte chunks a staging thread cycles over: those of the widest
+// row, rounded up to a power of two (no division; a thread past the row
+// stages nothing)
+__host__ __device__ constexpr int chunks_pow2(int dmax) {
+  int c = 1;
+  while (c < dmax / 8) c <<= 1;
+  return c;
+}
+
+// DKMAX / DVMAX: the largest padded Dk / Dv the instantiation takes. EXACT:
+// both head dims equal them, so every fragment loop has a compile-time trip
+// count and the body fits 3 CTAs of 4 warps (or 6 of 2) on an SM, 2 (or 4)
+// at Dk 192, whose Q fragments take 48 registers more; otherwise the
+// padded dims are runtime values
+template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT>
+__global__ void __launch_bounds__(WARPS * 32,
+                                  EXACT ? (DKMAX > 128 ? 8 : 12) / WARPS : 1)
     attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -375,11 +408,12 @@ __global__ void __launch_bounds__(WARPS * 32, EXACT ? 12 / WARPS : 1)
                     int Hkv, int Dk, int Dv, int q_offset, int window,
                     float scale_log2, bool vec) {
   constexpr int NT = WARPS * 32, BQ = WARPS * 16;
-  constexpr int KSTEPS = DMAX / 16;  // k16 steps of Q.K^T
-  constexpr int DTILES = DMAX / 8;   // n8 tiles of the output
+  constexpr int KSTEPS = DKMAX / 16;  // k16 steps of Q.K^T
+  constexpr int DTILES = DVMAX / 8;   // n8 tiles of the output
+  constexpr int KCPR = chunks_pow2(DKMAX), VCPR = chunks_pow2(DVMAX);
   constexpr int STILES = kTK / 8;    // n8 tiles of a score tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int dkp = EXACT ? DMAX : pad16(Dk), dvp = EXACT ? DMAX : pad16(Dv);
+  const int dkp = EXACT ? DKMAX : pad16(Dk), dvp = EXACT ? DVMAX : pad16(Dv);
   const int ldk = dkp + kPadE, ldv = dvp + kPadE;
   static_assert(BQ <= kTK, "Q is staged in a K stage");
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 2 x kTK x ldk
@@ -406,10 +440,10 @@ __global__ void __launch_bounds__(WARPS * 32, EXACT ? 12 / WARPS : 1)
   const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Skv * Hkv + hk) * Dv;
   auto stage_kv = [&](int stage, int k0) {
     const int valid = min(kTK, hi - k0);  // zeros past the causal limit
-    stage_bf16<NT, DMAX / 8>(Ks + stage * kTK * ldk, ldk, kb + k0 * sk, sk,
-                             kTK, valid, Dk, dkp, vec);
-    stage_bf16<NT, DMAX / 8>(Vs + stage * kTK * ldv, ldv, vb + k0 * sv, sv,
-                             kTK, valid, Dv, dvp, vec);
+    stage_bf16<NT, KCPR>(Ks + stage * kTK * ldk, ldk, kb + k0 * sk, sk, kTK,
+                         valid, Dk, dkp, vec);
+    stage_bf16<NT, VCPR>(Vs + stage * kTK * ldv, ldv, vb + k0 * sv, sv, kTK,
+                         valid, Dv, dvp, vec);
   };
 
   float acc[DTILES][4];
@@ -422,7 +456,7 @@ __global__ void __launch_bounds__(WARPS * 32, EXACT ? 12 / WARPS : 1)
   uint32_t qf[KSTEPS][4];
 
   if (n_tiles > 0) {
-    stage_bf16<NT, DMAX / 8>(
+    stage_bf16<NT, KCPR>(
         Qs, ldk, q + ((static_cast<int64_t>(b) * Sq + q0) * Hq + h) * Dk,
         static_cast<int64_t>(Hq) * Dk, BQ, min(BQ, Sq - q0), Dk, dkp, vec);
     stage_kv(0, lo);
@@ -582,13 +616,18 @@ template <typename T, bool VEC, int MASK>
 int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
                 int q_offset, int window, float scale, cudaStream_t stream) {
+  // Dk past 128 (MLA's causal prefill) stages wider rows: an instantiation
+  // of its own, so the common one keeps its trip counts
+  auto kernel = attn_kernel<T, VEC, MASK, kDMax, kDMax>;
+  if constexpr (MASK == kCausal)
+    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kDkWide, kDMax>;
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T, VEC, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + kBQ - 1) / kBQ);
-  attn_kernel<T, VEC, MASK><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, Dk, Dv,
       q_offset, window, scale);
@@ -608,20 +647,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                                            Dv, q_offset, window, scale, stream);
 }
 
-template <int MASK, int DMAX, int WARPS, bool EXACT>
+template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT>
 int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
                     int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
                     int q_offset, int window, float scale, bool vec,
                     cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(pad16(Dk), pad16(Dv));
   cudaError_t err = cudaFuncSetAttribute(
-      attn_mma_kernel<MASK, DMAX, WARPS, EXACT>,
+      attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = 16 * WARPS;
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + rows - 1) / rows);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  attn_mma_kernel<MASK, DMAX, WARPS, EXACT>
+  attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT>
       <<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
@@ -629,9 +668,10 @@ int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 body's instantiation: DMAX from the padded head dims; 2 warps a
-// CTA where 4-warp tiles would fill at most half the SMs (the vit-b16
-// and detector shapes; llama's 128 CTAs at s256 run faster at 4 warps)
+// The bf16 body's instantiation: (DKMAX, DVMAX) from the padded head dims,
+// (64, 64), (128, 128) or, causal only, MLA's (192, 128); 2 warps a CTA where 4-warp
+// tiles would fill at most half the SMs (the vit-b16 and detector shapes;
+// llama's 128 CTAs at s256 run faster at 4 warps)
 template <int MASK>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
@@ -644,14 +684,20 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool narrow =
       2 * static_cast<int64_t>(B) * Hq * ((Sq + 63) / 64) <= sms;
-  const bool wide = pad16(Dk) > 64 || pad16(Dv) > 64;
-#define REPRO_MMA(DM, W, X)                                                  \
-  launch_mma_impl<MASK, DM, W, X>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,   \
-                                  q_offset, window, scale, vec, stream)
-#define REPRO_MMA_DIMS(DM, W)                                                \
-  (Dk == DM && Dv == DM ? REPRO_MMA(DM, W, true) : REPRO_MMA(DM, W, false))
-  if (wide) return narrow ? REPRO_MMA_DIMS(128, 2) : REPRO_MMA_DIMS(128, 4);
-  return narrow ? REPRO_MMA_DIMS(64, 2) : REPRO_MMA_DIMS(64, 4);
+  const int dkp = pad16(Dk), dvp = pad16(Dv);
+#define REPRO_MMA(DK, DV, W, X)                                              \
+  launch_mma_impl<MASK, DK, DV, W, X>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,   \
+                                      Dv, q_offset, window, scale, vec,      \
+                                      stream)
+#define REPRO_MMA_DIMS(DK, DV, W)                                            \
+  (Dk == DK && Dv == DV ? REPRO_MMA(DK, DV, W, true)                         \
+                        : REPRO_MMA(DK, DV, W, false))
+  if constexpr (MASK == kCausal)
+    if (Dk == kDkWide)  // MLA's (192, 128) alone: exact trip counts
+      return narrow ? REPRO_MMA(192, 128, 2, true) : REPRO_MMA(192, 128, 4, true);
+  if (dkp > 64 || dvp > 64)
+    return narrow ? REPRO_MMA_DIMS(128, 128, 2) : REPRO_MMA_DIMS(128, 128, 4);
+  return narrow ? REPRO_MMA_DIMS(64, 64, 2) : REPRO_MMA_DIMS(64, 64, 4);
 #undef REPRO_MMA_DIMS
 #undef REPRO_MMA
 }
@@ -663,8 +709,8 @@ int entry(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
-      Dk <= 0 || Dk > kDMax || Dv <= 0 || Dv > kDMax || q_offset < 0 ||
-      window <= 0 || (Sq + kBQ - 1) / kBQ > 65535)
+      !dims_taken(Dk, Dv, MASK) || q_offset < 0 || window <= 0 ||
+      (Sq + kBQ - 1) / kBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)

@@ -43,6 +43,18 @@
 //     interleaved share of the tile's keys, the shares added at the end;
 //   * the online (m, l) live in shared memory in f32; one warp runs a
 //     head's softmax update of 64 scores with two shuffles.
+//
+// The wide body takes MLA's absorbed decode: Dk 576 (the 512-d latent and
+// the 64-d rope key), Dv 512 (the latent), one KV head for a group of 16
+// (any Dk <= 576, Dv <= 512 a multiple of 4, wide_dims). Two stages of
+// 64-key tiles would take ~279 KB of shared memory, past a block's 227 KB,
+// and two P.V columns a thread would leave no thread a key phase at Dv
+// 512. So its tiles hold 32 keys in bf16 (16 in f32), still two stages,
+// four threads a key (eight in f32) with two shuffles closing each score;
+// each thread owns four adjacent columns of every head in P.V; q, the
+// scores and the (m, l) state stay in f32, 182 KB in all at bf16 and G 16
+// (179 KB at f32). The G = 16 group has a body of its own. The split and
+// its merge are unchanged; the f32 scratch grows with Dv.
 #include "common.cuh"
 
 namespace {
@@ -50,8 +62,28 @@ namespace {
 constexpr int kBK = 64;        // keys per staged tile: two threads a key
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDMax = 128;     // largest Dk and Dv taken
+constexpr int kDMax = 128;     // largest Dk and Dv of the common body
+constexpr int kDkWide = 576;   // largest Dk of the wide body (MLA: 512 + 64)
+constexpr int kDvWide = 512;   // largest Dv of the wide body (MLA's latent)
+constexpr int kPwWide = 4;     // P.V columns a thread owns in the wide body
 constexpr int kGMax = 32;      // largest GQA group taken
+
+// The wide body: a head dim past 128 (MLA's absorbed decode, 576 / 512).
+// Two stages of 64-key K and V tiles at those dims would take ~279 KB of
+// shared memory, past the 227 KB a block may have: its tiles hold 32 keys
+// (bf16) or 16 (f32), four or eight threads a key, and each thread owns
+// four columns of every head in P.V (two, as the common body, would need
+// 256 threads at Dv 512)
+__host__ __device__ __forceinline__ bool wide_dims(int dk, int dv) {
+  return dk > kDMax || dv > kDMax;
+}
+
+// the head dims taken: both up to 128, or the wide body's
+__host__ __device__ __forceinline__ bool dims_taken(int dk, int dv) {
+  if (dk <= 0 || dv <= 0) return false;
+  if (!wide_dims(dk, dv)) return true;
+  return dk <= kDkWide && dv <= kDvWide && dv % kPwWide == 0;
+}
 
 // Row pitch (elements) of a staged K or V tile. 16-byte copies: rows padded
 // so that consecutive rows start two 16-byte bank groups apart, which puts
@@ -63,49 +95,61 @@ __host__ __device__ __forceinline__ int row_pitch(int cols, int elem, bool vec) 
   return (groups + (10 - groups % 8) % 8) * (16 / elem);
 }
 
-// P.V: a thread owns PW adjacent output columns of every query head, over
-// the keys ph, ph + nph, ... of a tile
-__host__ __device__ __forceinline__ int pv_phases(int dv, bool vec) {
-  return kThreads / (vec ? dv / 2 : dv);
+// P.V: a thread owns pw adjacent output columns of every query head, over
+// the keys ph, ph + nph, ... of a tile; nph >= 1 wherever dims_taken
+__host__ __device__ __forceinline__ int pv_phases(int dv, int pw) {
+  return kThreads / (dv / pw);
+}
+
+// keys a staged tile holds and P.V columns a thread owns, per body
+__host__ __device__ __forceinline__ int tile_keys(bool wide, int elem) {
+  return wide ? (elem == 2 ? 32 : 16) : kBK;
+}
+__host__ __device__ __forceinline__ int pv_width(bool wide, bool vec) {
+  return wide ? kPwWide : (vec ? 2 : 1);
 }
 
 // two stages of K and V in the storage type, then q, scores, (m, l, corr)
 // and the P.V phases' parts in f32
 size_t smem_bytes(int g, int dk, int dv, int elem, bool vec) {
-  const size_t tiles = 2 * static_cast<size_t>(kBK) *
+  const bool wide = wide_dims(dk, dv);
+  const size_t bk = tile_keys(wide, elem);
+  const size_t tiles = 2 * bk *
                        (row_pitch(dk, elem, vec) + row_pitch(dv, elem, vec)) * elem;
+  const int nph = pv_phases(dv, pv_width(wide, vec));
   return tiles + sizeof(float) * (static_cast<size_t>(g) * dk +
-                                  static_cast<size_t>(g) * kBK + 3 * static_cast<size_t>(g) +
-                                  static_cast<size_t>(pv_phases(dv, vec) - 1) * g * dv);
+                                  static_cast<size_t>(g) * bk + 3 * static_cast<size_t>(g) +
+                                  static_cast<size_t>(nph - 1) * g * dv);
 }
 
-// kBK rows of `cols` elements (row stride `stride`) into shared memory at
+// BK rows of `cols` elements (row stride `stride`) into shared memory at
 // pitch `ld`; rows past `valid` are zero. VEC: 16-byte cp.async copies, a
 // warp per row, completed by the caller's cp_async_wait; otherwise
 // element by element, complete on return.
-template <typename T, bool VEC>
+template <typename T, bool VEC, int BK>
 __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* __restrict__ src,
                                            int64_t stride, int valid, int cols) {
   if constexpr (VEC) {
     constexpr int V = 16 / sizeof(T);
     const int cpr = cols / V, lane = threadIdx.x & 31;
-    for (int r = threadIdx.x >> 5; r < kBK; r += kWarps) {
+    for (int r = threadIdx.x >> 5; r < BK; r += kWarps) {
       const bool ok = r < valid;
       for (int c = lane; c < cpr; c += 32)
         repro::cp_async16(dst + r * ld + c * V, ok ? src + r * stride + c * V : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kBK * cols; i += kThreads) {
+    for (int i = threadIdx.x; i < BK * cols; i += kThreads) {
       const int r = i / cols, c = i - r * cols;
       dst[r * ld + c] = r < valid ? src[r * stride + c] : repro::from_f<T>(0.f);
     }
   }
 }
 
-// GC: the group G = Hq / Hkv where it is 1, 2, 4 or 8, known at compile
-// time, so that a thread's G partial dots and accumulators stay in
-// registers and its loops carry no branch; 0: any G up to kGMax, guarded
-template <typename T, bool VEC, int GC>
+// GC: the group G = Hq / Hkv where it is 1, 2, 4 or 8 (16 in the wide
+// body: MLA's), known at compile time, so that a thread's G partial dots
+// and accumulators stay in registers and its loops carry no branch; 0: any
+// G up to kGMax, guarded. BK: keys a tile; PW: P.V columns a thread owns
+template <typename T, bool VEC, int GC, int BK, int PW>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
@@ -113,16 +157,17 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ part_ml, int* __restrict__ sem, int Tlen,
                   int Hq, int Hkv, int Dk, int Dv, float scale, int chunk) {
   constexpr int VW = VEC ? 16 / sizeof(T) : 1;  // elements a score load reads
-  constexpr int PW = VEC ? 2 : 1;               // columns a P.V thread owns
+  constexpr int TPK = kThreads / BK;            // threads a key (2, 4, 8)
+  constexpr int NPL = (BK + 31) / 32;           // scores a lane of the softmax
   constexpr int GM = GC ? GC : kGMax;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = GC ? GC : Hq / Hkv;
   const int ldk = row_pitch(Dk, sizeof(T), VEC), ldv = row_pitch(Dv, sizeof(T), VEC);
-  T* Ks = reinterpret_cast<T*>(smem_raw);    // 2 stages of kBK x ldk
-  T* Vs = Ks + 2 * kBK * ldk;                // 2 stages of kBK x ldv
-  float* Qs = reinterpret_cast<float*>(Vs + 2 * kBK * ldv);  // G x Dk
-  float* Ss = Qs + G * Dk;     // G x kBK: scores, then probabilities
-  float* Ml = Ss + G * kBK;    // G x (m, l, corr)
+  T* Ks = reinterpret_cast<T*>(smem_raw);    // 2 stages of BK x ldk
+  T* Vs = Ks + 2 * BK * ldk;                 // 2 stages of BK x ldv
+  float* Qs = reinterpret_cast<float*>(Vs + 2 * BK * ldv);  // G x Dk
+  float* Ss = Qs + G * Dk;     // G x BK: scores, then probabilities
+  float* Ml = Ss + G * BK;     // G x (m, l, corr)
   float* Red = Ml + 3 * G;     // (nph - 1) x G x Dv: the P.V phases' parts
 
   const int bh = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
@@ -138,16 +183,16 @@ __global__ void __launch_bounds__(kThreads)
         o[obase + i] = repro::from_f<T>(0.f);
     return;
   }
-  const int n_tiles = end > begin ? (end - begin + kBK - 1) / kBK : 0;
+  const int n_tiles = end > begin ? (end - begin + BK - 1) / BK : 0;
 
   const int64_t sk = static_cast<int64_t>(Hkv) * Dk;
   const int64_t sv = static_cast<int64_t>(Hkv) * Dv;
   const T* kb = k + (static_cast<int64_t>(b) * Tlen * Hkv + hk) * Dk;
   const T* vb = v + (static_cast<int64_t>(b) * Tlen * Hkv + hk) * Dv;
   auto stage = [&](int st, int k0) {
-    const int valid = min(kBK, end - k0);
-    stage_tile<T, VEC>(Ks + st * kBK * ldk, ldk, kb + k0 * sk, sk, valid, Dk);
-    stage_tile<T, VEC>(Vs + st * kBK * ldv, ldv, vb + k0 * sv, sv, valid, Dv);
+    const int valid = min(BK, end - k0);
+    stage_tile<T, VEC, BK>(Ks + st * BK * ldk, ldk, kb + k0 * sk, sk, valid, Dk);
+    stage_tile<T, VEC, BK>(Vs + st * BK * ldv, ldv, vb + k0 * sv, sv, valid, Dv);
   };
   if (n_tiles > 0) {
     stage(0, begin);
@@ -163,8 +208,8 @@ __global__ void __launch_bounds__(kThreads)
     Ml[3 * g + 2] = 1.f;
   }
 
-  // scores: thread t takes key t / 2 and the alternate chunks of half t % 2
-  const int key = tid >> 1, half = tid & 1;
+  // scores: thread t takes key t / TPK and every TPK-th chunk from t % TPK
+  const int key = tid / TPK, sub = tid % TPK;
   // P.V: columns [PW * col, PW * col + PW) of every head, keys ph + nph * i
   const int ncol = Dv / PW, nph = kThreads / ncol;
   const int col = tid % ncol, ph = tid / ncol;
@@ -175,17 +220,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < PW; ++e) acc[g][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = begin + it * kBK;
+    const int k0 = begin + it * BK;
     if (it + 1 < n_tiles) {  // tile it + 1 loads while tile it computes
-      stage((it + 1) & 1, k0 + kBK);
+      stage((it + 1) & 1, k0 + BK);
       repro::cp_async_commit();
       repro::cp_async_wait<1>();
     } else {
       repro::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Kt = Ks + (it & 1) * kBK * ldk;
-    const T* Vt = Vs + (it & 1) * kBK * ldv;
+    const T* Kt = Ks + (it & 1) * BK * ldk;
+    const T* Vt = Vs + (it & 1) * BK * ldv;
 
     {  // the G queries reuse each K chunk from registers
       float part[GM];
@@ -194,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
       const T* krow = Kt + key * ldk;
       if constexpr (VEC) {
 #pragma unroll 4
-        for (int i = half; i < Dk / VW; i += 2) {
+        for (int i = sub; i < Dk / VW; i += TPK) {
           float kv[VW];
           repro::load_vec<T, VW>(kv, krow + i * VW);
 #pragma unroll
@@ -210,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
       } else {
-        for (int d = half; d < Dk; d += 2) {
+        for (int d = sub; d < Dk; d += TPK) {
           const float kd = repro::to_f(krow[d]);
 #pragma unroll
           for (int g = 0; g < GM; ++g) {
@@ -223,20 +268,35 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         if (GC == 0 && g >= G) break;
-        const float sc = part[g] + __shfl_xor_sync(0xffffffffu, part[g], 1);
-        if (half == 0) Ss[g * kBK + key] = valid ? sc * scale : repro::kNegInf;
+        float sc = part[g];
+#pragma unroll
+        for (int o = 1; o < TPK; o <<= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
+        if (sub == 0) Ss[g * BK + key] = valid ? sc * scale : repro::kNegInf;
       }
     }
     __syncthreads();
 
     for (int g = warp; g < G; g += kWarps) {
-      const float a = Ss[g * kBK + lane], c = Ss[g * kBK + lane + 32];
+      // lane holds scores lane, lane + 32, ...; a lane past a 16-key tile
+      // holds none (NEG_INF and 0, which move neither max nor sum)
+      float sv[NPL];
+#pragma unroll
+      for (int j = 0; j < NPL; ++j)
+        sv[j] = lane + 32 * j < BK ? Ss[g * BK + lane + 32 * j] : repro::kNegInf;
+      float mx = sv[0];
+#pragma unroll
+      for (int j = 1; j < NPL; ++j) mx = fmaxf(mx, sv[j]);
       const float m_old = Ml[3 * g];
-      const float m_new = fmaxf(m_old, repro::warp_max(fmaxf(a, c)));
-      const float pa = expf(a - m_new), pc = expf(c - m_new);
-      Ss[g * kBK + lane] = pa;
-      Ss[g * kBK + lane + 32] = pc;
-      const float ls = repro::warp_sum(pa + pc);
+      const float m_new = fmaxf(m_old, repro::warp_max(mx));
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        if (lane + 32 * j >= BK) break;
+        const float p = expf(sv[j] - m_new);
+        Ss[g * BK + lane + 32 * j] = p;
+        ps = j ? ps + p : p;
+      }
+      const float ls = repro::warp_sum(ps);
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
         Ml[3 * g] = m_new;
@@ -256,13 +316,13 @@ __global__ void __launch_bounds__(kThreads)
       }
       const T* vcol = Vt + PW * col;
 #pragma unroll 4
-      for (int c = ph; c < kBK; c += nph) {
+      for (int c = ph; c < BK; c += nph) {
         float vv[PW];
         repro::load_vec<T, PW>(vv, vcol + c * ldv);
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           if (GC == 0 && g >= G) break;
-          const float p = Ss[g * kBK + c];
+          const float p = Ss[g * BK + c];
 #pragma unroll
           for (int e = 0; e < PW; ++e) acc[g][e] += p * vv[e];
         }
@@ -349,18 +409,18 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) sem[bh] = 0;
 }
 
-template <typename T, bool VEC, int GC>
+template <typename T, bool VEC, int GC, int BK, int PW>
 int launch_impl(const void* q, const void* k, const void* v,
                 const void* lengths, void* o, void* part_acc, void* part_ml,
                 void* sem, int B, int Tlen, int Hq, int Hkv, int Dk, int Dv,
                 float scale, int chunk, int n_split, cudaStream_t stream) {
   const size_t smem = smem_bytes(Hq / Hkv, Dk, Dv, sizeof(T), VEC);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, VEC, GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      decode_kernel<T, VEC, GC, BK, PW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B) * Hkv, n_split);
-  decode_kernel<T, VEC, GC><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<T, VEC, GC, BK, PW><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<T*>(o), static_cast<float*>(part_acc),
@@ -374,10 +434,16 @@ int launch_vec(const void* q, const void* k, const void* v,
                const void* lengths, void* o, void* part_acc, void* part_ml,
                void* sem, int B, int Tlen, int Hq, int Hkv, int Dk, int Dv,
                float scale, int chunk, int n_split, cudaStream_t stream) {
-#define REPRO_DECODE(GC)                                                   \
-  launch_impl<T, VEC, GC>(q, k, v, lengths, o, part_acc, part_ml, sem, B,  \
-                          Tlen, Hq, Hkv, Dk, Dv, scale, chunk, n_split,    \
-                          stream)
+#define REPRO_DECODE_AT(GC, BK, PW)                                        \
+  launch_impl<T, VEC, GC, BK, PW>(q, k, v, lengths, o, part_acc, part_ml,  \
+                                  sem, B, Tlen, Hq, Hkv, Dk, Dv, scale,    \
+                                  chunk, n_split, stream)
+#define REPRO_DECODE(GC) REPRO_DECODE_AT(GC, kBK, VEC ? 2 : 1)
+  if (wide_dims(Dk, Dv)) {
+    constexpr int kWideBK = sizeof(T) == 2 ? 32 : 16;
+    return Hq / Hkv == 16 ? REPRO_DECODE_AT(16, kWideBK, kPwWide)
+                          : REPRO_DECODE_AT(0, kWideBK, kPwWide);
+  }
   switch (Hq / Hkv) {
     case 1: return REPRO_DECODE(1);
     case 2: return REPRO_DECODE(2);
@@ -386,6 +452,7 @@ int launch_vec(const void* q, const void* k, const void* v,
     default: return REPRO_DECODE(0);
   }
 #undef REPRO_DECODE
+#undef REPRO_DECODE_AT
 }
 
 template <typename T>
@@ -418,7 +485,7 @@ extern "C" int repro_decode(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Tlen < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
-      Hq / Hkv > kGMax || Dk <= 0 || Dk > kDMax || Dv <= 0 || Dv > kDMax ||
+      Hq / Hkv > kGMax || !dims_taken(Dk, Dv) ||
       n_split < 1 || n_split > 65535 || chunk < kBK || chunk % kBK ||
       static_cast<int64_t>(chunk) * n_split < Tlen ||
       (n_split > 1 && (part_acc == nullptr || part_ml == nullptr || sem == nullptr)))

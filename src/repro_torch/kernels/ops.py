@@ -355,9 +355,16 @@ def _check_qkv(name: str, q, k, v) -> None:
 
 def _check_kernel_dims(name: str, q, v) -> None:
     dk, dv = q.shape[3], v.shape[3]
-    if dk > _attn.MAX_HEAD_DIM or dv > _attn.MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dims ({dk}, {dv}) above the kernel's "
-                         f"{_attn.MAX_HEAD_DIM}")
+    if name == "decode_core":
+        taken, limits = _attn.decode_dims_taken(dk, dv), _attn.DECODE_MAX_DIMS
+    elif name == "attention_core":
+        taken, limits = _attn.prefill_dims_taken(dk, dv), _attn.PREFILL_MAX_DIMS
+    else:
+        taken = _attn.prefill_dims_taken(dk, dv, causal=False)
+        limits = (_attn.COMMON_MAX_DIM,) * 2
+    if not taken:
+        raise ValueError(f"{name}: head dims ({dk}, {dv}) have no "
+                         f"instantiation (the kernel takes up to {limits})")
 
 
 @torch.library.custom_op("repro_torch::attention_core", mutates_args=())

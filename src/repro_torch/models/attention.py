@@ -1,5 +1,6 @@
-"""Standard (MHA/GQA) attention: global layers with a full-depth KV cache,
-sliding-window (``local``) layers with a ring cache.
+"""Attention: standard (MHA/GQA) global layers with a full-depth KV cache,
+sliding-window (``local``) layers with a ring cache, and DeepSeek-V2's MLA
+over a compressed latent cache.
 
 The port of the standard-attention path of ``repro.models.attention``:
 ``init_attention``, ``_qkv`` (with qk-norm), ``attn_forward``,
@@ -14,6 +15,15 @@ untagged launch (classed ``fused``); on the plain path it is the tagged qk
 / mask / softmax / pv chain of the JAX reference, op for op. Under
 ``nn.fuse()`` decode is the one ``ng:fused:fused_attn_decode`` operator on
 both backends.
+
+MLA (``init_mla``, ``mla_forward``, ``init_mla_cache``, ``mla_prefill``,
+``mla_decode``, ``mla_extend``) caches the RMS-normed latent ``c`` and the
+rotated rope key ``kr``; prefill and extend expand K/V from the latent and
+run the causal ``attention_core`` at Dk nope+rope / Dv v_head_dim (192 /
+128 for deepseek-v2-lite); decode absorbs ``W_uk`` into the query and
+attends the latent keys ``[c, kr]`` and values ``c`` through
+``decode_core`` (576 / 512, one KV head for the 16 query heads), ``W_uv``
+the epilogue.
 
 A ``local`` layer's cache is a ring of ``w = min(window, max_len)`` slots
 with a per-row position side-car ``"pos"`` (-1 where empty): slot j holds
@@ -274,4 +284,194 @@ def attn_extend(params, x, cfg: ModelConfig, kind: str, cache: dict,
     v[:, start:start + c_len] = v_new.to(v.dtype)
     out = _attention_impl(q, k, v, q_offset=start, causal=cfg.causal)
     y = nn.linear(nn.merge_heads(out), params["wo"].to(x.dtype))
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): attention over a compressed KV latent
+# ---------------------------------------------------------------------------
+
+def _for_kernel(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels take it: they refuse strided operands, so a
+    strided view becomes a copy where the kernel path runs (the plain path
+    reads the view)."""
+    return t.contiguous() if nn.use_kernels(t) else t
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r, nope, rope, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+    pd = cfg.torch_param_dtype
+    return {
+        "w_dkv": dense_init(generator, (d, r), dtype=pd),
+        "w_kr": dense_init(generator, (d, rope), dtype=pd),
+        "kv_norm": torch.ones((r,), dtype=pd, device=generator.device),
+        "w_q": dense_init(generator, (d, h * (nope + rope)), dtype=pd),
+        "w_uk": dense_init(generator, (r, h, nope), dtype=pd),
+        "w_uv": dense_init(generator, (r, h, vd), dtype=pd),
+        "wo": dense_init(generator, (h * vd, d), dtype=pd),
+    }
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), q_rope rotated. Both are
+    views of the one projection; the fused rope kernel gets a copy."""
+    nope = cfg.qk_nope_dim
+    q = nn.linear(x, params["w_q"].to(x.dtype))
+    q = nn.split_heads(q, cfg.n_heads)                  # (B,S,H,nope+rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    if nn.fusion_enabled():
+        q_rope = _for_kernel(q_rope)
+    q_rope = nn.apply_rope(q_rope, positions, base=cfg.rope_base)
+    return q_nope, q_rope
+
+
+def _mla_ckv(params, x, cfg: ModelConfig, positions):
+    """The latent c (B,S,r), RMS-normed, and the shared rope key kr
+    (B,S,rope), rotated: what the cache holds."""
+    c = nn.linear(x, params["w_dkv"].to(x.dtype))
+    c = nn.rms_norm(c, params["kv_norm"].to(x.dtype))
+    kr = nn.linear(x, params["w_kr"].to(x.dtype))[:, :, None, :]
+    kr = nn.apply_rope(kr, positions, base=cfg.rope_base)[:, :, 0, :]
+    return c, kr
+
+
+def _mla_attend(params, x, cfg: ModelConfig, q_nope, q_rope, c, kr,
+                q_offset: int = 0):
+    """K/V expanded from the latent (B,T,r) and the rope key, attention
+    (causal at ``q_offset``: Dk nope+rope, Dv v_head_dim), the output
+    projection."""
+    b, s = x.shape[:2]
+    h, t = cfg.n_heads, c.shape[1]
+    dt = x.dtype
+    k_nope = nn.einsum("bsr,rhn->bshn", c, params["w_uk"].to(dt))
+    v = nn.einsum("bsr,rhv->bshv", c, params["w_uv"].to(dt))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(b, t, h, cfg.qk_rope_dim)],
+                  dim=-1)
+    out = _attention_impl(q, k, _for_kernel(v), q_offset=q_offset,
+                          causal=cfg.causal)
+    return nn.linear(out.reshape(b, s, h * cfg.v_head_dim),
+                     params["wo"].to(dt))
+
+
+def mla_forward(params, x, cfg: ModelConfig, positions):
+    """Full-sequence MLA: K/V expanded from the latent, then the causal
+    attention (the ``attention_core`` kernel at Dk 192 / Dv 128 on the
+    card)."""
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c, kr = _mla_ckv(params, x, cfg, positions)
+    return _mla_attend(params, x, cfg, q_nope, q_rope, c, kr)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device="cuda") -> dict:
+    """The compressed cache: the latent ``"c"`` (batch, max_len, r) and the
+    rope key ``"kr"`` (batch, max_len, rope)."""
+    dt = cfg.activation_dtype
+    return {
+        "c": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt,
+                         device=device),
+        "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dt,
+                          device=device),
+    }
+
+
+def mla_prefill(params, x, cfg: ModelConfig, positions,
+                max_len: int) -> Tuple[torch.Tensor, dict]:
+    """MLA forward that also fills the compressed (c, kr) decode cache.
+    JAX's computes the latent twice (``mla_forward``, then ``_mla_ckv``),
+    which its jit merges into one; here it is computed once."""
+    b, s = x.shape[:2]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c, kr = _mla_ckv(params, x, cfg, positions)
+    y = _mla_attend(params, x, cfg, q_nope, q_rope, c, kr)
+    cache = init_mla_cache(cfg, b, max_len, device=x.device)
+    cache["c"][:, :s] = c
+    cache["kr"][:, :s] = kr
+    return y, cache
+
+
+def mla_decode(params, x, cfg: ModelConfig, cache: dict,
+               pos) -> Tuple[torch.Tensor, dict]:
+    """Absorbed-projection MLA decode: attends in the r-dim latent space.
+
+    ``W_uk`` is absorbed into the query; the scores are over the
+    concatenated (r + rope) latent keys, one KV head shared by all H query
+    heads, the values the latent itself, and ``W_uv`` is the epilogue. On
+    the kernel path that is ``decode_core`` at Dk r+rope / Dv r, Hkv 1 and
+    a GQA group of H (576 / 512 / 16 for deepseek-v2-lite), under
+    ``nn.fuse()`` the one ``fused_attn_decode`` operator; on the plain path
+    the two-einsum chain of JAX's jnp path with its tags. The concatenated
+    score sums in one dot where the chain sums two: ulp-level apart. The
+    cache is written in place at ``pos`` and returned.
+    """
+    b = x.shape[0]
+    h, vd = cfg.n_heads, cfg.v_head_dim
+    pos = pos_vector(pos, b, x.device)
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)       # (B,1,H,*)
+    c_new, kr_new = _mla_ckv(params, x, cfg, positions)
+    c = nn.kv_cache_update(cache["c"], c_new, pos)
+    kr = nn.kv_cache_update(cache["kr"], kr_new, pos)
+    t = c.shape[1]
+
+    # absorb W_uk into the query: score in latent space
+    q_lat = nn.einsum("bqhn,rhn->bqhr", q_nope, params["w_uk"].to(x.dtype))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if nn.fusion_enabled() or nn.use_kernels(q_lat):
+        q_eff = torch.cat([q_lat, q_rope.to(q_lat.dtype)], dim=-1)
+        k_eff = torch.cat([c, kr], dim=-1)[:, :, None, :]
+        v_eff = c[:, :, None, :]
+        lengths = (pos + 1).to(torch.int32)
+        if nn.fusion_enabled():
+            ctx = nn.fused_attn_decode(q_eff, k_eff, v_eff, lengths,
+                                       scale=scale)
+        else:
+            from repro_torch.kernels import ops as kops
+            ctx = kops.decode_core(q_eff, k_eff, v_eff, lengths, scale=scale)
+    else:
+        with nn.scope(OpGroup.GEMM, "attn_qk"):
+            s = (torch.einsum("bqhr,btr->bhqt", q_lat.float(), c.float()) +
+                 torch.einsum("bqhp,btp->bhqt", q_rope.float(),
+                              kr.float())) * scale
+        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+        with nn.scope(OpGroup.ELEMENTWISE, "attn_mask"):
+            s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        p = nn.softmax(s, dim=-1)
+        with nn.scope(OpGroup.GEMM, "attn_pv"):
+            ctx = torch.einsum("bhqt,btr->bqhr", p.to(c.dtype).float(),
+                               c.float())
+    out = nn.einsum("bqhr,rhv->bqhv", ctx.to(x.dtype),
+                    params["w_uv"].to(x.dtype))
+    out = out.reshape(b, 1, h * vd)
+    return nn.linear(out, params["wo"].to(x.dtype)), cache
+
+
+def mla_extend(params, x, cfg: ModelConfig, cache: dict,
+               start: int) -> Tuple[torch.Tensor, dict]:
+    """Chunked-prefill MLA step: extend the latent cache by a (B, C) chunk
+    whose first token sits at ``start`` (a host int), as ``attn_extend``:
+    (c, kr) land at ``[start, start + C)`` in place, K/V are expanded from
+    the whole cached latent depth (as ``mla_forward``) and the chunk
+    attends it at ``q_offset=start`` (``attention_core`` on the card; JAX
+    runs ``chunked_attention`` there, for its traced ``start``)."""
+    if not isinstance(start, int):
+        raise TypeError(f"mla_extend: start must be a host int, got "
+                        f"{type(start).__name__}")
+    b, c_len, _ = x.shape
+    t = cache["c"].shape[1]
+    if not 0 <= start <= t - c_len:
+        raise ValueError(f"mla_extend: chunk [{start}, {start + c_len}) "
+                         f"outside a cache of {t}")
+    positions = (start + torch.arange(c_len, dtype=torch.int32,
+                                      device=x.device))[None].expand(b, c_len)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c_new, kr_new = _mla_ckv(params, x, cfg, positions)
+    c, kr = cache["c"], cache["kr"]
+    c[:, start:start + c_len] = c_new.to(c.dtype)
+    kr[:, start:start + c_len] = kr_new.to(kr.dtype)
+    y = _mla_attend(params, x, cfg, q_nope, q_rope, c.to(x.dtype),
+                    kr.to(x.dtype), q_offset=start)
     return y, cache

@@ -1,9 +1,11 @@
-"""LM assembly: the dense decoder stack, forward / prefill / decode.
+"""LM assembly: the decoder stack, forward / prefill / decode.
 
 The port of ``repro.models.transformer`` for the configs the port runs:
-pre-norm blocks (RMSNorm or LayerNorm) of MHA/GQA attention and a dense
-FFN, with RoPE (Llama-2, Gemma 3), learned positions (GPT-2, BERT, the
-ViT stub) or none (the vision backbone). Each layer's kind comes from
+pre-norm blocks (RMSNorm or LayerNorm) of MHA/GQA attention or MLA
+(``cfg.mla``: DeepSeek-V2's compressed-latent attention) and a dense or
+mixture-of-experts FFN (``models/moe.py``: every layer of an MoE config
+past its ``first_dense_layers``), with RoPE (Llama-2, Gemma 3), learned
+positions (GPT-2, BERT, the ViT stub) or none (the vision backbone). Each layer's kind comes from
 ``cfg.layer_kinds()``: ``"attn"`` (global) or ``"local"`` (sliding-window
 attention over a ring cache, Gemma 3's 5:1 pattern). Gemma 3 adds
 qk-norm, post-norms around each sub-block (``cfg.post_norm``), zero-centred
@@ -64,8 +66,6 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
         f"ffn {cfg.ffn!r}": cfg.ffn not in M.FFN_KINDS,
         f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned",
                                                         "none"),
-        "MoE": cfg.n_experts > 0,
-        "MLA": cfg.mla,
         "softcaps": bool(cfg.attn_logit_softcap or cfg.final_logit_softcap),
         f"input_mode {cfg.input_mode!r}": cfg.input_mode not in ("tokens",
                                                                  "embeddings"),
@@ -105,12 +105,23 @@ def _add_norm(p, a, x, cfg: ModelConfig):
                            zero_centered=cfg.zero_centered_norm)
 
 
-def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Whether layer ``layer_idx`` has the MoE FFN: every layer of an MoE
+    config past its ``first_dense_layers`` dense leaders."""
+    return cfg.is_moe and layer_idx >= cfg.first_dense_layers
+
+
+def init_block(generator: torch.Generator, cfg: ModelConfig,
+               layer_idx: int = 0) -> dict:
     dev = generator.device
-    p = {"norm1": _init_norm(cfg, dev),
-         "mixer": A.init_attention(generator, cfg),
-         "norm2": _init_norm(cfg, dev),
-         "ffn": M.init_ffn(generator, cfg)}
+    mixer = A.init_mla(generator, cfg) if cfg.mla \
+        else A.init_attention(generator, cfg)
+    p = {"norm1": _init_norm(cfg, dev), "mixer": mixer,
+         "norm2": _init_norm(cfg, dev)}
+    if _is_moe_layer(cfg, layer_idx):
+        p["moe"] = M.init_moe(generator, cfg)
+    else:
+        p["ffn"] = M.init_ffn(generator, cfg)
     if cfg.post_norm:
         p["post_norm1"] = _init_norm(cfg, dev)
         p["post_norm2"] = _init_norm(cfg, dev)
@@ -128,7 +139,8 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.pos_emb == "learned":
         params["pos"] = dense_init(generator, (cfg.max_position, cfg.d_model),
                                    in_axis=1, dtype=pd)
-    params["layers"] = [init_block(generator, cfg) for _ in range(cfg.n_layers)]
+    params["layers"] = [init_block(generator, cfg, i)
+                        for i in range(cfg.n_layers)]
     params["final_norm"] = _init_norm(cfg, generator.device)
     if not cfg.tie_embeddings or cfg.input_mode != "tokens":
         params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
@@ -136,36 +148,52 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
-def _block_rest(params, a, x, cfg: ModelConfig):
-    """The block after its mixer: (post-norm,) add + norm, FFN
-    (, post-norm), residual add."""
+def _block_rest(params, a, x, cfg: ModelConfig, with_aux: bool = False):
+    """The block after its mixer: (post-norm,) add + norm, the FFN, dense
+    or MoE (, post-norm), residual add. Returns (x, the MoE layer's aux
+    loss, or None: a dense layer, or ``with_aux`` False)."""
     if cfg.post_norm:
         a = _apply_norm(params["post_norm1"], a, cfg)
     h, x = _add_norm(params["norm2"], a, x, cfg)
-    f = M.ffn_forward(params["ffn"], h, cfg)
+    aux = None
+    if "moe" in params:
+        f, aux = M.moe_forward(params["moe"], h, cfg, with_aux=with_aux)
+    else:
+        f = M.ffn_forward(params["ffn"], h, cfg)
     if cfg.post_norm:
         f = _apply_norm(params["post_norm2"], f, cfg)
-    return nn.residual_add(x, f)
+    return nn.residual_add(x, f), aux
 
 
 def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
+    """-> (x, aux): aux the MoE layer's load-balance loss, None for a dense
+    layer."""
     h = _apply_norm(params["norm1"], x, cfg)
-    a = A.attn_forward(params["mixer"], h, cfg, kind, positions)
-    return _block_rest(params, a, x, cfg)
+    if cfg.mla:
+        a = A.mla_forward(params["mixer"], h, cfg, positions)
+    else:
+        a = A.attn_forward(params["mixer"], h, cfg, kind, positions)
+    return _block_rest(params, a, x, cfg, with_aux=True)
 
 
 def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
                   max_len: int, lengths=None):
     h = _apply_norm(params["norm1"], x, cfg)
-    a, cache = A.attn_prefill(params["mixer"], h, cfg, kind, positions,
-                              max_len, lengths=lengths)
-    return _block_rest(params, a, x, cfg), cache
+    if cfg.mla:
+        a, cache = A.mla_prefill(params["mixer"], h, cfg, positions, max_len)
+    else:
+        a, cache = A.attn_prefill(params["mixer"], h, cfg, kind, positions,
+                                  max_len, lengths=lengths)
+    return _block_rest(params, a, x, cfg)[0], cache
 
 
 def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
     h = _apply_norm(params["norm1"], x, cfg)
-    a, cache = A.attn_decode(params["mixer"], h, cfg, kind, cache, pos)
-    return _block_rest(params, a, x, cfg), cache
+    if cfg.mla:
+        a, cache = A.mla_decode(params["mixer"], h, cfg, cache, pos)
+    else:
+        a, cache = A.attn_decode(params["mixer"], h, cfg, kind, cache, pos)
+    return _block_rest(params, a, x, cfg)[0], cache
 
 
 def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
@@ -176,8 +204,11 @@ def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
         raise ValueError(f"block kind {kind!r} does not support chunked "
                          "prefill (needs a full-depth positional cache)")
     h = _apply_norm(params["norm1"], x, cfg)
-    a, cache = A.attn_extend(params["mixer"], h, cfg, kind, cache, start)
-    return _block_rest(params, a, x, cfg), cache
+    if cfg.mla:
+        a, cache = A.mla_extend(params["mixer"], h, cfg, cache, start)
+    else:
+        a, cache = A.attn_extend(params["mixer"], h, cfg, kind, cache, start)
+    return _block_rest(params, a, x, cfg)[0], cache
 
 
 def _rounded(value: float, dtype: torch.dtype) -> float:
@@ -224,15 +255,25 @@ def _default_positions(tokens):
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
 
 
+def forward_hidden(params, x, cfg: ModelConfig, positions):
+    """Every block, then the final norm: (B, S, D) -> (hidden, aux), aux
+    the sum of the MoE layers' load-balance losses (None without MoE)."""
+    aux = None
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        x, a = block_forward(p, x, cfg, kind, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return _apply_norm(params["final_norm"], x, cfg), aux
+
+
 def lm_forward(params, inputs, cfg: ModelConfig, positions=None):
     """Full-sequence logits (B, S, V) of token ids (B, S) or, for
-    ``input_mode == "embeddings"``, of embeddings (B, S, D)."""
+    ``input_mode == "embeddings"``, of embeddings (B, S, D). The MoE aux
+    loss is computed and dropped, as JAX's ``lm_forward`` does."""
     check_supported(cfg)
     positions = _default_positions(inputs) if positions is None else positions
     x = embed_inputs(params, inputs, cfg, positions)
-    for p, kind in zip(params["layers"], cfg.layer_kinds()):
-        x = block_forward(p, x, cfg, kind, positions)
-    h = _apply_norm(params["final_norm"], x, cfg)
+    h, _ = forward_hidden(params, x, cfg, positions)
     return logits_from_hidden(params, h, cfg)
 
 
@@ -240,8 +281,12 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device="cuda") -> List[dict]:
     """One cache per layer: ``{"k", "v"}`` of (batch, max_len, Hkv, Dh)
     for a global layer, a ring with its ``"pos"`` side-car for a local
-    one (``attention.init_attn_cache``)."""
+    one (``attention.init_attn_cache``), MLA's compressed ``{"c", "kr"}``
+    (``attention.init_mla_cache``)."""
     check_supported(cfg, serving=True)
+    if cfg.mla:
+        return [A.init_mla_cache(cfg, batch, max_len, device=device)
+                for _ in range(cfg.n_layers)]
     return [A.init_attn_cache(cfg, kind, batch, max_len, device=device)
             for kind in cfg.layer_kinds()]
 

@@ -131,7 +131,7 @@ def vision_backbone(params, images, cfg: ModelConfig):
     positions = torch.arange(gh * gw, dtype=torch.int32,
                              device=images.device)[None].expand(b, gh * gw)
     for blk in params["blocks"]:
-        tokens = block_forward(blk, tokens, cfg, "attn", positions)
+        tokens, _ = block_forward(blk, tokens, cfg, "attn", positions)
     return _apply_norm(params["final_norm"], tokens, cfg), (gh, gw)
 
 

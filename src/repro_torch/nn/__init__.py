@@ -332,6 +332,13 @@ def softmax_cross_entropy(logits, labels):
     return lse - label_logit
 
 
+@tagged(OpGroup.LOGIT, "router_gate")
+def router_gate(logits):
+    """MoE router probabilities: the softmax over experts in f32 (plain
+    PyTorch on every backend: the JAX package has no kernel for it)."""
+    return torch.softmax(logits.float(), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Memory
 # ---------------------------------------------------------------------------

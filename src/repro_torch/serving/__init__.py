@@ -6,7 +6,8 @@ sequences shares ONE KV cache:
 * admission is per slot: each request is prefilled alone, right-padded to
   a power-of-two bucket, with a length mask picking the last real token's
   logits, and its cache rows (every leaf: a local layer's ring and its
-  position side-car too) are copied into the slot;
+  position side-car, MLA's latent ``c`` and rope key ``kr``) are copied
+  into the slot;
 * decode runs one step for the whole slot table with a per-slot position
   vector ``pos: (B,)``, so sequences of different depths coexist; a dead
   slot decodes a pad token at position 0 and its output is discarded;

@@ -244,8 +244,9 @@ class PagedEngine(Engine):
     * prefix hit or long prompt: decode-interleaved ``lm_extend`` chunks,
       one chunk per engine step, the batch decoding in between.
 
-    Only full-depth positional caches page, so every layer must be plain
-    global attention (``"attn"``): gemma3-27b's ``local`` rings raise.
+    Only full-depth positional caches page, so every layer must be global
+    attention (``"attn"``: MHA/GQA's k / v or MLA's latent c / kr, each
+    paged as it is): gemma3-27b's ``local`` rings raise.
     Pools live on the params' device. ``cold_prefills`` and
     ``extend_chunks`` count the two admission programs run since the last
     ``reset_stats()``.

@@ -323,3 +323,165 @@ def test_decode_splits_reads_no_tensor():
 def test_prefill_body_by_dtype():
     assert attn.body(torch.bfloat16) == "mma bf16"
     assert attn.body(torch.float32) == "fma f32"
+
+
+# ---------------------------------------------------------------------------
+# decode's wide body: MLA's absorbed decode (Dk 576, Dv 512, Hkv 1, G 16)
+# ---------------------------------------------------------------------------
+
+#: csrc/decode.cu's wide body per dtype: keys a tile, threads a key, the
+#: elements a score load reads; four P.V columns a thread of 128
+WIDE = {"bfloat16": (32, 4, 8), "float32": (16, 8, 4)}
+THREADS, PW_WIDE = 128, 4
+
+
+def pv_map(dv, pw=PW_WIDE, threads=THREADS):
+    """The wide body's P.V mapping: thread t owns columns [pw*col, pw*col +
+    pw) of every head, col = t % ncol, over the keys ph, ph + nph, ... of
+    a tile, ph = t // ncol; threads with ph >= nph idle."""
+    ncol = dv // pw
+    nph = threads // ncol
+    return [(t % ncol, t // ncol) for t in range(threads) if t // ncol < nph], nph
+
+
+def emulate_wide_decode(q, k, v, lengths, n_split, chunk, scale, dt,
+                        drop_last_group=False):
+    """The wide body in plain torch, f32: each split's keys in tiles of
+    WIDE[dt][0]; a key's score as TPK partial dots over interleaved
+    load-width chunks of Dk, closed by the shuffle butterfly; the online
+    softmax per tile; P.V accumulated per (column group, key phase) as
+    :func:`pv_map` assigns them, the phases added at the end; the splits
+    merged. ``drop_last_group``: the mutant whose last column group never
+    runs (its columns stay zero)."""
+    tile, tpk, vw = WIDE[dt]
+    b, _, hq, dk = q.shape
+    t, dv = k.shape[1], v.shape[3]
+    g = hq                                           # Hkv 1
+    qf, kf, vf = q.float()[:, 0], k.float()[:, :, 0], v.float()[:, :, 0]
+    groups, nph = pv_map(dv)
+    ncol = dv // PW_WIDE
+    out = torch.zeros((b, 1, hq, dv))
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), t)
+        parts = []
+        for s in range(n_split):
+            begin, end = s * chunk, min(n, (s + 1) * chunk)
+            if begin >= end:
+                continue
+            m = torch.full((g, 1), NEG_INF)
+            l = torch.zeros((g, 1))
+            acc = torch.zeros((nph, g, dv))
+            for k0 in range(begin, end, tile):
+                keys = range(k0, min(k0 + tile, end))
+                sc = torch.full((g, tile), NEG_INF)
+                for j, key in enumerate(keys):
+                    dots = []
+                    for sub in range(tpk):
+                        cols = [c for i in range(sub, dk // vw, tpk)
+                                for c in range(i * vw, i * vw + vw)]
+                        dots.append(qf[bi][:, cols] @ kf[bi, key, cols])
+                    while len(dots) > 1:             # xor 1, then xor 2, ...
+                        dots = [dots[i] + dots[i + 1]
+                                for i in range(0, len(dots), 2)]
+                    sc[:, j] = dots[0] * scale
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr
+                for col, ph in groups:
+                    if drop_last_group and col == ncol - 1:
+                        continue
+                    c0 = PW_WIDE * col
+                    for j in range(ph, len(keys), nph):
+                        acc[ph, :, c0:c0 + PW_WIDE] += \
+                            p[:, j:j + 1] * vf[bi, k0 + j, c0:c0 + PW_WIDE]
+                m = m_new
+            parts.append((m, l, acc.sum(0)))
+        if parts:
+            mm = torch.stack([p[0] for p in parts]).amax(0)
+            w = [torch.exp(p[0] - mm) for p in parts]
+            ll = sum(wi * p[1] for wi, p in zip(w, parts))
+            aa = sum(wi * p[2] for wi, p in zip(w, parts))
+            out[bi, 0] = aa / ll.clamp_min(1e-30)
+    return out
+
+
+@pytest.mark.parametrize("dv", [512, 256, 200])
+def test_wide_pv_map_covers_every_column_and_key_once(dv):
+    groups, nph = pv_map(dv)
+    assert nph >= 1
+    for tile, _, _ in WIDE.values():
+        seen = {}
+        for col, ph in groups:
+            for key in range(ph, tile, nph):
+                for c in range(PW_WIDE * col, PW_WIDE * col + PW_WIDE):
+                    seen[(key, c)] = seen.get((key, c), 0) + 1
+        assert seen == {(key, c): 1 for key in range(tile) for c in range(dv)}
+
+
+def test_wide_tiles_fit_a_block_and_the_split_covers_the_cache():
+    """The wide body's shared memory at MLA's dims and G 16 (and G 32)
+    stays under a block's 227 KB where two 64-key stages would not; the
+    serve step's split (B 4, Hkv 1, T 512, 132 SMs) is 8 chunks of 64
+    keys, whole tiles of either dtype."""
+    def pitch(cols, elem):
+        groups = cols * elem // 16
+        return (groups + (10 - groups % 8) % 8) * (16 // elem)
+
+    def smem(g, tile, elem, nph=1):
+        return (2 * tile * (pitch(576, elem) + pitch(512, elem)) * elem
+                + 4 * (g * 576 + g * tile + 3 * g + (nph - 1) * g * 512))
+    limit = 227 * 1024
+    assert smem(16, 64, 2) > limit
+    for dt, elem in (("bfloat16", 2), ("float32", 4)):
+        for g in (16, 32):
+            assert smem(g, WIDE[dt][0], elem) <= limit
+    n = attn.decode_splits(4, 1, 512, 132)
+    chunk = attn.decode_chunk(512, n)
+    assert (n, chunk) == (8, 64)
+    assert all(chunk % WIDE[dt][0] == 0 for dt in WIDE)
+    assert attn.decode_wide(576, 512) and not attn.decode_wide(128, 128)
+    assert attn.decode_dims_taken(576, 512) and attn.decode_dims_taken(128, 64)
+    assert not attn.decode_dims_taken(640, 512)
+    assert not attn.decode_dims_taken(576, 514)
+    assert attn.prefill_dims_taken(192, 128)
+    assert not attn.prefill_dims_taken(192, 128, causal=False)
+    assert not attn.prefill_dims_taken(192, 192)
+    assert not attn.prefill_dims_taken(256, 128)
+    assert not attn.prefill_dims_taken(136, 72)
+    assert attn.prefill_dims_taken(80, 80, causal=False)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_wide_decode_matches_jax_at_mla_dims(dt):
+    """At Dk 576 / Dv 512 / Hkv 1 / G 16, scale 1/sqrt(192), small B and T
+    split in 2: the emulated wide body against JAX's decode kernel in
+    interpret mode and the port's plain version, lengths 0, 1, one past
+    the split boundary and T."""
+    b, t, hq = 4, 80, 16
+    scale = 1.0 / math.sqrt(192)
+    n_split, chunk = 2, 64
+    rng = np.random.default_rng(20)
+    qj, qt = _pair(rng, (b, 1, hq, 576), dt)
+    kj, kt = _pair(rng, (b, t, 1, 576), dt)
+    vj, vt = _pair(rng, (b, t, 1, 512), dt)
+    lengths = np.array([0, 1, chunk + 1, t], np.int32)
+    emu = emulate_wide_decode(qt, kt, vt, lengths, n_split, chunk, scale, dt)
+    want = jops.attn_decode_template(qj, kj, vj, jnp.asarray(lengths),
+                                     scale=scale, interpret=True)
+    plain = ref.decode_attention(qt, kt, vt, torch.from_numpy(lengths),
+                                 scale=scale)
+    if dt == "float32":
+        # 576-term dots in another order: within half the card's f32 limit
+        for w in (np.asarray(want), plain.numpy()):
+            np.testing.assert_allclose(emu.numpy(), w, rtol=0,
+                                       atol=ATOL[dt] / 2)
+    else:
+        got = emu.to(torch.bfloat16).float().numpy()
+        for w in (np.asarray(want, np.float32), plain.float().numpy()):
+            np.testing.assert_allclose(got, w, rtol=0, atol=ATOL[dt])
+    assert not emu[0].any(), "lengths 0 must give exact zeros"
+    bad = emulate_wide_decode(qt, kt, vt, lengths, n_split, chunk, scale, dt,
+                              drop_last_group=True)
+    assert float((bad - plain.float()).abs().max()) > ATOL[dt]

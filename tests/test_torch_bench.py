@@ -668,8 +668,7 @@ def test_quick_lm_cases_stay_at_full_width():
 def test_full_tier_names_the_unported_archs():
     left = [c.arch for c in tcases.tier_cases("full")
             if not tcases.is_ported(c.arch)]
-    assert left == ["qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-350m",
-                    "deepseek-v2-lite-16b"]
+    assert left == ["recurrentgemma-2b", "xlstm-350m"]
     assert not [c for c in tcases.quick_cases()
                 if not tcases.is_ported(c.arch)]
 
@@ -834,6 +833,29 @@ def test_harvested_section_fails_when_a_micro_run_fails(monkeypatch,
     assert "kernel launch failed" in r.error
 
 
+def test_full_tier_moe_cases_run_ok_on_reduced_configs(monkeypatch,
+                                                      clean_caches):
+    """The two full-tier cases the MoE layer and MLA bring in (qwen2-moe
+    b-1, deepseek-v2 b-1), alone in the case table, through every section
+    of a full run that reads the cases, on reduced configs: each section
+    ok, with rows for both."""
+    _reduced_configs(monkeypatch)
+    moe = [c for c in tcases.CASES
+           if c.arch in ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")]
+    assert len(moe) == 2
+    monkeypatch.setattr(tcases, "CASES", moe)
+    names = ["breakdown", "opgroups", "top_table", "quantized", "fusion",
+             "platforms"]
+    result = run_bench("full", section_names=names, device="cpu")
+    assert result.meta["cases_not_ported"] == []
+    assert [c.arch for c in result.cases] == [c.arch for c in moe]
+    assert {s.name: s.status for s in result.sections} == \
+        dict.fromkeys(names, "ok"), \
+        [(s.name, s.error) for s in result.sections if s.status != "ok"]
+    rows = result.section("breakdown").rows
+    assert {r["case"] for r in rows} >= {c.alias for c in moe}
+
+
 def test_full_run_leaves_out_the_unported_cases():
     """A full run names the archs the port cannot build yet, before any
     section runs."""
@@ -841,8 +863,7 @@ def test_full_run_leaves_out_the_unported_cases():
     result = run_bench("full", section_names=["roofline"], device="cpu",
                        progress=lines.append)
     names = [c["arch"] for c in result.meta["cases_not_ported"]]
-    assert names == ["qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-350m",
-                     "deepseek-v2-lite-16b"]
+    assert names == ["recurrentgemma-2b", "xlstm-350m"]
     assert not {c.arch for c in result.cases} & set(names)
     assert any("not ported" in line and "xlstm-350m" in line
                for line in lines)
@@ -888,7 +909,9 @@ def test_list_names_every_case(capsys):
     assert [r["name"] for r in out["cases"]] == \
         [c.alias for c in tcases.CASES + tcases.SERVING_CASES
          + tcases.VISION_CASES]
-    assert sum(r["builder"] == "not ported yet" for r in out["cases"]) == 4
+    assert [r["arch"] for r in out["cases"]
+            if r["builder"] == "not ported yet"] == ["recurrentgemma-2b",
+                                                     "xlstm-350m"]
 
 
 def test_package_exports_jax_names_but_the_compiled_view():

@@ -57,7 +57,8 @@ def test_model_config_fields_pinned():
 @pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl", "bert-base",
                                   "vit-b16", "vit-b16-cls", "detector-vit-s",
                                   "gemma3-27b", "stablelm-3b", "granite-3-8b",
-                                  "chameleon-34b", "qwen1.5-110b"])
+                                  "chameleon-34b", "qwen1.5-110b",
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_llama_config_copy_pinned(cut, arch):
     want = jget_config(arch)
@@ -68,9 +69,11 @@ def test_llama_config_copy_pinned(cut, arch):
 
 
 def test_unknown_config_lists_known():
-    with pytest.raises(KeyError, match="bert-base.*chameleon-34b.*gpt2-xl.*"
-                       "granite-3-8b.*llama2-7b.*qwen1.5-110b.*stablelm-3b"):
-        get_config("qwen2-moe-a2.7b")
+    with pytest.raises(KeyError, match="bert-base.*chameleon-34b.*"
+                       "deepseek-v2-lite-16b.*gpt2-xl.*granite-3-8b.*"
+                       "llama2-7b.*qwen1.5-110b.*qwen2-moe-a2.7b.*"
+                       "stablelm-3b"):
+        get_config("recurrentgemma-2b")
 
 
 @pytest.mark.parametrize("arch", ["vit-b16-cls", "detector-vit-s", "gpt2-xl"])
@@ -196,7 +199,7 @@ def test_bridge_raises_on_an_unknown_entry_and_carries_every_other():
                                device="cpu")
 
 
-@pytest.mark.parametrize("unported", [dict(n_experts=8, top_k=2),
+@pytest.mark.parametrize("unported", [dict(block_pattern=("attn", "rec")),
                                       dict(attn_logit_softcap=50.0),
                                       dict(pos_emb="sinusoidal"),
                                       dict(input_mode="audio")])

@@ -805,6 +805,126 @@ def test_kernels_raise_above_what_they_take(card):
                         torch.ones(1, dtype=torch.int32, device="cuda"))
 
 
+#: MLA's prefill (Dk 192 = nope 128 + rope 64, Dv 128, 16 heads): the
+#: 16- and 256-token buckets and the last 64-token chunk of a 512-deep
+#: cache; GQA, a ragged chunk
+MLA_PREFILL = [(1, 16, 16, 16, 16, 192, 128, 0), (1, 256, 256, 16, 16, 192, 128, 0),
+               (1, 64, 512, 16, 16, 192, 128, 448), (2, 37, 200, 4, 2, 192, 128, 100)]
+
+
+@pytest.mark.parametrize("case", MLA_PREFILL, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_core_mla_dims_on_card(card, case, dt):
+    b, sq, skv, hq, hkv, dk, dv, off = case
+    q = _randn(card, (b, sq, hq, dk), dt)
+    k, v = _randn(card, (b, skv, hkv, dk), dt), _randn(card, (b, skv, hkv, dv), dt)
+    got = _launched("attention_core",
+                    lambda: ops.attention_core(q, k, v, q_offset=off))
+    _assert_close(got, ref.attention(q, k, v, q_offset=off), dt)
+
+
+@pytest.mark.parametrize("lens", [[1, 0, 300, 512], [64, 65, 511, 129]])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_core_mla_absorbed_on_card(card, lens, dt):
+    """The wide body: q [4,1,16,576] over one latent KV head, keys 576 and
+    values 512 wide, scale 1/sqrt(192), ragged lengths with 1 and 0."""
+    q = _randn(card, (4, 1, 16, 576), dt)
+    k, v = _randn(card, (4, 512, 1, 576), dt), _randn(card, (4, 512, 1, 512), dt)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 192 ** -0.5
+    got = _launched("decode_core", lambda: ops.decode_core(q, k, v, n, scale=scale))
+    _assert_close(got, ref.decode_attention(q, k, v, n, scale=scale).to(dt), dt)
+    if 0 in lens:
+        assert not got[lens.index(0)].any()
+    assert _counters_zero()
+
+
+def test_kernels_refuse_head_dims_they_have_no_instantiation_for(card):
+    """Prefill takes both dims up to 128 or MLA's (192, 128); decode
+    (576, 512) at most,
+    Dv a multiple of 4 in its wide body: the wrappers raise outside, and
+    the C entries refuse what the wrappers let through."""
+    from repro_torch.kernels import attn_template as at
+    for dk, dv in ((256, 128), (192, 192), (200, 64), (136, 72)):
+        q, v = _randn(card, (1, 4, 2, dk), torch.bfloat16), \
+            _randn(card, (1, 4, 2, dv), torch.bfloat16)
+        with pytest.raises(ValueError, match="no instantiation"):
+            ops.attention_core(q, q, v)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            at.attention_core(q, q, v, 0, 1.0)
+    # MLA's dims are the causal kernel's alone
+    q, v = _randn(card, (1, 4, 2, 192), torch.bfloat16), \
+        _randn(card, (1, 4, 2, 128), torch.bfloat16)
+    for call in (lambda: ops.attention_full(q, q, v),
+                 lambda: ops.attention_window(q, q, v, 2)):
+        with pytest.raises(ValueError, match="no instantiation"):
+            call()
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        at.attention_full(q, q, v, 1.0)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    for dk, dv in ((640, 512), (576, 514), (576, 516 + 4)):
+        q = _randn(card, (1, 1, 16, dk), torch.float32)
+        k, v = _randn(card, (1, 8, 1, dk), torch.float32), \
+            _randn(card, (1, 8, 1, dv), torch.float32)
+        with pytest.raises(ValueError, match="no instantiation"):
+            ops.decode_core(q, k, v, one)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            at.decode_core(q, k, v, one, 1.0)
+
+
+MOE_MODELS = [(a, f) for a in ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
+              for f in (False, True)]
+
+
+@pytest.mark.parametrize("arch,fused", MOE_MODELS)
+def test_reduced_moe_model_on_card(card, arch, fused):
+    """Reduced qwen2-moe and deepseek-v2-lite: the kernel path's logits
+    against the plain path's; the Engine's tokens on the card equal the
+    CPU's, graphed and eager alike, and one eager decode step reads nothing
+    on the host (the dispatch and combine included)."""
+    from repro_torch.models import init_lm_cache
+    from repro_torch.serving import make_serve_step
+    cfg = reduced(get_config(arch))
+    params = init_lm(card, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), generator=card,
+                         device="cuda")
+    with nn.backend("torch"), nn.fuse(fused):
+        want = lm_forward(params, toks, cfg)
+    ops.reset_launches()
+    with nn.fuse(fused):
+        got = lm_forward(params, toks, cfg)
+    assert ops.launches["attention_core"] == cfg.n_layers
+    assert ops.launches["swiglu"] == 2 * cfg.n_layers - cfg.first_dense_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (5, 20, 9)]
+
+    def serve(p, **kw):
+        eng = Engine(cfg, p, max_batch=2, max_len=64, fused=fused, **kw)
+        uids = [eng.add_request(x, max_new_tokens=8) for x in prompts]
+        done = {r.uid: r.output for r in eng.run()}
+        return [done[u] for u in uids]
+
+    ops.reset_launches()
+    graphed = serve(params)
+    assert ops.launches["decode_core"] > 0
+    assert graphed == serve(params, cuda_graph=False) == serve(_to(params, "cpu"))
+    token = torch.tensor([3, 4], device="cuda")
+    pos = torch.tensor([5, 9], dtype=torch.int32, device="cuda")
+    caches = init_lm_cache(cfg, 2, 64, device="cuda")
+    step = make_serve_step(cfg, fused=fused)
+    step(params, token, pos, caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(params, token, pos, caches)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 MODELS = [("llama2-7b", False), ("llama2-7b", True), ("gpt2-xl", False),
           ("gpt2-xl", True)]
 
