@@ -49,7 +49,12 @@ Phases, each printing JSON lines:
              the last 64-token chunk of a 512-deep cache at q_offset 448)
              and decode_core's wide body at Dk 576 / Dv 512, one KV head
              for 16 query heads (kv 512 with ragged lengths, 1 and 0 among
-             them, and 4096 keys in many splits), bf16 and f32;
+             them, and 4096 keys in many splits), bf16 and f32; phase
+             moe's shapes of the other kernels (MOE_KERNEL_BATCHES): the
+             2048-wide norms and the 512-d kv_norm, rope on qwen2's heads
+             and on MLA's q_rope copy and kr, swiglu on the expert buffers
+             at each batch's capacity, the shared experts and the dense
+             first layer;
    moe     - qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a dense first
              layer) at full width and depth in bf16 (random weights from
              a seeded generator on the card), one after the other, each
@@ -69,8 +74,8 @@ Phases, each printing JSON lines:
              rule; the measured split of one eager b1 s16 forward with the
              shares of the MoE sites, beside its ``eager-modeled:h100`` view;
 3. serve   - for each of llama2-7b, stablelm-3b, gpt2-xl and gemma3-27b at
-             full width in bf16, at the depth SERVE_LAYERS gives (their
-             first 8, 8, 12 and 12 layers; random weights from a seeded
+             full width in bf16, at full depth but gemma3-27b's first 12
+             layers (SERVE_LAYERS; random weights from a seeded
              generator on the card), the continuous-batching ``Engine``
              unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
@@ -240,13 +245,12 @@ SHARED_PREFIX, SUFFIX, LONG_PROMPTS = 160, 40, (300, 400)
 #: compare_paths' chunked prefill: a prompt of EXTEND_PROMPT tokens as
 #: lm_prefill of the first EXTEND_FIRST, then lm_extend in chunks of CHUNK
 EXTEND_PROMPT, EXTEND_FIRST = 300, 128
-#: the depth phases 3, 4 and paged serve the dense models at, full width,
-#: their first layers (gemma3-27b two repeats of its five-local, one-global
-#: pattern): phase moe serves the MoE models at full depth, and at full
-#: depth these four took 220 s of the script's time (PERF.md §6, PR 24),
-#: past the time the script is held to
-SERVE_LAYERS = {"llama2-7b": 8, "stablelm-3b": 8, "gpt2-xl": 12,
-                "gemma3-27b": 12}
+#: the depth phases 3 and 4 serve a dense model at where it is cut, full
+#: width, its first layers: gemma3-27b two repeats of its five-local,
+#: one-global pattern (at its 62 layers, serving it took 76 s of the
+#: script's time, PERF.md §6; with phase moe added, the script would
+#: pass the time it is held to); the others serve at full depth
+SERVE_LAYERS = {"gemma3-27b": 12}
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 #: the depth gemma3-27b's profiles run at: the first layers of the served
@@ -406,6 +410,12 @@ MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
 MOE_LAYER_TOKENS = 256
 MOE_LAYER_CFS = (None, 0.5)
 MOE_ROW_RTOL = 0.03
+#: (B, S) of the token batches phase moe's models give their kernels: a
+#: prefill at the 256 bucket (its longest prompts), the Engine's 4-slot
+#: decode step and the PagedEngine's 64-token chunk; phase 2 checks the
+#: row norms, rope and swiglu at each, the expert buffers at the capacity
+#: each sets
+MOE_KERNEL_BATCHES = ((1, 256), (4, 1), (1, CHUNK))
 #: the op sites whose share phase moe's measured split prints
 MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
              "expert_ffn")
@@ -495,11 +505,31 @@ def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns ({kernel: max abs error over its cases},
     the same over the MLA shapes)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import attn_template, norms, rope
     from repro_torch.kernels import softmax_xent as xent
     from repro_torch.kernels import swiglu as glu
+    from repro_torch.models import moe as M
 
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    # phase moe's shapes: qwen2-moe-a2.7b's and deepseek-v2-lite-16b's
+    # 2048-wide rows and MLA's 512-d latent (kv_norm); qwen2's heads of
+    # 128 (rope on all of each); the expert buffers (1, E, C, 1408) at the
+    # capacity C of each batch, the shared experts' rows (1, T, 1408 *
+    # n_shared) and deepseek's dense first layer's (B, S, 10944)
+    moe_cfgs = [get_config(a) for a in MOE_ARCHS]
+    mla = next(c for c in moe_cfgs if c.mla)
+    moe_rows = [(b, s, w) for b, s in MOE_KERNEL_BATCHES
+                for w in (moe_cfgs[0].d_model, mla.kv_lora_rank)]
+    moe_glu = sorted({(1, c.n_experts, M.capacity(b * s, c), c.moe_d_ff)
+                      for c in moe_cfgs for b, s in MOE_KERNEL_BATCHES})
+    moe_glu += [(1, b * s, c.moe_d_ff * c.n_shared_experts)
+                for c in moe_cfgs for b, s in MOE_KERNEL_BATCHES]
+    moe_glu += [(b, s, mla.d_ff) for b, s in MOE_KERNEL_BATCHES]
+    moe_p0 = {(b, s): 448 if s == CHUNK else 186 if s == 1 else 0
+              for b, s in MOE_KERNEL_BATCHES}
+    moe_rope = [(b, s, moe_cfgs[0].n_heads, moe_cfgs[0].head_dim, 1.0,
+                 moe_p0[b, s], s == 1) for b, s in MOE_KERNEL_BATCHES]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def split_chunk(b, hkv, t):
@@ -559,13 +589,15 @@ def check_kernels(torch, ops, ref, gen):
         # gemma3-27b's zero-centred norms (5376) and its qk-norm (128, off),
         # at the decode step and at s2048; a partial last row group (21
         # rows of 128, 16 a CTA); the widest rows of body B (bf16) and of
-        # body C's 16-byte loads (f32); the bench's llama2-7b b1 s16
+        # body C's 16-byte loads (f32); the bench's llama2-7b b1 s16;
+        # phase moe's rows (moe_rows)
         for shape, zc in [((4, 1, 4096), False), ((1, 256, 4096), False),
                           ((1, 16, 4096), False),
                           ((2, 33, 257), False), ((3, 7, 1000), True),
                           ((4, 1, 5376), True), ((1, 37, 32, 128), False),
                           ((3, 7, 128), False), ((1, 2048, 32, 128), False),
-                          ((1, 2048, 5376), True), ((2, 1, 16384), False)]:
+                          ((1, 2048, 5376), True), ((2, 1, 16384), False)
+                          ] + [(r, False) for r in moe_rows]:
             x, w = randn(shape, dt), randn(shape[-1:], dt)
             bd = body(x, dt, w)
             compare("rms_norm", ops.rms_norm(x, w, zero_centered=zc),
@@ -610,7 +642,8 @@ def check_kernels(torch, ops, ref, gen):
         # more vectors than a CTA's threads (in chunks); half at its 6144
         # limit, scalar; stablelm-3b's decode step and prefill (head dim 80,
         # a quarter rotated: half 10, scalar); the bench's llama2-7b s16,
-        # stablelm-3b's 16-token chunk at 16 and its 3-slot decode
+        # stablelm-3b's 16-token chunk at 16 and its 3-slot decode; qwen2-
+        # moe-a2.7b's heads at phase moe's batches (moe_rope)
         for b, s, h, d, frac, p0, column in [(4, 1, 32, 80, 0.25, 215, True),
                                              (1, 16, 32, 128, 1.0, 0, False),
                                              (1, 16, 32, 80, 0.25, 16, False),
@@ -626,7 +659,8 @@ def check_kernels(torch, ops, ref, gen):
                                              (1, 2049, 16, 128, 1.0, 0, False),
                                              (4, 1, 32, 128, 1.0, 4092, True),
                                              (2, 3, 72, 256, 1.0, 7, False),
-                                             (1, 3, 2, 12289, 1.0, 4093, False)]:
+                                             (1, 3, 2, 12289, 1.0, 4093, False)
+                                             ] + moe_rope:
             x = randn((b, s, h, d), dt)
             ar = p0 + torch.arange(b if column else s, dtype=torch.int32,
                                    device="cuda")
@@ -636,6 +670,23 @@ def check_kernels(torch, ops, ref, gen):
                     f"x{[b, s, h, d]} fraction={frac} positions {p0}.."
                     f"{int(ar[-1])}{' (B, 1)' if column else ''}",
                     plan=rope.plan_for(x, frac, y)._asdict())
+        # MLA's rope (deepseek-v2-lite-16b), all of each head rotated: q_rope,
+        # the last qk_rope_dim of each head's nope + rope columns copied
+        # contiguous as _mla_q copies it, and the shared rope key kr, one head
+        nope, rd = mla.qk_nope_dim, mla.qk_rope_dim
+        for b, s in MOE_KERNEL_BATCHES:
+            q = randn((b, s, mla.n_heads, nope + rd), dt)
+            ar = moe_p0[b, s] + torch.arange(b if s == 1 else s,
+                                             dtype=torch.int32, device="cuda")
+            pos = ar[:, None] if s == 1 else ar[None].expand(b, s)
+            for what, x in (("q_rope", q[..., nope:].contiguous()),
+                            ("kr", randn((b, s, 1, rd), dt))):
+                y = ops.rope(x, pos, fraction=1.0)
+                compare("rope", y, ref.rope(x, pos, fraction=1.0), dtname,
+                        f"MLA {what} x{list(x.shape)} positions "
+                        f"{moe_p0[b, s]}..{int(ar[-1])}"
+                        f"{' (B, 1)' if s == 1 else ''}",
+                        plan=rope.plan_for(x, 1.0, y)._asdict())
         # swiglu: llama2-7b's decode step and prefill bucket; geglu:
         # gemma3-27b's decode rows, a prefill and its fused prefill at the
         # 2048 bucket (the launch phase 5 times); no multiple of 4, a tail
@@ -643,12 +694,13 @@ def check_kernels(torch, ops, ref, gen):
         # not 16), and one element in (the scalar body), and at finite
         # extremes of the gate (e^-g, e^-2z and g^3 overflowing, the
         # denominator past 2^126), each naming its plan; the bench's
-        # llama2-7b s16 and stablelm-3b's chunk and 3-slot decode
+        # llama2-7b s16 and stablelm-3b's chunk and 3-slot decode; phase
+        # moe's expert, shared and dense rows (moe_glu)
         for kernel, shapes in (("swiglu", [(4, 1, 11008), (1, 256, 11008),
                                            (1, 16, 11008), (1, 16, 6912),
                                            (3, 1, 6912),
                                            (4, 1, 6912), (1, 256, 6912),
-                                           (2, 37, 257), (1, 13)]),
+                                           (2, 37, 257), (1, 13)] + moe_glu),
                                ("geglu", [(4, 1, 21504), (1, 256, 21504),
                                           (1, 2048, 21504), (2, 37, 257),
                                           (1, 17), (1, 1)])):
@@ -766,13 +818,12 @@ def check_kernels(torch, ops, ref, gen):
         # decode's wide body: deepseek-v2-lite's absorbed MLA decode (q
         # [B,1,16,576] over the latent keys [B,T,1,576] and values
         # [B,T,1,512], scale 1/sqrt(192)) at kv 512 with ragged lengths, 1
-        # and 0 among them, and over 4096 keys in many splits; a group of 8
-        # at Dv 256 (two key phases in P.V)
+        # and 0 among them, and over 4096 keys in many splits (the body
+        # takes these dims at this group alone)
         for b, t, hq, dk, dv, lens in [
                 (4, 512, 16, 576, 512, [1, 0, 300, 512]),
                 (4, 512, 16, 576, 512, [64, 65, 511, 129]),
-                (2, 4096, 16, 576, 512, [4096, 17]),
-                (3, 200, 8, 264, 256, [200, 3, 0])]:
+                (2, 4096, 16, 576, 512, [4096, 17])]:
             q = randn((b, 1, hq, dk), dt)
             k, v = randn((b, t, 1, dk), dt), randn((b, t, 1, dv), dt)
             n = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -2600,8 +2651,9 @@ def main(argv=None) -> int:
     qdq_kept = []           # (model, variant, measured profile, records)
     nms_inputs = None
     for arch in ARCHS:
-        cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16",
-                                       n_layers=SERVE_LAYERS[arch])
+        cfg = get_config(arch)
+        cfg = cfg.replace(dtype="bfloat16", param_dtype="bfloat16",
+                          n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
         t0 = time.perf_counter()
         params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
         torch.cuda.synchronize()

@@ -40,10 +40,11 @@ from . import _build
 #: the (Dk, Dv) each kernel takes (csrc ``dims_taken``). Prefill: both up
 #: to 128, or, causal only, MLA's pair, Dk 192 with Dv 128 (128 + 64 /
 #: 128; the window and full masks have no such model).
-#: Decode: both up to 128, or Dk up to 576 and Dv up to 512, a multiple of
-#: 4, in its wide body (MLA's absorbed decode, 512 + 64 / 512)
+#: Decode: both up to 128, or, in its wide body at a group of 16 alone,
+#: MLA's absorbed decode, Dk 576 with Dv 512 (512 + 64 / 512)
 PREFILL_MAX_DIMS = (192, 128)
 DECODE_MAX_DIMS = (576, 512)
+DECODE_WIDE_GROUP = 16
 #: the largest head dims of the kernels' common instantiation
 COMMON_MAX_DIM = 128
 #: the largest GQA group decode takes (csrc kGMax)
@@ -58,14 +59,16 @@ def prefill_dims_taken(dk: int, dv: int, causal: bool = True) -> bool:
     return causal and (dk, dv) == PREFILL_MAX_DIMS
 
 
-def decode_dims_taken(dk: int, dv: int) -> bool:
-    """Whether ``csrc/decode.cu`` has a body for (Dk, Dv): its common one
-    (both up to 128) or its wide one (:func:`decode_wide`)."""
+def decode_dims_taken(dk: int, dv: int, group: int) -> bool:
+    """Whether ``csrc/decode.cu`` has a body for (Dk, Dv) at GQA group
+    ``group``: its common one (both up to 128, a group up to
+    :data:`MAX_GQA_GROUP`) or its wide one (:func:`decode_wide`: MLA's
+    dims at :data:`DECODE_WIDE_GROUP`)."""
     if dk <= 0 or dv <= 0:
         return False
     if not decode_wide(dk, dv):
-        return True
-    return dk <= DECODE_MAX_DIMS[0] and dv <= DECODE_MAX_DIMS[1] and dv % 4 == 0
+        return group <= MAX_GQA_GROUP
+    return (dk, dv) == DECODE_MAX_DIMS and group == DECODE_WIDE_GROUP
 
 
 def decode_wide(dk: int, dv: int) -> bool:

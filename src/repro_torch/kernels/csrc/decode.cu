@@ -45,8 +45,8 @@
 //     head's softmax update of 64 scores with two shuffles.
 //
 // The wide body takes MLA's absorbed decode: Dk 576 (the 512-d latent and
-// the 64-d rope key), Dv 512 (the latent), one KV head for a group of 16
-// (any Dk <= 576, Dv <= 512 a multiple of 4, wide_dims). Two stages of
+// the 64-d rope key), Dv 512 (the latent), one KV head for a group of 16,
+// and these dims and this group alone (dims_taken). Two stages of
 // 64-key tiles would take ~279 KB of shared memory, past a block's 227 KB,
 // and two P.V columns a thread would leave no thread a key phase at Dv
 // 512. So its tiles hold 32 keys in bf16 (16 in f32), still two stages,
@@ -63,8 +63,9 @@ constexpr int kBK = 64;        // keys per staged tile: two threads a key
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kDMax = 128;     // largest Dk and Dv of the common body
-constexpr int kDkWide = 576;   // largest Dk of the wide body (MLA: 512 + 64)
-constexpr int kDvWide = 512;   // largest Dv of the wide body (MLA's latent)
+constexpr int kDkWide = 576;   // Dk of the wide body (MLA: 512 + 64)
+constexpr int kDvWide = 512;   // Dv of the wide body (MLA's latent)
+constexpr int kGWide = 16;     // the wide body's group (MLA's 16 heads)
 constexpr int kPwWide = 4;     // P.V columns a thread owns in the wide body
 constexpr int kGMax = 32;      // largest GQA group taken
 
@@ -78,11 +79,12 @@ __host__ __device__ __forceinline__ bool wide_dims(int dk, int dv) {
   return dk > kDMax || dv > kDMax;
 }
 
-// the head dims taken: both up to 128, or the wide body's
-__host__ __device__ __forceinline__ bool dims_taken(int dk, int dv) {
+// the head dims and group taken: both dims up to 128 at any group up to
+// kGMax, or the wide body's dims at its group
+__host__ __device__ __forceinline__ bool dims_taken(int dk, int dv, int g) {
   if (dk <= 0 || dv <= 0) return false;
-  if (!wide_dims(dk, dv)) return true;
-  return dk <= kDkWide && dv <= kDvWide && dv % kPwWide == 0;
+  if (!wide_dims(dk, dv)) return g <= kGMax;
+  return dk == kDkWide && dv == kDvWide && g == kGWide;
 }
 
 // Row pitch (elements) of a staged K or V tile. 16-byte copies: rows padded
@@ -441,8 +443,7 @@ int launch_vec(const void* q, const void* k, const void* v,
 #define REPRO_DECODE(GC) REPRO_DECODE_AT(GC, kBK, VEC ? 2 : 1)
   if (wide_dims(Dk, Dv)) {
     constexpr int kWideBK = sizeof(T) == 2 ? 32 : 16;
-    return Hq / Hkv == 16 ? REPRO_DECODE_AT(16, kWideBK, kPwWide)
-                          : REPRO_DECODE_AT(0, kWideBK, kPwWide);
+    return REPRO_DECODE_AT(kGWide, kWideBK, kPwWide);
   }
   switch (Hq / Hkv) {
     case 1: return REPRO_DECODE(1);
@@ -485,7 +486,7 @@ extern "C" int repro_decode(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Tlen < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
-      Hq / Hkv > kGMax || !dims_taken(Dk, Dv) ||
+      !dims_taken(Dk, Dv, Hq / Hkv) ||
       n_split < 1 || n_split > 65535 || chunk < kBK || chunk % kBK ||
       static_cast<int64_t>(chunk) * n_split < Tlen ||
       (n_split > 1 && (part_acc == nullptr || part_ml == nullptr || sem == nullptr)))

@@ -356,8 +356,18 @@ def _check_qkv(name: str, q, k, v) -> None:
 def _check_kernel_dims(name: str, q, v) -> None:
     dk, dv = q.shape[3], v.shape[3]
     if name == "decode_core":
-        taken, limits = _attn.decode_dims_taken(dk, dv), _attn.DECODE_MAX_DIMS
-    elif name == "attention_core":
+        group = q.shape[2] // v.shape[2]
+        if group > _attn.MAX_GQA_GROUP:
+            raise ValueError(f"decode_core: GQA group {group} above the "
+                             f"kernel's {_attn.MAX_GQA_GROUP}")
+        if not _attn.decode_dims_taken(dk, dv, group):
+            raise ValueError(
+                f"decode_core: head dims ({dk}, {dv}) at group {group} have "
+                f"no instantiation (the kernel takes both up to "
+                f"{_attn.COMMON_MAX_DIM}, or {_attn.DECODE_MAX_DIMS} at group "
+                f"{_attn.DECODE_WIDE_GROUP})")
+        return
+    if name == "attention_core":
         taken, limits = _attn.prefill_dims_taken(dk, dv), _attn.PREFILL_MAX_DIMS
     else:
         taken = _attn.prefill_dims_taken(dk, dv, causal=False)
@@ -460,9 +470,6 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card:
         return ref.decode_attention(q, k, v, lengths, scale=scale).to(v.dtype)
     _check_kernel_dims("decode_core", q, v)
-    if q.shape[2] // k.shape[2] > _attn.MAX_GQA_GROUP:
-        raise ValueError(f"decode_core: GQA group {q.shape[2] // k.shape[2]} "
-                         f"above the kernel's {_attn.MAX_GQA_GROUP}")
     _count("decode_core")
     return _attn.decode_core(q, k, v, lengths, scale)
 

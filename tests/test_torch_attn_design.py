@@ -407,22 +407,22 @@ def emulate_wide_decode(q, k, v, lengths, n_split, chunk, scale, dt,
     return out
 
 
-@pytest.mark.parametrize("dv", [512, 256, 200])
-def test_wide_pv_map_covers_every_column_and_key_once(dv):
+@pytest.mark.parametrize("dt", sorted(WIDE))
+def test_wide_pv_map_covers_every_column_and_key_once(dt):
+    dv = attn.DECODE_MAX_DIMS[1]
     groups, nph = pv_map(dv)
     assert nph >= 1
-    for tile, _, _ in WIDE.values():
-        seen = {}
-        for col, ph in groups:
-            for key in range(ph, tile, nph):
-                for c in range(PW_WIDE * col, PW_WIDE * col + PW_WIDE):
-                    seen[(key, c)] = seen.get((key, c), 0) + 1
-        assert seen == {(key, c): 1 for key in range(tile) for c in range(dv)}
+    tile, seen = WIDE[dt][0], {}
+    for col, ph in groups:
+        for key in range(ph, tile, nph):
+            for c in range(PW_WIDE * col, PW_WIDE * col + PW_WIDE):
+                seen[(key, c)] = seen.get((key, c), 0) + 1
+    assert seen == {(key, c): 1 for key in range(tile) for c in range(dv)}
 
 
 def test_wide_tiles_fit_a_block_and_the_split_covers_the_cache():
-    """The wide body's shared memory at MLA's dims and G 16 (and G 32)
-    stays under a block's 227 KB where two 64-key stages would not; the
+    """The wide body's shared memory at MLA's dims and G 16 stays under
+    a block's 227 KB where two 64-key stages would not; the
     serve step's split (B 4, Hkv 1, T 512, 132 SMs) is 8 chunks of 64
     keys, whole tiles of either dtype."""
     def pitch(cols, elem):
@@ -435,16 +435,19 @@ def test_wide_tiles_fit_a_block_and_the_split_covers_the_cache():
     limit = 227 * 1024
     assert smem(16, 64, 2) > limit
     for dt, elem in (("bfloat16", 2), ("float32", 4)):
-        for g in (16, 32):
-            assert smem(g, WIDE[dt][0], elem) <= limit
+        assert smem(attn.DECODE_WIDE_GROUP, WIDE[dt][0], elem) <= limit
     n = attn.decode_splits(4, 1, 512, 132)
     chunk = attn.decode_chunk(512, n)
     assert (n, chunk) == (8, 64)
     assert all(chunk % WIDE[dt][0] == 0 for dt in WIDE)
     assert attn.decode_wide(576, 512) and not attn.decode_wide(128, 128)
-    assert attn.decode_dims_taken(576, 512) and attn.decode_dims_taken(128, 64)
-    assert not attn.decode_dims_taken(640, 512)
-    assert not attn.decode_dims_taken(576, 514)
+    assert attn.decode_dims_taken(576, 512, 16)
+    assert attn.decode_dims_taken(128, 64, 1)
+    assert attn.decode_dims_taken(128, 128, 32)
+    assert not attn.decode_dims_taken(128, 128, 64)
+    for dk, dv, g in ((640, 512, 16), (576, 514, 16), (576, 508, 16),
+                      (264, 256, 8), (576, 512, 8), (576, 512, 32)):
+        assert not attn.decode_dims_taken(dk, dv, g)
     assert attn.prefill_dims_taken(192, 128)
     assert not attn.prefill_dims_taken(192, 128, causal=False)
     assert not attn.prefill_dims_taken(192, 192)

@@ -841,9 +841,9 @@ def test_decode_core_mla_absorbed_on_card(card, lens, dt):
 
 def test_kernels_refuse_head_dims_they_have_no_instantiation_for(card):
     """Prefill takes both dims up to 128 or MLA's (192, 128); decode
-    (576, 512) at most,
-    Dv a multiple of 4 in its wide body: the wrappers raise outside, and
-    the C entries refuse what the wrappers let through."""
+    both up to 128 or MLA's (576, 512) at a group of 16 alone: the
+    wrappers raise outside, and the C entries refuse what the wrappers let
+    through."""
     from repro_torch.kernels import attn_template as at
     for dk, dv in ((256, 128), (192, 192), (200, 64), (136, 72)):
         q, v = _randn(card, (1, 4, 2, dk), torch.bfloat16), \
@@ -862,8 +862,10 @@ def test_kernels_refuse_head_dims_they_have_no_instantiation_for(card):
     with pytest.raises(RuntimeError, match="cudaError_t"):
         at.attention_full(q, q, v, 1.0)
     one = torch.ones(1, dtype=torch.int32, device="cuda")
-    for dk, dv in ((640, 512), (576, 514), (576, 516 + 4)):
-        q = _randn(card, (1, 1, 16, dk), torch.float32)
+    for dk, dv, g in ((640, 512, 16), (576, 514, 16), (576, 520, 16),
+                      (576, 508, 16), (264, 256, 8), (576, 512, 8),
+                      (576, 512, 32)):
+        q = _randn(card, (1, 1, g, dk), torch.float32)
         k, v = _randn(card, (1, 8, 1, dk), torch.float32), \
             _randn(card, (1, 8, 1, dv), torch.float32)
         with pytest.raises(ValueError, match="no instantiation"):

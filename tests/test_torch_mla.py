@@ -51,6 +51,49 @@ def mla():
     return jcfg, cfg, jp, p, x, pos
 
 
+@pytest.fixture(scope="module")
+def jax_forward(mla):
+    """JAX's ``mla_forward`` over all S + 1 rows per (backend, fused), each
+    computed once for the tests that hold the port against it."""
+    jcfg, _, jp, _, x, pos = mla
+    memo = {}
+
+    def get(backend="jnp", fused=False):
+        if (backend, fused) not in memo:
+            with jnn.backend(backend), jnn.fuse(fused):
+                memo[backend, fused] = np.asarray(JA.mla_forward(
+                    jp, jnp.asarray(x), jcfg, jnp.asarray(pos)))
+        return memo[backend, fused]
+    return get
+
+
+@pytest.fixture(scope="module")
+def jax_prefill(mla):
+    """JAX's ``mla_prefill`` of the first ``n`` rows (a cache of S + 2) per
+    (backend, n): (output, cache), each computed once."""
+    jcfg, _, jp, _, x, pos = mla
+    memo = {}
+
+    def get(backend="jnp", n=S):
+        if (backend, n) not in memo:
+            with jnn.backend(backend):
+                memo[backend, n] = JA.mla_prefill(
+                    jp, jnp.asarray(x[:, :n]), jcfg, jnp.asarray(pos[:, :n]),
+                    max_len=S + 2)
+        return memo[backend, n]
+    return get
+
+
+@pytest.fixture(scope="module")
+def jax_extend(mla, jax_prefill):
+    """JAX's ``mla_extend`` of rows 6..S after a prefill of 6 (jnp):
+    (output, cache)."""
+    jcfg, _, jp, _, x, _ = mla
+    with jnn.backend("jnp"):
+        return JA.mla_extend(jp, jnp.asarray(x[:, 6:S + 1]), jcfg,
+                             jax_prefill("jnp", 6)[1], 6)
+
+
 def test_init_mla_shapes_equal_jax(mla):
     jcfg, cfg, jp, p, _, _ = mla
     own = A.init_mla(torch.Generator().manual_seed(0), cfg)
@@ -62,24 +105,21 @@ def test_init_mla_shapes_equal_jax(mla):
 
 @pytest.mark.parametrize("port_backend,jax_backend", BACKENDS)
 @pytest.mark.parametrize("fused", [False, True])
-def test_mla_forward_matches_jax(mla, port_backend, jax_backend, fused):
-    jcfg, cfg, jp, p, x, pos = mla
-    with jnn.backend(jax_backend), jnn.fuse(fused):
-        want = JA.mla_forward(jp, jnp.asarray(x), jcfg, jnp.asarray(pos))
+def test_mla_forward_matches_jax(mla, jax_forward, port_backend, jax_backend,
+                                 fused):
+    _, cfg, _, p, x, pos = mla
+    want = jax_forward(jax_backend, fused)
     with nn.backend(port_backend), nn.fuse(fused):
         got = A.mla_forward(p, torch.from_numpy(x), cfg,
                             torch.from_numpy(pos))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
-                               rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("port_backend,jax_backend", BACKENDS)
-def test_mla_prefill_output_and_cache_match_jax(mla, port_backend,
-                                                jax_backend):
-    jcfg, cfg, jp, p, x, pos = mla
-    with jnn.backend(jax_backend):
-        want, wc = JA.mla_prefill(jp, jnp.asarray(x[:, :S]), jcfg,
-                                  jnp.asarray(pos[:, :S]), max_len=S + 2)
+def test_mla_prefill_output_and_cache_match_jax(mla, jax_prefill,
+                                                port_backend, jax_backend):
+    _, cfg, _, p, x, pos = mla
+    want, wc = jax_prefill(jax_backend)
     with nn.backend(port_backend):
         got, cache = A.mla_prefill(p, torch.from_numpy(x[:, :S]), cfg,
                                    torch.from_numpy(pos[:, :S]), max_len=S + 2)
@@ -97,7 +137,8 @@ def test_mla_prefill_output_and_cache_match_jax(mla, port_backend,
     (("cuda", False), ("pallas_interpret", False)),
     (("torch", True), ("jnp", True)),
     (("cuda", True), ("pallas_interpret", True))])
-def test_mla_decode_matches_jax_and_forward(mla, port_setting, jax_setting):
+def test_mla_decode_matches_jax_and_forward(mla, jax_forward, jax_prefill,
+                                            port_setting, jax_setting):
     """Each of the three decode paths (plain chain, decode kernel's
     oracle, fused) against JAX's same path (2e-5) and against the full
     forward's last row (2e-4, test_attention.py's limit), per-row
@@ -105,11 +146,7 @@ def test_mla_decode_matches_jax_and_forward(mla, port_setting, jax_setting):
     jcfg, cfg, jp, p, x, pos = mla
     (pb, pf), (jb, jf) = port_setting, jax_setting
     step = np.array([S, S - 3], np.int32)
-    with jnn.backend("jnp"):
-        full = np.asarray(JA.mla_forward(jp, jnp.asarray(x), jcfg,
-                                         jnp.asarray(pos)))
-        _, wc = JA.mla_prefill(jp, jnp.asarray(x[:, :S]), jcfg,
-                               jnp.asarray(pos[:, :S]), max_len=S + 2)
+    full, wc = jax_forward(), jax_prefill()[1]
     with jnn.backend(jb), jnn.fuse(jf):
         want, wc2 = JA.mla_decode(jp, jnp.asarray(x[:, S:]), jcfg, wc,
                                   jnp.asarray(step))
@@ -126,15 +163,14 @@ def test_mla_decode_matches_jax_and_forward(mla, port_setting, jax_setting):
                                    atol=1e-5)
 
 
-def test_mla_decode_paths_agree_and_the_kernel_path_launches_decode_core(mla):
+def test_mla_decode_paths_agree_and_the_kernel_path_launches_decode_core(
+        mla, jax_prefill):
     """test_attn_template.py's backend parity on the port: the chain, the
     kernel oracle and the fused path within 2e-4 of each other; the kernel
     path reaches decode_core (absorbed dims: Dk r+rope, Dv r, Hkv 1, the
     group H), the chain does not."""
-    jcfg, cfg, jp, p, x, pos = mla
-    with jnn.backend("jnp"):
-        _, wc = JA.mla_prefill(jp, jnp.asarray(x[:, :S]), jcfg,
-                               jnp.asarray(pos[:, :S]), max_len=S + 2)
+    _, cfg, _, p, x, _ = mla
+    wc = jax_prefill()[1]
     outs = {}
     for name, (backend, fused) in {"chain": ("torch", False),
                                    "kernel": ("cuda", False),
@@ -160,11 +196,10 @@ def test_mla_decode_paths_agree_and_the_kernel_path_launches_decode_core(mla):
                                    atol=2e-4)
 
 
-def test_mla_decode_chain_sites_equal_jax(mla):
-    jcfg, cfg, jp, p, x, pos = mla
+def test_mla_decode_chain_sites_equal_jax(mla, jax_prefill):
+    jcfg, cfg, jp, p, x, _ = mla
+    wc = jax_prefill()[1]
     with jnn.backend("jnp"):
-        _, wc = JA.mla_prefill(jp, jnp.asarray(x[:, :S]), jcfg,
-                               jnp.asarray(pos[:, :S]), max_len=S + 2)
         jrecs = jcapture(lambda p_, x_, c_: JA.mla_decode(p_, x_, jcfg, c_,
                                                           jnp.int32(S)),
                          jp, jnp.asarray(x[:, S:]), wc)
@@ -180,17 +215,15 @@ def test_mla_decode_chain_sites_equal_jax(mla):
 
 
 @pytest.mark.parametrize("port_backend", ["torch", "cuda"])
-def test_mla_extend_matches_jax(mla, port_backend):
+def test_mla_extend_matches_jax(mla, jax_forward, jax_prefill, jax_extend,
+                                port_backend):
     """Prefill 6 tokens, then a chunk of 5 at offset 6: output and the
     latent cache against JAX's ``mla_extend``; the chunk's last row
     against the forward pass."""
-    jcfg, cfg, jp, p, x, pos = mla
-    with jnn.backend("jnp"):
-        _, wc = JA.mla_prefill(jp, jnp.asarray(x[:, :6]), jcfg,
-                               jnp.asarray(pos[:, :6]), max_len=S + 2)
-        want, wc2 = JA.mla_extend(jp, jnp.asarray(x[:, 6:S + 1]), jcfg, wc, 6)
-        full = np.asarray(JA.mla_forward(jp, jnp.asarray(x), jcfg,
-                                         jnp.asarray(pos)))
+    _, cfg, _, p, x, _ = mla
+    wc = jax_prefill("jnp", 6)[1]
+    want, wc2 = jax_extend
+    full = jax_forward()
     cache = bridge.tensors_from_jax(jax.tree_util.tree_map(np.asarray, wc),
                                     device="cpu")
     ops.reset_launches()
