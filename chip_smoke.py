@@ -47,9 +47,11 @@ Phases, each printing JSON lines:
              masks and the dequant kernel's ``r`` must be identical;
              MLA's shapes: attention_core at Dk 192 / Dv 128 (s16, s256,
              the last 64-token chunk of a 512-deep cache at q_offset 448)
-             and decode_core's wide body at Dk 576 / Dv 512, one KV head
-             for 16 query heads (kv 512 with ragged lengths, 1 and 0 among
-             them, and 4096 keys in many splits), bf16 and f32; phase
+             and decode_core's wide bodies at Dk 576 / Dv 512, one KV
+             head for 16 query heads (the tensor cores' in bf16, the FMA
+             units' in f32, each case naming its body and split plan; kv
+             512 with ragged lengths, 0, 1, 31-33, 511 and 512 among them,
+             NaN keys past the lengths, and 4096 keys in many splits); phase
              moe's shapes of the other kernels (MOE_KERNEL_BATCHES): the
              2048-wide norms and the 512-d kv_norm, rope on qwen2's heads
              and on MLA's q_rope copy and kr, swiglu on the expert buffers
@@ -537,6 +539,11 @@ def check_kernels(torch, ops, ref, gen):
         return attn_template.decode_chunk(
             t, attn_template.decode_splits(b, hkv, t, sms))
 
+    def decode_plan(b, hq, hkv, t, dk, dv, dt):
+        """decode_core's body and (n_split, chunk) on this card."""
+        return (f"body={attn_template.decode_body(dk, dv, dt)} (n_split, chunk)="
+                f"{attn_template.decode_plan(b, hq, hkv, t, dk, dv, sms)}")
+
     def randn(shape, dt, scale=1.0, mean=0.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 + mean).to(dt)
@@ -815,26 +822,36 @@ def check_kernels(torch, ops, ref, gen):
                     f"n_split={attn_template.decode_splits(b, hkv, t, sms)}")
             if 0 in lens and got[lens.index(0)].float().abs().any():
                 fail("decode_core: lengths 0 must give exact zeros")
-        # decode's wide body: deepseek-v2-lite's absorbed MLA decode (q
+        # decode's wide bodies: deepseek-v2-lite's absorbed MLA decode (q
         # [B,1,16,576] over the latent keys [B,T,1,576] and values
-        # [B,T,1,512], scale 1/sqrt(192)) at kv 512 with ragged lengths, 1
-        # and 0 among them, and over 4096 keys in many splits (the body
-        # takes these dims at this group alone)
-        for b, t, hq, dk, dv, lens in [
-                (4, 512, 16, 576, 512, [1, 0, 300, 512]),
-                (4, 512, 16, 576, 512, [64, 65, 511, 129]),
-                (2, 4096, 16, 576, 512, [4096, 17])]:
+        # [B,T,1,512], scale 1/sqrt(192)) at kv 512 with ragged lengths: 0,
+        # 1, either side of a 32-key tile and of a 64-key split, 511 and
+        # 512; the serve run's; over 4096 keys in many splits; and with NaN
+        # keys and values past each row's length (stale rows of a cache
+        # reach no product: the output stays finite and equals the plain
+        # version over the clean cache). The bodies take these dims at this
+        # group alone: the tensor cores' in bf16, the FMA units' in f32
+        sc = 1.0 / math.sqrt(192)
+        for b, t, hq, dk, dv, lens, nan in [
+                (4, 512, 16, 576, 512, [1, 0, 300, 512], False),
+                (4, 512, 16, 576, 512, [64, 65, 511, 129], False),
+                (4, 512, 16, 576, 512, [31, 32, 33, 0], False),
+                (4, 512, 16, 576, 512, [186, 144, 120, 72], True),
+                (4, 512, 16, 576, 512, [0, 1, 33, 511], True),
+                (2, 4096, 16, 576, 512, [4096, 17], False)]:
             q = randn((b, 1, hq, dk), dt)
             k, v = randn((b, t, 1, dk), dt), randn((b, t, 1, dv), dt)
             n = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            sc = 1.0 / math.sqrt(192)
+            want = ref.decode_attention(q, k, v, n, scale=sc)
+            if nan:
+                for i, m in enumerate(lens):
+                    k[i, m:], v[i, m:] = float("nan"), float("nan")
             got = ops.decode_core(q, k, v, n, scale=sc)
-            compare("decode_core", got,
-                    ref.decode_attention(q, k, v, n, scale=sc), dtname,
+            compare("decode_core", got, want, dtname,
                     f"q{[b, 1, hq, dk]} kv{[b, t, 1]} dv={dv} lengths={lens} "
-                    f"scale=1/sqrt(192) n_split="
-                    f"{attn_template.decode_splits(b, 1, t, sms)} (wide body)",
-                    mla=True)
+                    f"scale=1/sqrt(192)"
+                    f"{', NaN keys and values past each length' if nan else ''} "
+                    f"{decode_plan(b, hq, 1, t, dk, dv, dt)}", mla=True)
             if 0 in lens and got[lens.index(0)].float().abs().any():
                 fail("decode_core: lengths 0 must give exact zeros")
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
@@ -1172,9 +1189,10 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
 
     # MLA (deepseek-v2-lite-16b): attention_core's (192, 128) instantiation
     # at its 256-token prefill bucket, causal SDPA beside it; decode_core's
-    # wide body on the absorbed decode of its 4 slots over a 512-deep latent
-    # cache at the serve run's lengths, SDPA beside it with the mask spelled
-    # out and the one KV head expanded to the 16 query heads
+    # bf16 wide body (the tensor cores') on the absorbed decode of its 4
+    # slots over a 512-deep latent cache at the serve run's lengths, SDPA
+    # beside it with the mask spelled out and the one KV head expanded to
+    # the 16 query heads, its body and split plan named
     b, s, h, dk, dv = 1, 256, 16, 192, 128
     q, k, v = randn((b, s, h, dk)), randn((b, s, h, dk)), randn((b, s, h, dv))
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -1206,6 +1224,9 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
                                                scale=sc),
         2 * (b * h * dk + kv * (dk + dv) + b * h * dv),
         2 * kv * h * (dk + dv), "bfloat16")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mla_decode["body"] = attn_template.decode_body(dk, dv, q1.dtype)
+    mla_decode["plan"] = list(attn_template.decode_plan(b, h, 1, t, dk, dv, sms))
     extra["attention_core mla prefill"] = mla_prefill
     extra["decode_core mla"] = mla_decode
 
@@ -2830,8 +2851,10 @@ def main(argv=None) -> int:
             m = tm["mla"]
             kernels[-1]["mla"] = {
                 "shape": m["shape"], "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "library_ms": m["library_ms"], "bound_ms": m["bound"][0],
-                "bound_by": m["bound"][1], "max_abs_err": worst_mla[name]}
+                "library_ms": m["library_ms"], "eager_ms": m["eager_ms"],
+                "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+                "max_abs_err": worst_mla[name],
+                **{k: m[k] for k in ("body", "plan") if k in m}}
     lap("timing")
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2),
          bench_s=round(bench_s, 2), phase_s=walls)

@@ -88,10 +88,14 @@ mut window_late_start attention.cu \
 # the bf16 body skipping the causal mask on the diagonal tile
 mut attn_diag_unmasked attention.cu \
   's/const bool diag = MASK != kFull \&\& k0/const bool diag = false \&\& k0/'
-# decode's wide body (MLA's Dv 512) never running its last P.V column
-# group: columns 508-511 of every head stay zero
+# decode's bf16 wide body (MLA's Dv 512) never running its last P.V column
+# slice: the last warp's columns 448-511 of every head stay zero
 mut decode_wide_drops_last_group decode.cu \
-  's/^    if (ph < nph) {$/    if (ph < nph \&\& !(PW == 4 \&\& col == ncol - 1)) {/'
+  's/^    for (int kk = 0; kk < BK \/ 16; ++kk) {$/    for (int kk = 0; kk < (warp == kMmaWarps - 1 ? 0 : BK \/ 16); ++kk) {/'
+# decode's bf16 wide body running Q.K^T one k16 step short of Dk 576: the
+# last 16 of the 64 rope dims never reach the scores
+mut decode_wide_skips_last_k_step decode.cu \
+  's/^        mma_bf16(s1, qf\[i + 1\], kf\[2\], kf\[3\]);$/        if (kh + 1 < KSPLIT || i + 2 < KSTEPS) mma_bf16(s1, qf[i + 1], kf[2], kf[3]);/'
 # the MoE combine ignoring keep: a dropped choice reads the clamped row
 # e*C - 1 of another token (phase moe's layer reference catches it)
 mut moe_combine_ignores_keep models/moe.py \

@@ -26,12 +26,15 @@ bf16 of the remainder, ``csrc/attention.cu``); in f32 they keep the FMA
 body, which holds f32's limits (:func:`body`). Decode splits each row's
 cache over ``n_split`` CTAs (:func:`decode_splits`); the last split of a
 row and head to finish merges the partial softmaxes, in the same launch
-(``csrc/decode.cu``).
+(``csrc/decode.cu``). MLA's absorbed decode runs a wide body of its own,
+in bf16 on the tensor cores with a plan of 32-key splits that fills the
+card for its one KV head, in f32 on the FMA units (:func:`decode_body`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -72,9 +75,8 @@ def decode_dims_taken(dk: int, dv: int, group: int) -> bool:
 
 
 def decode_wide(dk: int, dv: int) -> bool:
-    """Whether (Dk, Dv) runs decode's wide body: tiles of 32 keys (bf16)
-    or 16 (f32) and four P.V columns a thread, where 64-key tiles of a
-    576 / 512 head would not fit a block's shared memory."""
+    """Whether (Dk, Dv) runs one of decode's wide bodies (a head dim past
+    128: MLA's absorbed decode), which :func:`decode_body` names."""
     return dk > COMMON_MAX_DIM or dv > COMMON_MAX_DIM
 
 _I = ctypes.c_int
@@ -88,12 +90,25 @@ _FULL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 ctypes.c_float, _I, _I, _I, _I, _P]
 
-#: keys per staged tile of csrc/decode.cu (kBK); a split covers whole tiles
+#: keys per staged tile of csrc/decode.cu's common body (kBK) and of its
+#: bf16 wide body (kMmaBK; the f32 wide body's 16 divide it): a split
+#: covers whole tiles
 DECODE_TILE = 64
+DECODE_WIDE_TILE = 32
 #: CTAs per SM that decode_splits aims the split grid at: a split is
 #: latency-bound, and a row's valid prefix, unseen on the host, may be a
-#: small part of ``t``, so the grid aims at many short splits
+#: small part of ``t``, so the grid aims at many short splits. The bf16
+#: wide body takes 212 KB of shared memory, one CTA an SM: its plan aims
+#: at one CTA on every SM, at most one a 32-key tile
 DECODE_CTAS_PER_SM = 8
+DECODE_WIDE_CTAS_PER_SM = 1
+#: the most splits the wide plan gives a row: its merge reads 32 KB of f32
+#: partials a split in one CTA, ~0.33 us each on an H100, so that one row
+#: over 4096 keys runs best in 32 splits of 4 tiles (0.0306 ms against
+#: 0.0566 in 128 of one; ``scripts/decode_timing.py --plans``)
+DECODE_WIDE_MAX_SPLITS = 32
+#: the query heads a CTA of the wide bodies holds (mma's M in bf16)
+DECODE_WIDE_HEADS_PER_CTA = 16
 
 
 def body(dtype: torch.dtype) -> str:
@@ -102,23 +117,54 @@ def body(dtype: torch.dtype) -> str:
     return "mma bf16" if dtype == torch.bfloat16 else "fma f32"
 
 
-def decode_splits(b: int, hkv: int, t: int, sms: int) -> int:
+def decode_body(dk: int, dv: int, dtype: torch.dtype) -> str:
+    """Which body of ``csrc/decode.cu`` a launch at (Dk, Dv) in ``dtype``
+    runs: the common one on the CUDA cores (both dims up to 128), or at
+    MLA's wide dims the tensor cores' in bf16 and the FMA units' in f32."""
+    if not decode_wide(dk, dv):
+        return "fma"
+    return "wide mma bf16" if dtype == torch.bfloat16 else "wide fma f32"
+
+
+def decode_splits(b: int, hkv: int, t: int, sms: int, wide: bool = False,
+                  group: int = DECODE_WIDE_HEADS_PER_CTA) -> int:
     """How many CTAs split each (row, KV head)'s cache of depth ``t``:
     from the shapes and the card's SM count alone, never from ``lengths``
-    (a host read would stall the decode step). One where ``b * hkv``
-    already gives every SM a CTA or the cache is one tile; else enough to
-    put :data:`DECODE_CTAS_PER_SM` CTAs on each SM, at most one a tile,
-    and no split left without a tile of the cache."""
-    tiles = -(-t // DECODE_TILE)
-    if b * hkv >= sms or tiles <= 1:
+    (a host read would stall the decode step). One where the CTAs of a
+    split already give every SM one or the cache is one tile; else enough
+    to put :data:`DECODE_CTAS_PER_SM` CTAs on each SM, at most one a tile,
+    and no split left without a tile of the cache. ``wide``: the plan of
+    the wide bodies, from the rows and their query-head CTAs (``group``
+    heads, :data:`DECODE_WIDE_HEADS_PER_CTA` a CTA), in tiles of
+    :data:`DECODE_WIDE_TILE` keys, aimed at
+    :data:`DECODE_WIDE_CTAS_PER_SM`, at most
+    :data:`DECODE_WIDE_MAX_SPLITS` a row."""
+    tile, per_sm = ((DECODE_WIDE_TILE, DECODE_WIDE_CTAS_PER_SM) if wide
+                    else (DECODE_TILE, DECODE_CTAS_PER_SM))
+    ctas = b * hkv * (-(-group // DECODE_WIDE_HEADS_PER_CTA) if wide else 1)
+    tiles = -(-t // tile)
+    if ctas >= sms or tiles <= 1:
         return 1
-    want = min(tiles, -(-DECODE_CTAS_PER_SM * sms // (b * hkv)))
+    want = min(tiles, -(-per_sm * sms // ctas))
+    if wide:
+        want = min(want, DECODE_WIDE_MAX_SPLITS)
     return -(-tiles // -(-tiles // want))
 
 
-def decode_chunk(t: int, n_split: int) -> int:
-    """Keys per split: whole tiles, ``n_split`` of them covering ``t``."""
-    return max(1, -(-(-(-t // DECODE_TILE)) // n_split)) * DECODE_TILE
+def decode_chunk(t: int, n_split: int, wide: bool = False) -> int:
+    """Keys per split: whole tiles (of the wide bodies' with ``wide``),
+    ``n_split`` of them covering ``t``."""
+    tile = DECODE_WIDE_TILE if wide else DECODE_TILE
+    return max(1, -(-(-(-t // tile)) // n_split)) * tile
+
+
+def decode_plan(b: int, hq: int, hkv: int, t: int, dk: int, dv: int,
+                sms: int) -> tuple:
+    """(n_split, chunk) of a decode launch at these shapes: the wide
+    bodies' plan at MLA's dims, the common one elsewhere."""
+    wide = decode_wide(dk, dv)
+    n = decode_splits(b, hkv, t, sms, wide=wide, group=hq // hkv)
+    return n, decode_chunk(t, n, wide=wide)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,18 +211,21 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                lengths: torch.Tensor, scale: float) -> torch.Tensor:
+                lengths: torch.Tensor, scale: float,
+                plan: Optional[tuple] = None) -> torch.Tensor:
     """Decode launch on validated, contiguous CUDA tensors; ``lengths`` is
     int32 (B,) on the same card and is read by the kernel alone. With more
     than one split, the partial (m, l, acc) go to f32 scratch from
     ``torch.empty``, and the last split of each (row, KV head) to finish
-    merges them, as its stream's counters (``_build.counters``) say."""
+    merges them, as its stream's counters (``_build.counters``) say.
+    ``plan``: (n_split, chunk) in place of :func:`decode_plan`'s (a timing
+    script's candidates; the entry refuses one its body cannot run)."""
     b, _, hq, dk = q.shape
     _, t, hkv, dv = v.shape
     o = torch.empty((b, 1, hq, dv), dtype=v.dtype, device=q.device)
     dev, stream = _build.stream_and_device(q)
-    n_split = decode_splits(b, hkv, t, _build.sm_count(dev))
-    chunk = decode_chunk(t, n_split)
+    n_split, chunk = plan or decode_plan(b, hq, hkv, t, dk, dv,
+                                         _build.sm_count(dev))
     # held until the launch is enqueued: a tensor freed earlier could hand
     # its memory to the next allocation here
     scratch = ()

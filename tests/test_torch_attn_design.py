@@ -4,7 +4,9 @@ package on the CPU.
 ``csrc/attention.cu``'s bf16 body runs both products on the tensor cores
 and feeds P to P.V as two bf16 terms, where the TPU body multiplies f32 P;
 ``csrc/decode.cu`` splits each row's cache over several CTAs and merges
-their partial softmaxes in a combine pass. Neither runs here, so each is
+their partial softmaxes in a combine pass, and its bf16 wide body (MLA's
+absorbed decode) runs both products on the tensor cores as the prefill
+body does. Neither runs here, so each is
 emulated in plain torch, step for step, and held against the JAX kernels
 in interpret mode and against the port's plain versions, on the same
 numpy inputs. The tolerances are those ``chip_smoke.py`` holds the
@@ -295,17 +297,31 @@ def test_combine_without_rescale_is_caught(case):
 @pytest.mark.parametrize("t", [0, 1, 63, 64, 65, 512, 1024, 2048, 4096, 4097])
 @pytest.mark.parametrize("sms", [1, 8, 132])
 def test_decode_splits_properties(b, hkv, t, sms):
-    n = attn.decode_splits(b, hkv, t, sms)
-    chunk = attn.decode_chunk(t, n)
-    tiles = -(-t // attn.DECODE_TILE)
-    assert isinstance(n, int) and n >= 1
-    if b * hkv >= sms or tiles <= 1:
-        assert n == 1
-    assert n <= max(1, tiles)
-    assert chunk % attn.DECODE_TILE == 0 and chunk > 0
-    assert n * chunk >= t                        # the splits cover the cache
-    assert t == 0 or -(-t // chunk) == n         # and none is left empty
-    assert (n - 1) * b * hkv < attn.DECODE_CTAS_PER_SM * sms or n == 1
+    """The common plan, and the wide bodies' (a CTA for every 16 query
+    heads of a KV head: one here, MLA's G 16), each in whole tiles of its
+    body, no split left without a tile of the cache."""
+    for wide, tile, per_sm in (
+            (False, attn.DECODE_TILE, attn.DECODE_CTAS_PER_SM),
+            (True, attn.DECODE_WIDE_TILE, attn.DECODE_WIDE_CTAS_PER_SM)):
+        n = attn.decode_splits(b, hkv, t, sms, wide=wide)
+        chunk = attn.decode_chunk(t, n, wide=wide)
+        tiles = -(-t // tile)
+        assert isinstance(n, int) and n >= 1
+        if b * hkv >= sms or tiles <= 1:
+            assert n == 1
+        assert n <= max(1, tiles)
+        assert chunk % tile == 0 and chunk > 0
+        assert n * chunk >= t                        # the splits cover the cache
+        assert t == 0 or -(-t // chunk) == n         # and none is left empty
+        assert (n - 1) * b * hkv < per_sm * sms or n == 1
+        if wide:
+            assert n <= attn.DECODE_WIDE_MAX_SPLITS
+            # as many CTAs as a split of one tile each gives, to the cap
+            want = min(tiles, attn.DECODE_WIDE_MAX_SPLITS, -(-per_sm * sms // (b * hkv)))
+            assert b * hkv >= sms or tiles <= 1 or -(-tiles // -(-tiles // want)) == n
+    # the serve step of MLA's absorbed decode: B 4 rows of one KV head over
+    # 512 keys put at least 64 CTAs on the card's 132 SMs
+    assert 4 * attn.decode_splits(4, 1, 512, 132, wide=True) >= 64
 
 
 def test_decode_splits_reads_no_tensor():
@@ -317,7 +333,10 @@ def test_decode_splits_reads_no_tensor():
                              __float__=boom, numpy=boom):
         plans = [(attn.decode_splits(b, 16, t, 132), attn.decode_chunk(t, 4))
                  for b in (1, 4) for t in (512, 1024)]
+        plans += [attn.decode_plan(b, 16, 1, t, 576, 512, 132)
+                  for b in (1, 4) for t in (512, 1024)]
     assert boom.call_count == 0 and all(n >= 1 for n, _ in plans)
+    assert plans[-2] == (16, 32) and 4 * plans[-2][0] >= 64   # B 4, T 512
 
 
 def test_prefill_body_by_dtype():
@@ -326,27 +345,49 @@ def test_prefill_body_by_dtype():
 
 
 # ---------------------------------------------------------------------------
-# decode's wide body: MLA's absorbed decode (Dk 576, Dv 512, Hkv 1, G 16)
+# decode's wide bodies: MLA's absorbed decode (Dk 576, Dv 512, Hkv 1, G 16)
 # ---------------------------------------------------------------------------
 
-#: csrc/decode.cu's wide body per dtype: keys a tile, threads a key, the
-#: elements a score load reads; four P.V columns a thread of 128
-WIDE = {"bfloat16": (32, 4, 8), "float32": (16, 8, 4)}
+#: csrc/decode.cu's f32 wide body (the FMA units'): keys a tile, threads a
+#: key, the elements a score load reads; four P.V columns a thread of 128
+WIDE = {"float32": (16, 8, 4)}
 THREADS, PW_WIDE = 128, 4
+#: its bf16 wide body (the tensor cores'): 8 warps; warp w takes the n8 key
+#: slice w % 4 of a 32-key tile over the Dk part w // 4, and output
+#: columns 64w .. 64w + 63; P goes to P.V as this many bf16 terms
+MMA_WARPS, MMA_M, P_TERMS = 8, 16, 2
+LN2 = math.log(2.0)
 
 
 def pv_map(dv, pw=PW_WIDE, threads=THREADS):
-    """The wide body's P.V mapping: thread t owns columns [pw*col, pw*col +
-    pw) of every head, col = t % ncol, over the keys ph, ph + nph, ... of
-    a tile, ph = t // ncol; threads with ph >= nph idle."""
+    """The f32 wide body's P.V mapping: thread t owns columns [pw*col,
+    pw*col + pw) of every head, col = t % ncol, over the keys ph, ph + nph,
+    ... of a tile, ph = t // ncol; threads with ph >= nph idle."""
     ncol = dv // pw
     nph = threads // ncol
     return [(t % ncol, t // ncol) for t in range(threads) if t // ncol < nph], nph
 
 
+def mma_acc_map(g, dv, warps=MMA_WARPS):
+    """The bf16 wide body's P.V accumulators: (head, column) of register e
+    of n8 tile j in lane l of warp w (the m16n8 C fragment: rows l // 4
+    and l // 4 + 8, columns 2 (l % 4) and + 1), over its warp's columns;
+    rows past G are padding and stored nowhere."""
+    cw = dv // warps
+    out = []
+    for w in range(warps):
+        for j in range(cw // 8):
+            for lane in range(32):
+                for e in range(4):
+                    row = lane // 4 + 8 * (e // 2)
+                    if row < g:
+                        out.append((row, w * cw + j * 8 + 2 * (lane % 4) + e % 2))
+    return out
+
+
 def emulate_wide_decode(q, k, v, lengths, n_split, chunk, scale, dt,
                         drop_last_group=False):
-    """The wide body in plain torch, f32: each split's keys in tiles of
+    """The f32 wide body in plain torch, f32: each split's keys in tiles of
     WIDE[dt][0]; a key's score as TPK partial dots over interleaved
     load-width chunks of Dk, closed by the shuffle butterfly; the online
     softmax per tile; P.V accumulated per (column group, key phase) as
@@ -407,9 +448,88 @@ def emulate_wide_decode(q, k, v, lengths, n_split, chunk, scale, dt,
     return out
 
 
-@pytest.mark.parametrize("dt", sorted(WIDE))
+def emulate_mma_decode(q, k, v, lengths, n_split, chunk, scale, *,
+                       tile=None, p_terms=P_TERMS, drop_last_slice=False,
+                       skip_last_k_step=False):
+    """The bf16 wide body of ``csrc/decode.cu`` in plain torch, f32 (its
+    output before the last rounding): each split's keys in tiles of
+    ``tile`` (DECODE_WIDE_TILE) keys, zero past the split; the 16 heads as
+    mma's M (zero past G); S = q K^T from the bf16 operands in f32 (their
+    products exact), as the two Dk halves' partial sums added; scaled into
+    log2 units, keys past the split masked to NEG_INF; the online max and
+    rescale in f32; P = 2^(S - m) fed to the f32-accumulated P.V as
+    ``p_terms`` bf16 terms (2: the kernel's head plus the bf16 of the
+    remainder; 1: P rounded to bf16), l the sum of the values the terms
+    hold; a split's m leaves in natural units; the merge weighs each split
+    by e^(m_s - m) / l. ``drop_last_slice``: the decode_wide_drops_last_group
+    mutant (the last warp's 64 output columns never accumulate);
+    ``skip_last_k_step``: decode_wide_skips_last_k_step (the scores miss
+    Dk's last 16 dims)."""
+    tile = tile or attn.DECODE_WIDE_TILE
+    b, _, g, dk = q.shape
+    t, dv = k.shape[1], v.shape[3]
+    c = scale / LN2                                   # scale * log2(e)
+    qf = torch.zeros((b, MMA_M, dk))
+    qf[:, :g] = q.float()[:, 0]
+    kf, vf = k.float()[:, :, 0], v.float()[:, :, 0]
+    half = dk // 2
+    kept = dk - 16 if skip_last_k_step else dk
+    cw = dv // MMA_WARPS
+    out = torch.zeros((b, 1, g, dv))
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), t)
+        parts = []
+        for s in range(n_split):
+            begin, end = s * chunk, min(n, (s + 1) * chunk)
+            if begin >= end:
+                continue
+            m = torch.full((MMA_M, 1), NEG_INF)
+            l = torch.zeros((MMA_M, 1))
+            acc = torch.zeros((MMA_M, dv))
+            for k0 in range(begin, end, tile):
+                kt = torch.zeros((tile, dk))
+                vt = torch.zeros((tile, dv))
+                nk = min(tile, end - k0)
+                kt[:nk], vt[:nk] = kf[bi, k0:k0 + nk], vf[bi, k0:k0 + nk]
+                sc = (qf[bi, :, :half] @ kt[:, :half].T
+                      + qf[bi, :, half:kept] @ kt[:, half:kept].T) * c
+                sc[:, nk:] = NEG_INF
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(sc - m_new)
+                terms = [p.to(torch.bfloat16).float()]
+                if p_terms == 2:
+                    terms.append((p - terms[0]).to(torch.bfloat16).float())
+                l = l * corr + sum(terms).sum(-1, keepdim=True)
+                acc = acc * corr
+                for term in terms:
+                    acc = acc + term @ vt
+                if drop_last_slice:
+                    acc[:, dv - cw:] = 0.0
+                m = m_new
+            parts.append((m * LN2, l, acc))
+        if parts:
+            mm = torch.stack([p[0] for p in parts]).amax(0)
+            ll = sum(torch.exp(p[0] - mm) * p[1] for p in parts)
+            aa = sum(torch.exp(p[0] - mm) / ll.clamp_min(1e-30) * p[2]
+                     for p in parts)
+            out[bi, 0] = aa[:g]
+    return out
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
 def test_wide_pv_map_covers_every_column_and_key_once(dt):
+    """Every (key, column) of a tile reaches P.V once: in f32 by the FMA
+    body's thread map; in bf16 every (head, column) of the output is one
+    register of one lane of one warp (each mma takes all 16 keys of a k
+    step), and no warp's column slice overlaps another's."""
     dv = attn.DECODE_MAX_DIMS[1]
+    if dt == "bfloat16":
+        owned = mma_acc_map(attn.DECODE_WIDE_GROUP, dv)
+        assert sorted(owned) == [(h, c) for h in range(attn.DECODE_WIDE_GROUP)
+                                 for c in range(dv)]
+        assert attn.DECODE_WIDE_TILE % 16 == 0 and dv % (16 * MMA_WARPS) == 0
+        return
     groups, nph = pv_map(dv)
     assert nph >= 1
     tile, seen = WIDE[dt][0], {}
@@ -421,33 +541,46 @@ def test_wide_pv_map_covers_every_column_and_key_once(dt):
 
 
 def test_wide_tiles_fit_a_block_and_the_split_covers_the_cache():
-    """The wide body's shared memory at MLA's dims and G 16 stays under
-    a block's 227 KB where two 64-key stages would not; the
-    serve step's split (B 4, Hkv 1, T 512, 132 SMs) is 8 chunks of 64
-    keys, whole tiles of either dtype."""
+    """The bf16 wide body's shared memory at MLA's dims and G 16 (three
+    stages of 32-key K and V tiles, rows padded by 16 bytes, and the two
+    Dk parts' f32 scores) stays under a block's 227 KB where a fourth stage
+    would not; the f32 body's two stages of 16-key tiles too. The serve
+    step's wide plan (B 4, Hkv 1, T 512, 132 SMs) is 16 splits of one
+    32-key tile: 64 CTAs, where the common plan would give 8 of 64 keys."""
+    limit = 227 * 1024
+    dk, dv = attn.DECODE_MAX_DIMS
+    tile = attn.DECODE_WIDE_TILE
+
+    def mma_smem(stages):
+        ksplit = MMA_WARPS // (tile // 8)
+        return (2 * stages * tile * (dk + 8 + dv + 8)
+                + 4 * ksplit * MMA_M * (tile + 8))
+
     def pitch(cols, elem):
         groups = cols * elem // 16
         return (groups + (10 - groups % 8) % 8) * (16 // elem)
 
-    def smem(g, tile, elem, nph=1):
-        return (2 * tile * (pitch(576, elem) + pitch(512, elem)) * elem
-                + 4 * (g * 576 + g * tile + 3 * g + (nph - 1) * g * 512))
-    limit = 227 * 1024
-    assert smem(16, 64, 2) > limit
-    for dt, elem in (("bfloat16", 2), ("float32", 4)):
-        assert smem(attn.DECODE_WIDE_GROUP, WIDE[dt][0], elem) <= limit
-    n = attn.decode_splits(4, 1, 512, 132)
-    chunk = attn.decode_chunk(512, n)
-    assert (n, chunk) == (8, 64)
+    def fma_smem(g, bk, elem, nph=1):
+        return (2 * bk * (pitch(dk, elem) + pitch(dv, elem)) * elem
+                + 4 * (g * dk + g * bk + 3 * g + (nph - 1) * g * dv))
+    assert mma_smem(3) <= limit < mma_smem(4)
+    assert mma_smem(3) == 217088                     # the file's 212 KB
+    assert fma_smem(16, 64, 2) > limit
+    assert fma_smem(attn.DECODE_WIDE_GROUP, WIDE["float32"][0], 4) <= limit
+    n = attn.decode_splits(4, 1, 512, 132, wide=True)
+    chunk = attn.decode_chunk(512, n, wide=True)
+    assert (n, chunk) == (16, 32) and 4 * n >= 64
+    assert attn.decode_plan(4, 16, 1, 512, dk, dv, 132) == (16, 32)
+    assert attn.decode_plan(4, 32, 32, 512, 128, 128, 132) == (8, 64)
     assert all(chunk % WIDE[dt][0] == 0 for dt in WIDE)
     assert attn.decode_wide(576, 512) and not attn.decode_wide(128, 128)
     assert attn.decode_dims_taken(576, 512, 16)
     assert attn.decode_dims_taken(128, 64, 1)
     assert attn.decode_dims_taken(128, 128, 32)
     assert not attn.decode_dims_taken(128, 128, 64)
-    for dk, dv, g in ((640, 512, 16), (576, 514, 16), (576, 508, 16),
-                      (264, 256, 8), (576, 512, 8), (576, 512, 32)):
-        assert not attn.decode_dims_taken(dk, dv, g)
+    for dk_, dv_, g in ((640, 512, 16), (576, 514, 16), (576, 508, 16),
+                        (264, 256, 8), (576, 512, 8), (576, 512, 32)):
+        assert not attn.decode_dims_taken(dk_, dv_, g)
     assert attn.prefill_dims_taken(192, 128)
     assert not attn.prefill_dims_taken(192, 128, causal=False)
     assert not attn.prefill_dims_taken(192, 192)
@@ -456,35 +589,129 @@ def test_wide_tiles_fit_a_block_and_the_split_covers_the_cache():
     assert attn.prefill_dims_taken(80, 80, causal=False)
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_wide_decode_matches_jax_at_mla_dims(dt):
-    """At Dk 576 / Dv 512 / Hkv 1 / G 16, scale 1/sqrt(192), small B and T
-    split in 2: the emulated wide body against JAX's decode kernel in
-    interpret mode and the port's plain version, lengths 0, 1, one past
-    the split boundary and T."""
-    b, t, hq = 4, 80, 16
-    scale = 1.0 / math.sqrt(192)
-    n_split, chunk = 2, 64
+def test_decode_body_by_dims_and_dtype():
+    assert attn.decode_body(576, 512, torch.bfloat16) == "wide mma bf16"
+    assert attn.decode_body(576, 512, torch.float32) == "wide fma f32"
+    assert attn.decode_body(128, 128, torch.bfloat16) == "fma"
+    assert attn.decode_body(80, 80, torch.float32) == "fma"
+
+
+#: the MLA cases: B 6 rows over T 80 keys, lengths 0, 1, a tile's edge
+#: either side and a full row, scale 1/sqrt(192)
+MLA_T, MLA_LENGTHS, MLA_SCALE = 80, [0, 1, 31, 32, 33, 80], 1.0 / math.sqrt(192)
+
+
+@pytest.fixture(scope="module")
+def mla_case():
+    """The inputs of the MLA cases in both dtypes (numpy, seed 20), JAX's
+    decode kernel on them in interpret mode and the port's plain version,
+    computed once for the module's tests."""
     rng = np.random.default_rng(20)
-    qj, qt = _pair(rng, (b, 1, hq, 576), dt)
-    kj, kt = _pair(rng, (b, t, 1, 576), dt)
-    vj, vt = _pair(rng, (b, t, 1, 512), dt)
-    lengths = np.array([0, 1, chunk + 1, t], np.int32)
-    emu = emulate_wide_decode(qt, kt, vt, lengths, n_split, chunk, scale, dt)
-    want = jops.attn_decode_template(qj, kj, vj, jnp.asarray(lengths),
-                                     scale=scale, interpret=True)
-    plain = ref.decode_attention(qt, kt, vt, torch.from_numpy(lengths),
-                                 scale=scale)
+    b, hq = len(MLA_LENGTHS), attn.DECODE_WIDE_GROUP
+    dk, dv = attn.DECODE_MAX_DIMS
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((b, 1, hq, dk), (b, MLA_T, 1, dk), (b, MLA_T, 1, dv))]
+    lengths = np.array(MLA_LENGTHS, np.int32)
+    out = {"lengths": lengths}
+    for dt in ("float32", "bfloat16"):
+        js = [jnp.asarray(a).astype(JAX_DT[dt]) for a in arrays]
+        ts = [torch.from_numpy(a).to(TORCH_DT[dt]) for a in arrays]
+        want = jops.attn_decode_template(*js, jnp.asarray(lengths),
+                                         scale=MLA_SCALE, interpret=True)
+        out[dt] = dict(
+            torch=ts, jax=np.asarray(want, np.float32),
+            plain=ref.decode_attention(*ts, torch.from_numpy(lengths),
+                                       scale=MLA_SCALE).float().numpy())
+    # JAX's kernel on the bf16 values in f32: the arithmetic's reference
+    js = [jnp.asarray(t.float().numpy()) for t in out["bfloat16"]["torch"]]
+    out["bf16 values, f32"] = np.asarray(jops.attn_decode_template(
+        *js, jnp.asarray(lengths), scale=MLA_SCALE, interpret=True))
+    out["bf16 values, plain f32"] = ref.decode_attention(
+        *[t.float() for t in out["bfloat16"]["torch"]],
+        torch.from_numpy(lengths), scale=MLA_SCALE).numpy()
+    return out
+
+
+#: (n_split, chunk) of the MLA cases: the wide plan's at 132 SMs (3 splits
+#: of one tile), one split a row (6 rows on 4 SMs) and two tiles a split
+MLA_PLANS = [attn.decode_plan(len(MLA_LENGTHS), 16, 1, MLA_T, 576, 512, 132),
+             attn.decode_plan(len(MLA_LENGTHS), 16, 1, MLA_T, 576, 512, 4),
+             (2, 64)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_wide_decode_matches_jax_at_mla_dims(mla_case, dt):
+    """At Dk 576 / Dv 512 / Hkv 1 / G 16, scale 1/sqrt(192), lengths 0, 1,
+    31, 32, 33 and T: the emulated wide body of ``dt`` against JAX's
+    decode kernel in interpret mode and the port's plain version. f32 (the
+    FMA body) split in 2 of 64 keys; bf16 (the tensor cores' body) under
+    each of MLA_PLANS."""
+    case = mla_case[dt]
+    qt, kt, vt = case["torch"]
+    lengths = mla_case["lengths"]
     if dt == "float32":
+        emus = [emulate_wide_decode(qt, kt, vt, lengths, 2, 64, MLA_SCALE, dt)]
         # 576-term dots in another order: within half the card's f32 limit
-        for w in (np.asarray(want), plain.numpy()):
-            np.testing.assert_allclose(emu.numpy(), w, rtol=0,
-                                       atol=ATOL[dt] / 2)
+        for emu in emus:
+            for w in (case["jax"], case["plain"]):
+                np.testing.assert_allclose(emu.numpy(), w, rtol=0,
+                                           atol=ATOL[dt] / 2)
     else:
-        got = emu.to(torch.bfloat16).float().numpy()
-        for w in (np.asarray(want, np.float32), plain.float().numpy()):
-            np.testing.assert_allclose(got, w, rtol=0, atol=ATOL[dt])
-    assert not emu[0].any(), "lengths 0 must give exact zeros"
-    bad = emulate_wide_decode(qt, kt, vt, lengths, n_split, chunk, scale, dt,
-                              drop_last_group=True)
-    assert float((bad - plain.float()).abs().max()) > ATOL[dt]
+        emus = [emulate_mma_decode(qt, kt, vt, lengths, n, c, MLA_SCALE)
+                for n, c in MLA_PLANS]
+        assert MLA_PLANS[0][0] > 1 and MLA_PLANS[1][0] == 1
+        for emu in emus:
+            got = emu.to(torch.bfloat16).float().numpy()
+            for w in (case["jax"], case["plain"]):
+                np.testing.assert_allclose(got, w, rtol=0, atol=ATOL[dt])
+    for emu in emus:
+        assert not emu[0].any(), "lengths 0 must give exact zeros"
+    if dt == "float32":
+        bad = emulate_wide_decode(qt, kt, vt, lengths, 2, 64, MLA_SCALE, dt,
+                                  drop_last_group=True)
+        assert float(np.abs(bad.numpy() - case["plain"]).max()) > ATOL[dt]
+
+
+def test_mma_decode_keeps_the_rule_four_times_over(mla_case):
+    """The bf16 wide body's arithmetic uses less than a quarter of
+    chip_smoke's bf16 rule: the emulated body in f32 against JAX's kernel
+    and the plain version in f32 on the same bf16 values, under every plan
+    of MLA_PLANS; the plans agree with one another to f32 rounding."""
+    qt, kt, vt = mla_case["bfloat16"]["torch"]
+    lengths = mla_case["lengths"]
+    emus = [emulate_mma_decode(qt, kt, vt, lengths, n, c, MLA_SCALE).numpy()
+            for n, c in MLA_PLANS]
+    for emu in emus:
+        for name in ("bf16 values, f32", "bf16 values, plain f32"):
+            worst = _within_rule(emu, mla_case[name], BF16_ATOL, MARGIN)
+            assert worst <= 1.0, f"{name}: {worst:.3f} of the rule / {MARGIN}"
+        np.testing.assert_allclose(emu, emus[0], rtol=0, atol=1e-5)
+
+
+def test_mma_decode_needs_p_as_two_bf16_terms(mla_case):
+    """Why P goes to P.V as two bf16 terms: with them the emulated body's
+    f32 output is within 2e-5 of JAX's kernel in f32 on the same bf16
+    values (P carries 16 significant bits), where P rounded once to bf16
+    (2^-9 of each weight) misses that by far."""
+    qt, kt, vt = mla_case["bfloat16"]["torch"]
+    lengths = mla_case["lengths"]
+    n, c = MLA_PLANS[0]
+    want = mla_case["bf16 values, f32"]
+    two = emulate_mma_decode(qt, kt, vt, lengths, n, c, MLA_SCALE).numpy()
+    one = emulate_mma_decode(qt, kt, vt, lengths, n, c, MLA_SCALE,
+                             p_terms=1).numpy()
+    assert P_TERMS == 2
+    assert float(np.abs(two - want).max()) <= 2e-5
+    assert float(np.abs(one - want).max()) > 10 * 2e-5
+
+
+@pytest.mark.parametrize("mutant", ["drop_last_slice", "skip_last_k_step"])
+def test_wide_mutants_are_caught(mla_case, mutant):
+    """The bf16 wide body's mutants (scripts/port_mutation_check.sh),
+    emulated: each misses the bf16 limit against the plain version."""
+    qt, kt, vt = mla_case["bfloat16"]["torch"]
+    n, c = MLA_PLANS[0]
+    bad = emulate_mma_decode(qt, kt, vt, mla_case["lengths"], n, c, MLA_SCALE,
+                             **{mutant: True})
+    got = bad.to(torch.bfloat16).float().numpy()
+    assert float(np.abs(got - mla_case["bfloat16"]["plain"]).max()) > ATOL["bfloat16"]

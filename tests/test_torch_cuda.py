@@ -823,19 +823,71 @@ def test_attention_core_mla_dims_on_card(card, case, dt):
     _assert_close(got, ref.attention(q, k, v, q_offset=off), dt)
 
 
-@pytest.mark.parametrize("lens", [[1, 0, 300, 512], [64, 65, 511, 129]])
+def _mla_decode_inputs(gen, dt, lens, t=512):
+    """q [4,1,16,576] over one latent KV head of depth ``t``, keys 576 and
+    values 512 wide, and int32 ``lens``."""
+    b = len(lens)
+    q = _randn(gen, (b, 1, 16, 576), dt)
+    k, v = _randn(gen, (b, t, 1, 576), dt), _randn(gen, (b, t, 1, 512), dt)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("lens", [[1, 0, 300, 512], [64, 65, 511, 129],
+                                  [31, 32, 33, 0], [0, 1, 511, 512]])
 @pytest.mark.parametrize("dt", DTYPES)
 def test_decode_core_mla_absorbed_on_card(card, lens, dt):
-    """The wide body: q [4,1,16,576] over one latent KV head, keys 576 and
-    values 512 wide, scale 1/sqrt(192), ragged lengths with 1 and 0."""
-    q = _randn(card, (4, 1, 16, 576), dt)
-    k, v = _randn(card, (4, 512, 1, 576), dt), _randn(card, (4, 512, 1, 512), dt)
-    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    """The wide bodies (the tensor cores' in bf16, the FMA units' in f32):
+    scale 1/sqrt(192), ragged lengths with 0 and 1, either side of a
+    32-key tile, 511 and 512; exact zeros at length 0."""
+    q, k, v, n = _mla_decode_inputs(card, dt, lens)
     scale = 192 ** -0.5
+    assert attn.decode_body(576, 512, dt) == (
+        "wide mma bf16" if dt == torch.bfloat16 else "wide fma f32")
     got = _launched("decode_core", lambda: ops.decode_core(q, k, v, n, scale=scale))
     _assert_close(got, ref.decode_attention(q, k, v, n, scale=scale).to(dt), dt)
     if 0 in lens:
         assert not got[lens.index(0)].any()
+    assert _counters_zero()
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_core_mla_reads_no_key_past_the_length_on_card(card, dt):
+    """NaN keys and values past each row's length (a stale cache) reach no
+    product: the output is finite and equals the clean cache's."""
+    lens = [186, 0, 33, 511]
+    q, k, v, n = _mla_decode_inputs(card, dt, lens)
+    want = ref.decode_attention(q, k, v, n, scale=0.1).to(dt)
+    for i, m in enumerate(lens):
+        k[i, m:], v[i, m:] = float("nan"), float("nan")
+    got = ops.decode_core(q, k, v, n, scale=0.1)
+    assert bool(torch.isfinite(got).all())
+    _assert_close(got, want, dt)
+    assert not got[1].any()
+
+
+def test_decode_core_mla_in_a_cuda_graph_on_card(card):
+    """One capture of the bf16 wide body, replayed over new lengths and
+    values in its static inputs, equals the eager launch on the same
+    inputs; each replay leaves the split counters at 0."""
+    dt = torch.bfloat16
+    q, k, v, n = _mla_decode_inputs(card, dt, [186, 144, 120, 72])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # the eager warm-up makes the counters
+        ops.decode_core(q, k, v, n, scale=0.1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with ops.recording() as rec, torch.cuda.graph(graph, stream=side):
+        out = ops.decode_core(q, k, v, n, scale=0.1)
+    assert rec["decode_core"] == 1
+    for lens in ([186, 144, 120, 72], [512, 1, 0, 300]):
+        n.copy_(torch.tensor(lens, dtype=torch.int32))
+        q.copy_(_randn(card, q.shape, dt))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.decode_core(q, k, v, n, scale=0.1)
+        assert torch.equal(out, want)
+        _assert_close(out, ref.decode_attention(q, k, v, n, scale=0.1).to(dt), dt)
     assert _counters_zero()
 
 
