@@ -56,7 +56,13 @@ Phases, each printing JSON lines:
              2048-wide norms and the 512-d kv_norm, rope on qwen2's heads
              and on MLA's q_rope copy and kr, swiglu on the expert buffers
              at each batch's capacity, the shared experts and the dense
-             first layer;
+             first layer; recurrentgemma-2b's shapes (rg_kernel_cases):
+             the window fragment at Dk = Dv = 256, 10 query heads over one
+             KV head, window 2048, at 2048 and 2100 tokens and a short
+             prompt; decode at (256, 256), G 10, over rings of 2048 at
+             lengths 0, 1, 31-33, full and the serve run's, and with
+             peaked queries; rope on its 10 and 1 heads of 256; GeGLU at
+             7680; the row norms at 2560;
    moe     - qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a dense first
              layer) at full width and depth in bf16 (random weights from
              a seeded generator on the card), one after the other, each
@@ -75,9 +81,23 @@ Phases, each printing JSON lines:
              plain path's (and fused against unfused) under the anchored
              rule; the measured split of one eager b1 s16 forward with the
              shares of the MoE sites, beside its ``eager-modeled:h100`` view;
+   recurrent - recurrentgemma-2b at full size in bf16 (2.895 B
+             parameters; (rec, rec, local) x 8 and a (rec, rec) trail): the
+             Engine (4 slots, max_len 4096) prefills each prompt at its
+             exact length (``_bucket``; the RG-LRU state would consume
+             pads), one prompt past the 2048-token window, one that wraps
+             its rings in decode; the PagedEngine refuses the model;
+             unfused and fused, eager then graphed, tokens identical, with
+             ``serve``'s repeats, launch and counter checks and its graph
+             vs eager line (the step's byte bound reads the recurrent
+             state too); the kernel path's logits against the plain path's
+             under the anchored rule; the measured split of one eager b1
+             forward at s16 and s2048 with the shares of the recurrent
+             mixer's sites (``rglru_scan``, ``rglru_gates``,
+             ``causal_conv1d``), the GEMMs and attention;
 3. serve   - for each of llama2-7b, stablelm-3b, gpt2-xl and gemma3-27b at
-             full width in bf16, at full depth but gemma3-27b's first 12
-             layers (SERVE_LAYERS; random weights from a seeded
+             full width in bf16, gpt2-xl at full depth, the others at their
+             first layers (SERVE_LAYERS: 16, 16 and 12; random weights from a seeded
              generator on the card), the continuous-batching ``Engine``
              unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
@@ -182,7 +202,11 @@ Phases, each printing JSON lines:
 5. timing  - kernel, plain version, one PyTorch library call computing the
              same function (where there is one) and the card's bound, at the
              main paths' shapes, gemma3-27b's global causal prefill and ring
-             decode included; the attention rows name the body that ran
+             decode included, and recurrentgemma-2b's window prefill (s2048)
+             and ring decode (four full rings of 2048) beside SDPA with the
+             one KV head expanded to 10 (in the kernels line under
+             ``recurrentgemma``, with phase recurrent's launches); the
+             attention rows name the body that ran
              (``mma bf16`` on the tensor cores, ``fma f32``); the row norms
              at their wider shapes and an empty kernel, the launch floor
              (``scripts/norm_timing.py``); rope at gemma3-27b's prefill q
@@ -251,8 +275,11 @@ EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: width, its first layers: gemma3-27b two repeats of its five-local,
 #: one-global pattern (at its 62 layers, serving it took 76 s of the
 #: script's time, PERF.md §6; with phase moe added, the script would
-#: pass the time it is held to); the others serve at full depth
-SERVE_LAYERS = {"gemma3-27b": 12}
+#: pass the time it is held to); llama2-7b and stablelm-3b half their 32
+#: (at full depth they took 73 and 67 s of a 573 s run; with phase
+#: recurrent added, the script would pass its time; phase bench serves
+#: stablelm-3b whole); gpt2-xl serves at full depth
+SERVE_LAYERS = {"gemma3-27b": 12, "llama2-7b": 16, "stablelm-3b": 16}
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 #: the depth gemma3-27b's profiles run at: the first layers of the served
@@ -421,6 +448,20 @@ MOE_KERNEL_BATCHES = ((1, 256), (4, 1), (1, CHUNK))
 #: the op sites whose share phase moe's measured split prints
 MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
              "expert_ffn")
+#: phase recurrent: recurrentgemma-2b at full size in bf16 (2.895 B
+#: parameters, 5.79 GB), its Engine at RG_MAX_LEN; prompt lengths that are
+#: no powers of two (the engine prefills a recurrent model at the exact
+#: length): the first past the 2048-token window (its rings wrap in
+#: prefill), the second 8 short of it (its rings wrap in decode)
+RG_ARCH = "recurrentgemma-2b"
+RG_MAX_LEN = 4096
+RG_PROMPTS = (2100, 2040, 333, 37, 700, 90)
+#: the sequence lengths of its measured b1 splits, and the op sites whose
+#: shares they print: the recurrent mixer's NonGEMM sites, its GEMMs and
+#: attention (GEMM by tag, as in JAX)
+RG_PROFILE_SEQS = (16, 2048)
+RG_SITES = ("rglru_scan", "rglru_gates", "causal_conv1d", "linear",
+            "einsum", "flash_attention")
 BENCH_KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
                  "fused_add_layer_norm", "rope", "swiglu", "attention_core",
                  "decode_core", "attention_full", "nms",
@@ -440,8 +481,10 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
     """Kernel launches of one forward on the kernel path: a prefill (or
     ``lm_forward``) runs ``attention_core`` in each global layer and
     ``attention_window`` in each local one (an encoder ``attention_full``),
-    a decode step ``decode_core`` in every layer; a chunk of a chunked
-    prefill (``lm_extend``, global layers only) runs what a prefill does.
+    a decode step ``decode_core`` in every attention layer; a recurrent
+    layer runs no attention and no rope, only its norms and FFN; a chunk of
+    a chunked prefill (``lm_extend``, global layers only) runs what a
+    prefill does.
     RMSNorm models launch one norm per pre-norm, post-norm and q/k-norm and
     the final one, of which fusion folds one a layer into
     ``fused_add_rms_norm``; LayerNorm models two a layer and the final one,
@@ -450,15 +493,17 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
     in the JAX package. MLA adds its latent's RMSNorm a layer; an MoE layer
     runs SwiGLU on its experts and, with shared experts, on theirs."""
     n = cfg.n_layers
-    n_local = cfg.layer_kinds().count("local")
-    if extend and n_local:
-        fail(f"{cfg.name}: a local layer has no chunked prefill")
+    kinds = cfg.layer_kinds()
+    n_local = kinds.count("local")
+    n_attn = n - kinds.count("rec")             # layers with attention
+    if extend and n_attn < n:
+        fail(f"{cfg.name}: a local or recurrent layer has no chunked prefill")
     if decode:
-        out = {"decode_core": n}
+        out = {"decode_core": n_attn}
     elif not cfg.causal:
         out = {"attention_full": n}
     else:
-        out = {"attention_core": n - n_local, "attention_window": n_local}
+        out = {"attention_core": n_attn - n_local, "attention_window": n_local}
     if cfg.norm == "rmsnorm":
         per_layer = 2 + 2 * cfg.post_norm + 2 * cfg.qk_norm + cfg.mla
         out["rms_norm"] = n * (per_layer - fused) + 1
@@ -472,7 +517,7 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
         n_moe = n - cfg.first_dense_layers if cfg.is_moe else 0
         out[cfg.ffn] = n + n_moe * bool(cfg.n_shared_experts)
     if fused and cfg.pos_emb == "rope":
-        out["rope"] = 2 * n
+        out["rope"] = 2 * n_attn
     return {k: v for k, v in out.items() if v}
 
 
@@ -506,7 +551,7 @@ def glu_sweep(torch, gen, dt, n: int = 1 << 16):
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns ({kernel: max abs error over its cases},
-    the same over the MLA shapes)."""
+    the same over the MLA shapes, the same over recurrentgemma-2b's)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attn_template, norms, rope
     from repro_torch.kernels import softmax_xent as xent
@@ -549,12 +594,12 @@ def check_kernels(torch, ops, ref, gen):
                 + mean).to(dt)
 
     def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False,
-                body=None, mla=False, **extra):
+                body=None, mla=False, rg=False, **extra):
         """``rms_scaled``: atol times the plain output's RMS where that is
         below 1 (the window fragment's cases, see the note at TOL);
         ``body``: the row norms' plan body, printed with the case, as is
-        ``extra`` (rope's plan); ``mla``: an MLA shape, whose worst error
-        is kept apart too."""
+        ``extra`` (rope's plan); ``mla``, ``rg``: an MLA or a
+        recurrentgemma-2b shape, whose worst error is kept apart too."""
         torch.cuda.synchronize()
         atol, rtol = tol[dtname]
         err = (got.float() - want.float()).abs()
@@ -572,6 +617,8 @@ def check_kernels(torch, ops, ref, gen):
         worst[name] = max(worst[name], float(err.max()))
         if mla:
             worst_mla[name] = max(worst_mla.get(name, 0.0), float(err.max()))
+        if rg:
+            worst_rg[name] = max(worst_rg.get(name, 0.0), float(err.max()))
 
     def exact(name, got, want, dtname, case, body=None):
         torch.cuda.synchronize()
@@ -583,7 +630,7 @@ def check_kernels(torch, ops, ref, gen):
                  "version's (one f32 add, rounded once, on both sides)")
 
     worst = dict.fromkeys(SOURCES, 0.0)
-    worst_mla = {}
+    worst_mla, worst_rg = {}, {}
     bodies = set()
 
     def body(x, dt, *others):
@@ -854,6 +901,11 @@ def check_kernels(torch, ops, ref, gen):
                     f"{decode_plan(b, hq, 1, t, dk, dv, dt)}", mla=True)
             if 0 in lens and got[lens.index(0)].float().abs().any():
                 fail("decode_core: lengths 0 must give exact zeros")
+        # recurrentgemma-2b (phase recurrent): its own shapes of each kernel
+        # its main path runs (rg_kernel_cases)
+        for name, fn, plain, case, kw in rg_kernel_cases(torch, ops, ref,
+                                                          randn, dt):
+            compare(name, fn(), plain(), dtname, case, rg=True, **kw)
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
         # multiples of the 64-key tile, 128 / 256 / 1024 are
         for b, sq, skv, hq, hkv, dk, dv in [
@@ -959,7 +1011,78 @@ def check_kernels(torch, ops, ref, gen):
         if not (got[at + 1] and not got[above + 1]):
             fail(f"nms {case}: IoU exactly 0.5 must keep (box {at + 1}), one "
                  f"ulp above suppress (box {above + 1})")
-    return worst, worst_mla
+    return worst, worst_mla, worst_rg
+
+
+def rg_kernel_cases(torch, ops, ref, randn, dt):
+    """recurrentgemma-2b's shapes of the kernels its main path runs, as
+    (kernel, launch, plain version, case, compare's keywords): the window
+    fragment at Dk = Dv = 256, 10 query heads over one KV head, window
+    2048, at phase 5's 2048-token prefill, the serve run's longest (past
+    the window) and a short one; decode over rings of 2048 at lengths 0,
+    1, 31-33 (either side of a 32-key tile), full and the serve run's last
+    step; rope on the 10 query heads and the one key head at a prefill and
+    a decode step; GeGLU at 7680; the row norms at 2560."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attn_template, rope
+
+    cfg = get_config(RG_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w, long = cfg.window_size, max(RG_PROMPTS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for s in (w, long, RG_PROMPTS[3]):
+        q = randn((1, s, hq, d), dt)
+        k, v = randn((1, s, hkv, d), dt), randn((1, s, hkv, d), dt)
+        cases.append(("attention_window",
+                      lambda q=q, k=k, v=v: ops.attention_window(q, k, v, w),
+                      lambda q=q, k=k, v=v: ref.attention(q, k, v, window=w),
+                      f"q{[1, s, hq, d]} kv{[1, s, hkv]} window={w}",
+                      dict(rms_scaled=True, body=attn_template.body(dt))))
+    last = [min(n + NEW_TOKENS - 1, w) for n in RG_PROMPTS[:4]]
+    # (lengths, q's scale): the last case's queries make each head's
+    # softmax peak on a few keys, so a split whose partials were lost or
+    # overwritten moves the output by about a value's size
+    for lens, qs in (([0, 1, 31, 32], 1.0), ([33, w, w, 2], 1.0), (last, 1.0),
+                     ([w, w, 1500, 700], 4.0)):
+        q = randn((4, 1, hq, d), dt, qs)
+        k, v = randn((4, w, hkv, d), dt), randn((4, w, hkv, d), dt)
+        n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        plan = attn_template.decode_plan(4, hq, hkv, w, d, d, sms)
+        cases.append(("decode_core",
+                      lambda q=q, k=k, v=v, n=n: ops.decode_core(q, k, v, n),
+                      lambda q=q, k=k, v=v, n=n: ref.decode_attention(q, k, v, n),
+                      f"q{[4, 1, hq, d]} x{qs} kv{[4, w, hkv]} dv={d} "
+                      f"lengths={lens}",
+                      dict(body=attn_template.decode_body(d, d, dt),
+                           plan=list(plan))))
+    for b, s, p0, column in ((1, long, 0, False), (4, 1, long + 14, True)):
+        ar = p0 + torch.arange(b if column else s, dtype=torch.int32,
+                               device="cuda")
+        pos = ar[:, None] if column else ar[None].expand(b, s)
+        for h in (hq, hkv):
+            x = randn((b, s, h, d), dt)
+            cases.append(("rope",
+                          lambda x=x, pos=pos: ops.rope(x, pos),
+                          lambda x=x, pos=pos: ref.rope(x, pos),
+                          f"x{[b, s, h, d]} positions {p0}..{int(ar[-1])}"
+                          f"{' (B, 1)' if column else ''}",
+                          dict(plan=rope.plan_for(x, 1.0, ops.rope(x, pos))._asdict())))
+    for shape in ((4, 1, cfg.d_ff), (1, long, cfg.d_ff)):
+        g, u = randn(shape, dt, 3.0), randn(shape, dt)
+        cases.append(("geglu", lambda g=g, u=u: ops.geglu(g, u),
+                      lambda g=g, u=u: ref.geglu(g, u), f"{list(shape)}", {}))
+    for shape in ((4, 1, cfg.d_model), (1, long, cfg.d_model)):
+        x, sc = randn(shape, dt), randn(shape[-1:], dt)
+        res = randn(shape, dt, 4.0)
+        cases.append(("rms_norm", lambda x=x, sc=sc: ops.rms_norm(x, sc),
+                      lambda x=x, sc=sc: ref.rms_norm(x, sc), f"x{list(shape)}",
+                      {}))
+        cases.append(("fused_add_rms_norm",
+                      lambda x=x, sc=sc, r=res: ops.fused_add_rms_norm(x, r, sc)[0],
+                      lambda x=x, sc=sc, r=res: ref.fused_add_rms_norm(x, r, sc)[0],
+                      f"x,res{list(shape)}", {}))
+    return cases
 
 
 def random_boxes(rng, n, span=60.0):
@@ -1230,6 +1353,47 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     extra["attention_core mla prefill"] = mla_prefill
     extra["decode_core mla"] = mla_decode
 
+    # recurrentgemma-2b's local layers: attention_window's (256, 256)
+    # instantiation at a 2048-token prefill (its window is 2048, so every
+    # key of the causal triangle is seen), causal SDPA beside it over the
+    # one KV head expanded to the 10 query heads; decode_core's wide body
+    # at (256, 256), G 10, over its 4 slots' full rings of 2048 (a long
+    # decode's steady state), SDPA beside it with the mask spelled out
+    b, s, h, hkv, d, w = 1, 2048, 10, 1, 256, 2048
+    q, k, v = randn((b, s, h, d)), randn((b, s, hkv, d)), randn((b, s, hkv, d))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (a.expand(b, s, h, d).transpose(1, 2).contiguous() for a in (k, v))
+    visible = s * (s + 1) // 2
+    rg_prefill = entry(
+        f"q[1,{s},{h},{d}] kv[1,{s},{hkv},{d}] bf16 window={w} "
+        "(recurrentgemma-2b local prefill)",
+        lambda: ops.attention_window(q, k, v, w),
+        lambda: ref.attention(q, k, v, window=w),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        2 * b * s * d * (2 * h + 2 * hkv), 2 * b * h * visible * 2 * d,
+        "bfloat16", body)
+    b, t = 4, w
+    lens_l = [t] * b
+    q1 = randn((b, 1, h, d))
+    k1, v1 = randn((b, t, hkv, d)), randn((b, t, hkv, d))
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None])[:, None, None, :]
+    qt1 = q1.transpose(1, 2).contiguous()
+    kt1, vt1 = (a.expand(b, t, h, d).transpose(1, 2).contiguous()
+                for a in (k1, v1))
+    kv = sum(lens_l)
+    rg_decode = entry(
+        f"q[4,1,{h},{d}] kv[4,{t},{hkv},{d}] bf16 lengths={lens_l} "
+        "(recurrentgemma-2b ring decode)",
+        lambda: ops.decode_core(q1, k1, v1, lens),
+        lambda: ref.decode_attention(q1, k1, v1, lens),
+        lambda: F.scaled_dot_product_attention(qt1, kt1, vt1, attn_mask=mask),
+        2 * (2 * b * h * d + 2 * kv * hkv * d), 4 * kv * h * d, "bfloat16")
+    rg_decode["body"] = attn_template.decode_body(d, d, q1.dtype)
+    rg_decode["plan"] = list(attn_template.decode_plan(b, h, hkv, t, d, d, sms))
+    extra["attention_window recurrentgemma"] = rg_prefill
+    extra["decode_core recurrentgemma"] = rg_decode
+
     # attention_core at the last 64-token chunk of a chunked prefill into a
     # 512-deep cache (stablelm-3b, q_offset 448); the library call is SDPA
     # with the causal-offset mask spelled out
@@ -1313,6 +1477,8 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         emit(phase="timing", kernel=name, **{k: v for k, v in tm.items()
                                              if k != "bound"},
              bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
+    out["attention_window"]["recurrentgemma"] = rg_prefill
+    out["decode_core"]["recurrentgemma"] = rg_decode
     return out
 
 
@@ -1388,8 +1554,11 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
               for i in range(cfg.n_layers)]
 
     def decode(c):                      # each path writes its own copy
-        fresh = [{n: t.to(c.activation_dtype, copy=True) if t.is_floating_point()
-                  else t.clone() for n, t in layer.items()}
+        # the activations' leaves in the path's dtype; a recurrent state's
+        # f32 and a ring's int32 side-car as they are
+        fresh = [{n: t.to(c.activation_dtype, copy=True)
+                  if t.dtype == cfg.activation_dtype else t.clone()
+                  for n, t in layer.items()}
                  for layer in caches]
         return lm_decode(params, token, pos, fresh, c)[0]
 
@@ -1485,9 +1654,11 @@ def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
     weight once (an untied embedding's and a learned position table's
     lookups read one row a slot, a tied one is read whole by the logits;
     the MoE dispatch runs every expert, so every expert's weights),
-    each row's ``pos + 1`` cached keys and values in every layer (a ring's
-    at most its window) and, paged, the (B, max_len) view gathered: read
-    from the pools once and written once."""
+    each row's ``pos + 1`` cached keys and values in every attention layer
+    (a ring's at most its window), each recurrent layer's state (``h`` in
+    f32 and the conv's last inputs) read and written once a row and,
+    paged, the (B, max_len) view gathered: read from the pools once and
+    written once."""
     b = len(pos)
     weights = sum(t.numel() * t.element_size() for t in _leaves(params))
     for table in ("embed", "pos"):
@@ -1498,9 +1669,12 @@ def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
     if cfg.mla:                       # the latent and the rope key
         kv_row = (cfg.kv_lora_rank + cfg.qk_rope_dim) * KV_BYTES
     keys = sum(min(int(p) + 1, cfg.window_size if kind == "local" else max_len)
-               for kind in cfg.layer_kinds() for p in pos)
+               for kind in cfg.layer_kinds() if kind != "rec" for p in pos)
+    w = cfg.lru_width or cfg.d_model
+    state = (cfg.layer_kinds().count("rec") * b * 2
+             * (4 * w + (cfg.conv_width - 1) * w * KV_BYTES))
     view = 2 * b * max_len * kv_row * cfg.n_layers if paged else 0
-    return weights + keys * kv_row + view
+    return weights + keys * kv_row + state + view
 
 
 def replay_timing(torch, engine, cfg, params, n: int = 20) -> dict:
@@ -1919,6 +2093,114 @@ def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
         if left > 1 << 30:
             fail(f"moe: {cfg.name}: {left} bytes left after its weights were "
                  "freed")
+
+
+# ---------------------------------------------------------------------------
+# phase recurrent: recurrentgemma-2b served at full size
+# ---------------------------------------------------------------------------
+
+def recurrent_split(torch, ops, params, cfg, rng, seq: int) -> None:
+    """The measured split of one eager b1 ``lm_forward`` of ``seq`` tokens
+    (the kernel path, unfused) through ``Workload.profile("measured")``,
+    with the shares of RG_SITES and of the recurrent mixer's NonGEMM sites
+    together."""
+    from repro_torch.models import lm_forward
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, seq))).cuda()
+    name = f"{cfg.name} unfused b-1 s-{seq} bf16"
+    _, prof, wall_ms, per = measured(ops, lm_forward, (params, toks, cfg),
+                                     name, False)
+    if per != per_forward_launches(cfg, False):
+        fail(f"recurrent: {name}: launched {per} per forward, expected "
+             f"{per_forward_launches(cfg, False)}")
+    sites = dict.fromkeys(RG_SITES, 0.0)
+    for (g, site), t, _ in prof.top_op_sites(10 ** 6):
+        if site in sites:
+            sites[site] += t
+    total = prof.total_seconds
+    mixer = sum(sites[k] for k in RG_SITES[:3])
+    emit_profile("recurrent", prof, wall_ms, per, layers=cfg.n_layers, seq=seq,
+                 site_frac={k: round(t / total, 4) for k, t in sites.items()},
+                 site_ms={k: round(t * 1e3, 4) for k, t in sites.items()},
+                 rec_nongemm_ms=round(mixer * 1e3, 4),
+                 rec_nongemm_frac=round(mixer / total, 4))
+    missing = [k for k in RG_SITES if not sites[k]]
+    if missing:
+        fail(f"recurrent: {name}: no device time at the sites {missing}")
+
+
+def recurrent(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+              launches: dict, rg_launches: dict, decode_lengths: dict,
+              paths_only: bool = False) -> None:
+    """Phase ``recurrent``: recurrentgemma-2b at full size in bf16 (random
+    weights from SEED), its 26 layers (rec, rec, local) x 8 and a (rec,
+    rec) trail: the Engine (4 slots, RG_MAX_LEN) prefills RG_PROMPTS at
+    their exact lengths (``_bucket``); the PagedEngine refuses the model;
+    unfused and fused, the Engine serves them eager and graphed, tokens
+    identical, decode tok/s and the replay beside the step's byte bound;
+    the kernel path's logits against the plain path's under the anchored
+    rule; the measured split of one eager b1 forward at each of
+    RG_PROFILE_SEQS. The launches of its served runs go to ``launches`` and
+    to ``rg_launches``; the ring lengths of the last decode step of the
+    first 4 requests to ``decode_lengths``. Its memory comes back at the
+    end."""
+    cfg = get_config(RG_ARCH).replace(dtype="bfloat16", param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit(phase="recurrent", step="init", config=cfg.name, n_params=n_params,
+         layer_kinds=cfg.layer_kinds(), init_s=round(time.perf_counter() - t0, 3),
+         mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    if n_params != cfg.n_params():
+        fail(f"recurrent: {n_params} parameters, the config counts "
+             f"{cfg.n_params()}")
+    rng = np.random.default_rng(SEED)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in RG_PROMPTS]
+    decode_lengths[RG_ARCH] = [min(n + NEW_TOKENS - 1, cfg.window_size)
+                               for n in RG_PROMPTS[:4]]
+    probe = Engine(cfg, params, max_batch=4, max_len=RG_MAX_LEN)
+    buckets = [probe._bucket(n) for n in RG_PROMPTS]
+    del probe
+    try:
+        PagedEngine(cfg, params, max_batch=4, max_len=RG_MAX_LEN)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    emit(phase="recurrent", step="engines", prompt_lens=list(RG_PROMPTS),
+         prefill_lens=buckets, paged_engine_refused=refused)
+    if buckets != list(RG_PROMPTS):
+        fail(f"recurrent: the Engine pads the prompts to {buckets}: a "
+             "recurrent state would consume the pads")
+    if refused is None:
+        fail("recurrent: the PagedEngine took a model with recurrent layers")
+    for fused in (False, True):
+        if not paths_only:
+            eager = serve(torch, ops, _build, Engine, params, cfg, prompts,
+                          fused, RG_MAX_LEN, "engine", cuda_graph=False,
+                          repeats=REPEATS)
+            graphed = serve(torch, ops, _build, Engine, params, cfg, prompts,
+                            fused, RG_MAX_LEN, "engine",
+                            same_as=eager["tokens"], repeats=REPEATS)
+            emit_graph_vs_eager("recurrent", cfg, fused, "engine", graphed,
+                                eager)
+            for run in (eager, graphed):
+                for k, n in run["launches"].items():
+                    launches[k] += n
+                    rg_launches[k] = rg_launches.get(k, 0) + n
+        compare_paths(torch, nn, params, cfg, prompts[:4], fused, RG_MAX_LEN)
+    if not paths_only:
+        for seq in RG_PROFILE_SEQS:
+            recurrent_split(torch, ops, params, cfg, rng, seq)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - mem0
+    emit(phase="recurrent", step="freed", config=cfg.name, left_bytes=left)
+    if left > 1 << 30:
+        fail(f"recurrent: {left} bytes left after its weights were freed")
 
 
 # ---------------------------------------------------------------------------
@@ -2658,7 +2940,7 @@ def main(argv=None) -> int:
     # -- phase 2: kernels --------------------------------------------------
     gen = torch.Generator("cuda").manual_seed(SEED)
     if not args.paths_only:
-        worst, worst_mla = check_kernels(torch, ops, ref, gen)
+        worst, worst_mla, worst_rg = check_kernels(torch, ops, ref, gen)
 
     lap("kernels")
     launches = dict.fromkeys(SOURCES, 0)
@@ -2668,6 +2950,12 @@ def main(argv=None) -> int:
         launches, decode_lengths, args.paths_only)
 
     lap("moe")
+    # -- phase recurrent: recurrentgemma-2b, full size -----------------------
+    rg_launches = {}
+    recurrent(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+              launches, rg_launches, decode_lengths, args.paths_only)
+
+    lap("recurrent")
     # -- phases 3 and 4, one model at a time -------------------------------
     qdq_kept = []           # (model, variant, measured profile, records)
     nms_inputs = None
@@ -2847,14 +3135,17 @@ def main(argv=None) -> int:
             "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms",
                                                          "amax_ms")
                                      if k in tm}})
-        if "mla" in tm:         # MLA's shapes, beside the main path's
-            m = tm["mla"]
-            kernels[-1]["mla"] = {
-                "shape": m["shape"], "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "library_ms": m["library_ms"], "eager_ms": m["eager_ms"],
-                "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
-                "max_abs_err": worst_mla[name],
-                **{k: m[k] for k in ("body", "plan") if k in m}}
+        for key, errs in (("mla", worst_mla), ("recurrentgemma", worst_rg)):
+            if key in tm:       # MLA's and recurrentgemma-2b's shapes
+                m = tm[key]
+                kernels[-1][key] = {
+                    "shape": m["shape"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                    "library_ms": m["library_ms"], "eager_ms": m["eager_ms"],
+                    "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+                    "max_abs_err": errs[name],
+                    **{k: m[k] for k in ("body", "plan") if k in m}}
+        if "recurrentgemma" in tm:
+            kernels[-1]["recurrentgemma"]["launches"] = rg_launches.get(name, 0)
     lap("timing")
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2),
          bench_s=round(bench_s, 2), phase_s=walls)

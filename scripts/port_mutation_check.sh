@@ -96,6 +96,11 @@ mut decode_wide_drops_last_group decode.cu \
 # last 16 of the 64 rope dims never reach the scores
 mut decode_wide_skips_last_k_step decode.cu \
   's/^        mma_bf16(s1, qf\[i + 1\], kf\[2\], kf\[3\]);$/        if (kh + 1 < KSPLIT || i + 2 < KSTEPS) mma_bf16(s1, qf[i + 1], kf[2], kf[3]);/'
+# decode's bf16 wide body at recurrentgemma-2b's group of 10 storing mma's
+# padded rows 10-15 too: a split's rows land on the next split's partials
+# of heads 0-5 (and, one split a row, on the next row's output)
+mut decode_g10_stores_padded_rows decode.cu \
+  's/if (row >= G) continue;/if (row >= kMmaM) continue;/g'
 # the MoE combine ignoring keep: a dropped choice reads the clamped row
 # e*C - 1 of another token (phase moe's layer reference catches it)
 mut moe_combine_ignores_keep models/moe.py \

@@ -102,8 +102,8 @@ def quick_cases() -> List[BenchCase]:
 
 
 def is_ported(arch: str) -> bool:
-    """Whether the port has ``arch``'s config (the recurrent and xLSTM
-    archs of the full tier wait for their mixers)."""
+    """Whether the port has ``arch``'s config (the xLSTM arch of the full
+    tier waits for its mixers)."""
     try:
         get_config(arch)
     except KeyError:

@@ -11,8 +11,11 @@ when ``cfg.scan_layers`` (the default, kept by ``reduced``):
 port's params hold one dict per layer (``params["layers"]``) in layer
 order, lead, then scan, then trail; ``init_lm_cache``'s caches unstack the
 same way (a ring's int32 ``"pos"`` side-car and MLA's ``"c"`` / ``"kr"``
-cross as they are). An MoE layer's expert leaves keep their leading (E,)
-dim; deepseek-v2-lite's dense first layer is ``lead``. Every
+cross as they are, as do a recurrent layer's mixer and its ``"h"`` /
+``"conv"`` state: recurrentgemma-2b's 26 layers are 8 repeats of
+(rec, rec, local) and a (rec, rec) trail). An MoE layer's expert leaves
+keep their leading (E,) dim; deepseek-v2-lite's dense first layer is
+``lead``. Every
 other top-level entry (``embed``, absent where the config takes
 embeddings; the learned position table ``pos``, ``final_norm``, ``head``)
 is carried as it is, and an entry this module does not know raises

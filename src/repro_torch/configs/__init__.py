@@ -13,7 +13,9 @@ chameleon-34b (qk-norm, GQA 64/8) and qwen1.5-110b (QKV biases, GQA 64/8;
 220 GB of bf16 weights, so it runs reduced, on the CPU only), and the
 mixture-of-experts configs qwen2-moe-a2.7b
 (``repro/configs/qwen2_moe_a2_7b.py``) and deepseek-v2-lite-16b (MLA,
-``repro/configs/deepseek_v2_lite_16b.py``), run through the LM stack;
+``repro/configs/deepseek_v2_lite_16b.py``), and the hybrid recurrent
+recurrentgemma-2b (``repro/configs/recurrentgemma_2b.py``: RG-LRU blocks
+beside sliding-window attention), run through the LM stack;
 the vision family (``vit-b16-cls``, ``repro/configs/vit_b16.py``, and
 ``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
 ``repro_torch.models.vision``.
@@ -253,6 +255,33 @@ _CONFIGS: Dict[str, ModelConfig] = {
         tie_embeddings=False,
         fsdp=True,
     ),
+    # RecurrentGemma 2B (repro/configs/recurrentgemma_2b.py): two RG-LRU
+    # recurrent blocks to each local-attention block (window 2048), 10
+    # query heads over one KV head of 256, GeGLU, sqrt(d)-scaled tied
+    # embeddings; 26 layers, the last two a (rec, rec) trail
+    "recurrentgemma-2b": ModelConfig(
+        remat_policy="proj",
+        name="recurrentgemma-2b",
+        family="hybrid",
+        n_layers=26,
+        d_model=2560,
+        n_heads=10,
+        n_kv_heads=1,
+        head_dim=256,
+        d_ff=7680,
+        vocab_size=256000,
+        block_pattern=("rec", "rec", "local"),
+        window_size=2048,
+        lru_width=2560,
+        conv_width=4,
+        pos_emb="rope",
+        norm="rmsnorm",
+        ffn="geglu",
+        causal=True,
+        tie_embeddings=True,
+        scale_embeddings=True,
+        loss_chunk=512,
+    ),
     # the embeddings stub: the LM stack on precomputed patch embeddings
     "vit-b16": ModelConfig(
         name="vit-b16",
@@ -376,6 +405,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.mla:
         kw.update(kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16,
                   v_head_dim=32, head_dim=48)
+    if cfg.lru_width:
+        kw.update(lru_width=d_model)
     kw["window_size"] = min(cfg.window_size, 64)
     if cfg.is_vision:
         # a 4x4 patch grid (16 tokens) keeps the CPU forward tiny while

@@ -15,9 +15,12 @@ Both kernels read and write the JAX layouts directly — q (B,S,Hq,Dk),
 k (B,T,Hkv,Dk), v (B,T,Hkv,Dv) — so no operand is transposed or padded.
 Callers go through ``repro_torch.kernels.ops``.
 
-Head dims: both up to 128, and MLA's: the causal prefill at Dk 192 / Dv
-128 and the absorbed decode at Dk 576 / Dv 512 with one KV head for a
-group of 16 (:data:`PREFILL_MAX_DIMS`, :data:`DECODE_MAX_DIMS`); a pair
+Head dims: both up to 128; MLA's: the causal prefill at Dk 192 / Dv 128
+and the absorbed decode at Dk 576 / Dv 512 with one KV head for a group
+of 16 (:data:`PREFILL_MAX_DIMS`, :data:`DECODE_MAX_DIMS`); and
+recurrentgemma's local layers: the window prefill and the decode at Dk =
+Dv = 256, decode with one KV head for a group of 10
+(:data:`WINDOW_WIDE_DIMS`, :data:`DECODE_WIDE_DIMS`); a pair or group
 outside raises.
 
 In bf16 the prefill kernels run their products on the tensor cores
@@ -48,35 +51,46 @@ from . import _build
 PREFILL_MAX_DIMS = (192, 128)
 DECODE_MAX_DIMS = (576, 512)
 DECODE_WIDE_GROUP = 16
+#: the window mask's wide pair (recurrentgemma's local layers); the causal
+#: and full masks refuse it
+WINDOW_WIDE_DIMS = (256, 256)
+#: decode's wide bodies: each (Dk, Dv) and the one GQA group it takes
+#: (MLA's absorbed decode; recurrentgemma's local layers)
+DECODE_WIDE_DIMS = {DECODE_MAX_DIMS: DECODE_WIDE_GROUP, (256, 256): 10}
 #: the largest head dims of the kernels' common instantiation
 COMMON_MAX_DIM = 128
 #: the largest GQA group decode takes (csrc kGMax)
 MAX_GQA_GROUP = 32
 
 
-def prefill_dims_taken(dk: int, dv: int, causal: bool = True) -> bool:
+def prefill_dims_taken(dk: int, dv: int, causal: bool = True,
+                       window: bool = False) -> bool:
     """Whether the prefill kernels have an instantiation for (Dk, Dv):
-    both up to 128, or MLA's (192, 128) for the causal one."""
+    both up to 128, MLA's (192, 128) for the causal mask, or
+    :data:`WINDOW_WIDE_DIMS` for the window mask (``window``)."""
     if 0 < dk <= COMMON_MAX_DIM and 0 < dv <= COMMON_MAX_DIM:
         return True
+    if window:
+        return (dk, dv) == WINDOW_WIDE_DIMS
     return causal and (dk, dv) == PREFILL_MAX_DIMS
 
 
 def decode_dims_taken(dk: int, dv: int, group: int) -> bool:
     """Whether ``csrc/decode.cu`` has a body for (Dk, Dv) at GQA group
     ``group``: its common one (both up to 128, a group up to
-    :data:`MAX_GQA_GROUP`) or its wide one (:func:`decode_wide`: MLA's
-    dims at :data:`DECODE_WIDE_GROUP`)."""
+    :data:`MAX_GQA_GROUP`) or its wide ones (:func:`decode_wide`: the
+    pairs of :data:`DECODE_WIDE_DIMS` at their groups)."""
     if dk <= 0 or dv <= 0:
         return False
     if not decode_wide(dk, dv):
         return group <= MAX_GQA_GROUP
-    return (dk, dv) == DECODE_MAX_DIMS and group == DECODE_WIDE_GROUP
+    return DECODE_WIDE_DIMS.get((dk, dv)) == group
 
 
 def decode_wide(dk: int, dv: int) -> bool:
     """Whether (Dk, Dv) runs one of decode's wide bodies (a head dim past
-    128: MLA's absorbed decode), which :func:`decode_body` names."""
+    128: MLA's absorbed decode, recurrentgemma's 256), which
+    :func:`decode_body` names."""
     return dk > COMMON_MAX_DIM or dv > COMMON_MAX_DIM
 
 _I = ctypes.c_int
@@ -120,7 +134,7 @@ def body(dtype: torch.dtype) -> str:
 def decode_body(dk: int, dv: int, dtype: torch.dtype) -> str:
     """Which body of ``csrc/decode.cu`` a launch at (Dk, Dv) in ``dtype``
     runs: the common one on the CUDA cores (both dims up to 128), or at
-    MLA's wide dims the tensor cores' in bf16 and the FMA units' in f32."""
+    the wide dims the tensor cores' in bf16 and the FMA units' in f32."""
     if not decode_wide(dk, dv):
         return "fma"
     return "wide mma bf16" if dtype == torch.bfloat16 else "wide fma f32"
@@ -161,7 +175,7 @@ def decode_chunk(t: int, n_split: int, wide: bool = False) -> int:
 def decode_plan(b: int, hq: int, hkv: int, t: int, dk: int, dv: int,
                 sms: int) -> tuple:
     """(n_split, chunk) of a decode launch at these shapes: the wide
-    bodies' plan at MLA's dims, the common one elsewhere."""
+    bodies' plan at their dims, the common one elsewhere."""
     wide = decode_wide(dk, dv)
     n = decode_splits(b, hkv, t, sms, wide=wide, group=hq // hkv)
     return n, decode_chunk(t, n, wide=wide)

@@ -61,20 +61,32 @@
 //     has a compile-time trip count, the body needs under 170 registers
 //     and is bound to 3 CTAs an SM (12 warps; 2 CTAs at Dk 192, whose Q
 //     fragments take 48 registers more); other dims up to 128 take the
-//     same body with runtime trip counts, MLA's pair only its exact one.
-//     A later head dim (256) is another instantiation.
+//     same body with runtime trip counts, MLA's pair only its exact one;
+//   * recurrentgemma's local layers, window mask only, at Dk = Dv = 256
+//     (10 query heads over one KV head): a warp's 16 x 256 f32 output tile
+//     would be 128 registers a thread beside Q's 64, so the output columns
+//     are split over the grid's z: each CTA runs the whole Q.K^T and
+//     softmax and P.V for 128 of the 256 columns (the (256, 128)
+//     instantiation, V staged from its half of each row), at the cost of
+//     the scores twice. Two stages of K (256) and V (128) take 100 KB, so 2
+//     CTAs of 4 warps fit an SM. ptxas gives it all 255 registers a thread
+//     and 56 bytes of spill stores (Q's fragments, the accumulators, the
+//     scores and P's two terms).
 // f32, Table 2's micro-benchmark path (attn_kernel): the FMA body. TF32
 //   products would keep ~3 decimal digits, outside f32's 2e-5 limit, so
 //   it stays on the CUDA cores: 256 threads per 64-row q tile, tiles
 //   widened to f32 in shared memory (common.cuh stage_rows), thread t
 //   owning 4 query rows (t/16) and every 16th score and output column;
 //   instantiated for Dk and Dv up to 128 and, apart (its Q and K staging
-//   runs more copies a thread), for Dk 192 with Dv 128.
+//   runs more copies a thread), for Dk 192 with Dv 128 and, window only,
+//   for Dk = Dv = 256 (4 x (64 x 257 + 64 x 257 + 64 x 256 + 64 x 65) =
+//   213,760 bytes of shared memory: one CTA an SM).
 //
 // The head dims taken are both up to 128, or, with the causal mask only
 // (MLA's prefill and chunked prefill; no window or full-mask model has
-// them), Dk 192 with Dv 128 (dims_taken); the entry refuses any other
-// pair.
+// them), Dk 192 with Dv 128, or, with the window mask only
+// (recurrentgemma's local layers), Dk = Dv = 256 (dims_taken); the entry
+// refuses any other pair.
 //
 // What both bodies do alike:
 //   * one CTA per (b*Hq, q tile); the TPU grid's sequential KV axis
@@ -114,6 +126,7 @@ constexpr int kRows = 4;       // query rows per thread
 constexpr int kGroup = 16;     // threads per row group (one half warp)
 constexpr int kDMax = 128;     // largest Dk and Dv of the common instantiation
 constexpr int kDkWide = 192;   // MLA's Dk (nope 128 + rope 64), with Dv 128
+constexpr int kD256 = 256;     // recurrentgemma's Dk = Dv, window mask only
 constexpr int kSCols = kBK / kGroup;    // score columns per thread
 
 // the mask fragments (MASK): causal, causal within a window, full
@@ -122,10 +135,12 @@ constexpr int kWindow = 1;
 constexpr int kFull = 2;
 
 // The head dims an instantiation takes: both up to 128, or, for the
-// causal mask (MLA's prefill and chunks), Dk 192 with Dv 128; nothing
+// causal mask (MLA's prefill and chunks), Dk 192 with Dv 128, or, for the
+// window mask (recurrentgemma's local layers), Dk = Dv = 256; nothing
 // else is computed
 __host__ __device__ __forceinline__ bool dims_taken(int dk, int dv, int mask) {
   if (dk > 0 && dv > 0 && dk <= kDMax && dv <= kDMax) return true;
+  if (mask == kWindow) return dk == kD256 && dv == kD256;
   return mask == kCausal && dk == kDkWide && dv == kDMax;
 }
 
@@ -349,11 +364,13 @@ __host__ __device__ constexpr int chunks_pow2(int dmax) {
   return c;
 }
 
-// DKMAX / DVMAX: the largest padded Dk / Dv the instantiation takes. EXACT:
-// both head dims equal them, so every fragment loop has a compile-time trip
-// count and the body fits 3 CTAs of 4 warps (or 6 of 2) on an SM, 2 (or 4)
-// at Dk 192, whose Q fragments take 48 registers more; otherwise the
-// padded dims are runtime values
+// DKMAX / DVMAX: the largest padded Dk / Dv a CTA takes. EXACT: both head
+// dims equal them, so every fragment loop has a compile-time trip count
+// and the body fits 3 CTAs of 4 warps (or 6 of 2) on an SM, 2 (or 4) at Dk
+// 192 and 256, whose Q fragments take 48 and 96 registers more; otherwise
+// the padded dims are runtime values. The grid's z splits Dv: CTA z
+// computes the columns [z * Dv / gridDim.z, (z + 1) * Dv / gridDim.z) of
+// the output (all of them where gridDim.z is 1)
 template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT>
 __global__ void __launch_bounds__(WARPS * 32,
                                   EXACT ? (DKMAX > 128 ? 8 : 12) / WARPS : 1)
@@ -369,7 +386,9 @@ __global__ void __launch_bounds__(WARPS * 32,
   constexpr int KCPR = chunks_pow2(DKMAX), VCPR = chunks_pow2(DVMAX);
   constexpr int STILES = kTK / 8;    // n8 tiles of a score tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int dkp = EXACT ? DKMAX : pad16(Dk), dvp = EXACT ? DVMAX : pad16(Dv);
+  const int dvc = Dv / static_cast<int>(gridDim.z);  // this CTA's columns
+  const int dv0 = static_cast<int>(blockIdx.z) * dvc;
+  const int dkp = EXACT ? DKMAX : pad16(Dk), dvp = EXACT ? DVMAX : pad16(dvc);
   const int ldk = dkp + kPadE, ldv = dvp + kPadE;
   static_assert(BQ <= kTK, "Q is staged in a K stage");
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 2 x kTK x ldk
@@ -393,13 +412,13 @@ __global__ void __launch_bounds__(WARPS * 32,
   const int64_t sk = static_cast<int64_t>(Hkv) * Dk;
   const int64_t sv = static_cast<int64_t>(Hkv) * Dv;
   const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * Skv * Hkv + hk) * Dk;
-  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Skv * Hkv + hk) * Dv;
+  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Skv * Hkv + hk) * Dv + dv0;
   auto stage_kv = [&](int stage, int k0) {
     const int valid = min(kTK, hi - k0);  // zeros past the causal limit
     stage_bf16<NT, KCPR>(Ks + stage * kTK * ldk, ldk, kb + k0 * sk, sk, kTK,
                          valid, Dk, dkp, vec);
     stage_bf16<NT, VCPR>(Vs + stage * kTK * ldv, ldv, vb + k0 * sv, sv, kTK,
-                         valid, Dv, dvp, vec);
+                         valid, dvc, dvp, vec);
   };
 
   float acc[DTILES][4];
@@ -557,12 +576,13 @@ __global__ void __launch_bounds__(WARPS * 32,
     // a row that never saw a key keeps m at NEG_INF: emit zeros, not mean(v)
     const bool seen = m_r[r] > repro::kNegInf * 0.5f;
     l = fmaxf(l, 1e-30f);
-    __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * Dv;
+    __nv_bfloat16* orow =
+        o + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * Dv + dv0;
 #pragma unroll
     for (int j = 0; j < DTILES; ++j) {
       const int c = j * 8 + 2 * (lane & 3);
-      if (c < Dv) orow[c] = __float2bfloat16_rn(seen ? acc[j][2 * r] / l : 0.f);
-      if (c + 1 < Dv)
+      if (c < dvc) orow[c] = __float2bfloat16_rn(seen ? acc[j][2 * r] / l : 0.f);
+      if (c + 1 < dvc)
         orow[c + 1] = __float2bfloat16_rn(seen ? acc[j][2 * r + 1] / l : 0.f);
     }
   }
@@ -572,11 +592,14 @@ template <typename T, bool VEC, int MASK>
 int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
                 int q_offset, int window, float scale, cudaStream_t stream) {
-  // Dk past 128 (MLA's causal prefill) stages wider rows: an instantiation
-  // of its own, so the common one keeps its trip counts
+  // Dk past 128 (MLA's causal prefill, recurrentgemma's window) stages
+  // wider rows: instantiations of their own, so the common one keeps its
+  // trip counts
   auto kernel = attn_kernel<T, VEC, MASK, kDMax, kDMax>;
   if constexpr (MASK == kCausal)
     if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kDkWide, kDMax>;
+  if constexpr (MASK == kWindow)
+    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kD256, kD256>;
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -603,18 +626,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                                            Dv, q_offset, window, scale, stream);
 }
 
-template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT>
+// DV_SPLIT: the CTAs (grid z) that share a row tile's output columns
+template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, int DV_SPLIT = 1>
 int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
                     int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
                     int q_offset, int window, float scale, bool vec,
                     cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(pad16(Dk), pad16(Dv));
+  const size_t smem = mma_smem_bytes(pad16(Dk), pad16(Dv / DV_SPLIT));
   cudaError_t err = cudaFuncSetAttribute(
       attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = 16 * WARPS;
-  dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + rows - 1) / rows);
+  dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + rows - 1) / rows, DV_SPLIT);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT>
       <<<grid, WARPS * 32, smem, stream>>>(
@@ -625,7 +649,8 @@ int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
 }
 
 // The bf16 body's instantiation: (DKMAX, DVMAX) from the padded head dims,
-// (64, 64), (128, 128) or, causal only, MLA's (192, 128); 2 warps a CTA where 4-warp
+// (64, 64), (128, 128), causal only MLA's (192, 128), or, window only,
+// recurrentgemma's (256, 256) as two CTAs of (256, 128); 2 warps a CTA where 4-warp
 // tiles would fill at most half the SMs (the vit-b16 and detector shapes;
 // llama's 128 CTAs at s256 run faster at 4 warps)
 template <int MASK>
@@ -651,6 +676,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   if constexpr (MASK == kCausal)
     if (Dk == kDkWide)  // MLA's (192, 128) alone: exact trip counts
       return narrow ? REPRO_MMA(192, 128, 2, true) : REPRO_MMA(192, 128, 4, true);
+  if constexpr (MASK == kWindow)
+    if (Dk == kD256)  // (256, 256) alone: Dv over two CTAs of 128 columns
+      return narrow
+          ? launch_mma_impl<MASK, 256, 128, 2, true, 2>(
+                q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window,
+                scale, vec, stream)
+          : launch_mma_impl<MASK, 256, 128, 4, true, 2>(
+                q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window,
+                scale, vec, stream);
   if (dkp > 64 || dvp > 64)
     return narrow ? REPRO_MMA_DIMS(128, 128, 2) : REPRO_MMA_DIMS(128, 128, 4);
   return narrow ? REPRO_MMA_DIMS(64, 64, 2) : REPRO_MMA_DIMS(64, 64, 4);

@@ -48,14 +48,18 @@
 // shuffles.
 //
 // The wide bodies take MLA's absorbed decode: Dk 576 (the 512-d latent and
-// the 64-d rope key), Dv 512 (the latent), one KV head for a group of 16,
-// and these dims and this group alone (dims_taken). There G = 16 heads
-// share every 576-wide key, and a [16 x 576] . [576 x n] product is the
-// shape of mma.sync.m16n8k16 with the heads as M.
+// the 64-d rope key), Dv 512 (the latent), one KV head for a group of 16;
+// and recurrentgemma's local layers: Dk = Dv = 256, one KV head for a
+// group of 10; these dims at these groups alone (dims_taken). There G
+// heads share every wide key, and a [16 x Dk] . [Dk x n] product is the
+// shape of mma.sync.m16n8k16 with the heads as M (rows past G zero).
 //
 // bf16, the serving path (decode_mma_kernel): the tensor-core body,
-// templated on (Dk, Dv, G, keys a tile) so that another wide head (256,
-// 256 at a group of 10, M padded to 16) is one more instantiation.
+// templated on (Dk, Dv, G, keys a tile): <576, 512, 16, 32> and <256, 256,
+// 10, 32>. At G 10, M's rows 10-15 hold zero queries; their scores and
+// outputs are computed and stored nowhere, neither in o nor in the
+// partials. The layout below is MLA's; at 256 / 256 the three stages take
+// 99 KB and each warp owns 32 columns.
 //   * 8 warps; tiles of 32 keys, in three stages (two tiles in flight
 //     while one computes): 3 x 32 x (584 + 520) bf16, rows padded by 16
 //     bytes so that ldmatrix's eight row addresses fall in distinct banks,
@@ -85,7 +89,8 @@
 //   keeps for f32 (TF32 products would miss f32's limit). Two stages of
 //   16-key tiles of 576 / 512 f32, eight threads a key with three
 //   shuffles closing each score, four adjacent P.V columns a thread;
-//   q, the scores and the (m, l) state in f32: 179 KB.
+//   q, the scores and the (m, l) state in f32: 179 KB (89 KB at 256 / 256
+//   and G 10, its instantiation at that group).
 #include "common.cuh"
 
 namespace {
@@ -103,6 +108,8 @@ constexpr int kDMax = 128;     // largest Dk and Dv of the common body
 constexpr int kDkWide = 576;   // Dk of the wide bodies (MLA: 512 + 64)
 constexpr int kDvWide = 512;   // Dv of the wide bodies (MLA's latent)
 constexpr int kGWide = 16;     // the wide bodies' group (MLA's 16 heads)
+constexpr int kD256 = 256;     // recurrentgemma's local layers: Dk = Dv
+constexpr int kG256 = 10;      // and their group (10 query heads, 1 KV head)
 constexpr int kPwWide = 4;     // P.V columns a thread owns in the f32 wide body
 constexpr int kBKWideF32 = 16; // keys a tile of the f32 wide body
 constexpr int kGMax = 32;      // largest GQA group taken
@@ -119,17 +126,20 @@ constexpr int kMmaMaxSplits = 1024;  // the merge's weights fit the K stages
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// A head dim past 128 (MLA's absorbed decode, 576 / 512) runs a wide body
+// A head dim past 128 (MLA's absorbed decode, 576 / 512; recurrentgemma's
+// 256 / 256) runs a wide body
 __host__ __device__ __forceinline__ bool wide_dims(int dk, int dv) {
   return dk > kDMax || dv > kDMax;
 }
 
 // the head dims and group taken: both dims up to 128 at any group up to
-// kGMax, or the wide bodies' dims at their group
+// kGMax, or the wide bodies' dims at their group: MLA's (576, 512) at 16,
+// recurrentgemma's (256, 256) at 10
 __host__ __device__ __forceinline__ bool dims_taken(int dk, int dv, int g) {
   if (dk <= 0 || dv <= 0) return false;
   if (!wide_dims(dk, dv)) return g <= kGMax;
-  return dk == kDkWide && dv == kDvWide && g == kGWide;
+  return (dk == kDkWide && dv == kDvWide && g == kGWide) ||
+         (dk == kD256 && dv == kD256 && g == kG256);
 }
 
 // keys a staged tile of the body that runs (dk, dv) in `elem`-byte
@@ -844,7 +854,10 @@ int launch_vec(const void* q, const void* k, const void* v,
                                   chunk, n_split, stream)
 #define REPRO_DECODE(GC) REPRO_DECODE_AT(GC, kBK, VEC ? 2 : 1)
   if (wide_dims(Dk, Dv)) {  // f32: bf16's wide body is decode_mma_kernel
-    if constexpr (sizeof(T) == 4) return REPRO_DECODE_AT(kGWide, kBKWideF32, kPwWide);
+    if constexpr (sizeof(T) == 4) {
+      if (Dk == kD256) return REPRO_DECODE_AT(kG256, kBKWideF32, kPwWide);
+      return REPRO_DECODE_AT(kGWide, kBKWideF32, kPwWide);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (Hq / Hkv) {
@@ -867,10 +880,15 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const bool vec = Dk % V == 0 && Dv % V == 0 && repro::aligned16(k) &&
                    repro::aligned16(v);
   if constexpr (sizeof(T) == 2)
-    if (wide_dims(Dk, Dv))  // dims_taken: MLA's (576, 512) at a group of 16
+    if (wide_dims(Dk, Dv)) {  // dims_taken: (576, 512) at 16, (256, 256) at 10
+      if (Dk == kD256)
+        return launch_mma<kD256, kD256, kG256, kMmaBK>(
+            q, k, v, lengths, o, part_acc, part_ml, sem, B, Tlen, Hq, Hkv,
+            scale, chunk, n_split, vec, stream);
       return launch_mma<kDkWide, kDvWide, kGWide, kMmaBK>(
           q, k, v, lengths, o, part_acc, part_ml, sem, B, Tlen, Hq, Hkv, scale,
           chunk, n_split, vec, stream);
+    }
   return vec ? launch_vec<T, true>(q, k, v, lengths, o, part_acc, part_ml, sem,
                                    B, Tlen, Hq, Hkv, Dk, Dv, scale, chunk,
                                    n_split, stream)

@@ -361,17 +361,21 @@ def _check_kernel_dims(name: str, q, v) -> None:
             raise ValueError(f"decode_core: GQA group {group} above the "
                              f"kernel's {_attn.MAX_GQA_GROUP}")
         if not _attn.decode_dims_taken(dk, dv, group):
+            wide = ", ".join(f"{d} at group {g}"
+                             for d, g in _attn.DECODE_WIDE_DIMS.items())
             raise ValueError(
                 f"decode_core: head dims ({dk}, {dv}) at group {group} have "
                 f"no instantiation (the kernel takes both up to "
-                f"{_attn.COMMON_MAX_DIM}, or {_attn.DECODE_MAX_DIMS} at group "
-                f"{_attn.DECODE_WIDE_GROUP})")
+                f"{_attn.COMMON_MAX_DIM}, or {wide})")
         return
+    common = (_attn.COMMON_MAX_DIM,) * 2
     if name == "attention_core":
         taken, limits = _attn.prefill_dims_taken(dk, dv), _attn.PREFILL_MAX_DIMS
+    elif name == "attention_window":
+        taken = _attn.prefill_dims_taken(dk, dv, causal=False, window=True)
+        limits = f"{common}, or exactly {_attn.WINDOW_WIDE_DIMS}"
     else:
-        taken = _attn.prefill_dims_taken(dk, dv, causal=False)
-        limits = (_attn.COMMON_MAX_DIM,) * 2
+        taken, limits = _attn.prefill_dims_taken(dk, dv, causal=False), common
     if not taken:
         raise ValueError(f"{name}: head dims ({dk}, {dv}) have no "
                          f"instantiation (the kernel takes up to {limits})")

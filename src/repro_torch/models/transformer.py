@@ -6,8 +6,11 @@ pre-norm blocks (RMSNorm or LayerNorm) of MHA/GQA attention or MLA
 mixture-of-experts FFN (``models/moe.py``: every layer of an MoE config
 past its ``first_dense_layers``), with RoPE (Llama-2, Gemma 3), learned
 positions (GPT-2, BERT, the ViT stub) or none (the vision backbone). Each layer's kind comes from
-``cfg.layer_kinds()``: ``"attn"`` (global) or ``"local"`` (sliding-window
-attention over a ring cache, Gemma 3's 5:1 pattern). Gemma 3 adds
+``cfg.layer_kinds()``: ``"attn"`` (global), ``"local"`` (sliding-window
+attention over a ring cache, Gemma 3's 5:1 pattern) or ``"rec"`` (the
+RG-LRU recurrent mixer, ``models/recurrent.py``: RecurrentGemma's two
+recurrent blocks to each local one; its state consumes every token, so
+the engine prefills it at the exact prompt length). Gemma 3 adds
 qk-norm, post-norms around each sub-block (``cfg.post_norm``), zero-centred
 norm scales, GeGLU and sqrt(d)-scaled tied embeddings. Decoders attend
 causally; encoders
@@ -47,11 +50,14 @@ from repro_torch import nn
 from repro_torch.core.taxonomy import OpGroup
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
+from repro_torch.models import recurrent as R
 from repro_torch.models.common import ModelConfig, dense_init
 
 
 #: the attention block kinds: global (full cache) and sliding-window (ring)
 ATTN_KINDS = ("attn", "local")
+#: every block kind the port runs: attention and the RG-LRU recurrence
+BLOCK_KINDS = ATTN_KINDS + ("rec",)
 
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
@@ -60,8 +66,8 @@ def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     encoder, which the JAX package does not serve either."""
     kinds = set(cfg.layer_kinds())
     unported = {
-        f"block kinds {sorted(kinds - set(ATTN_KINDS))}":
-            not kinds <= set(ATTN_KINDS),
+        f"block kinds {sorted(kinds - set(BLOCK_KINDS))}":
+            not kinds <= set(BLOCK_KINDS),
         f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
         f"ffn {cfg.ffn!r}": cfg.ffn not in M.FFN_KINDS,
         f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned",
@@ -112,10 +118,14 @@ def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig,
-               layer_idx: int = 0) -> dict:
+               layer_idx: int = 0, kind: str = "attn") -> dict:
     dev = generator.device
-    mixer = A.init_mla(generator, cfg) if cfg.mla \
-        else A.init_attention(generator, cfg)
+    if kind == "rec":
+        mixer = R.init_recurrent(generator, cfg)
+    elif cfg.mla:
+        mixer = A.init_mla(generator, cfg)
+    else:
+        mixer = A.init_attention(generator, cfg)
     p = {"norm1": _init_norm(cfg, dev), "mixer": mixer,
          "norm2": _init_norm(cfg, dev)}
     if _is_moe_layer(cfg, layer_idx):
@@ -139,8 +149,8 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.pos_emb == "learned":
         params["pos"] = dense_init(generator, (cfg.max_position, cfg.d_model),
                                    in_axis=1, dtype=pd)
-    params["layers"] = [init_block(generator, cfg, i)
-                        for i in range(cfg.n_layers)]
+    params["layers"] = [init_block(generator, cfg, i, kind)
+                        for i, kind in enumerate(cfg.layer_kinds())]
     params["final_norm"] = _init_norm(cfg, generator.device)
     if not cfg.tie_embeddings or cfg.input_mode != "tokens":
         params["head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
@@ -169,7 +179,9 @@ def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
     """-> (x, aux): aux the MoE layer's load-balance loss, None for a dense
     layer."""
     h = _apply_norm(params["norm1"], x, cfg)
-    if cfg.mla:
+    if kind == "rec":
+        a = R.recurrent_forward(params["mixer"], h, cfg)
+    elif cfg.mla:
         a = A.mla_forward(params["mixer"], h, cfg, positions)
     else:
         a = A.attn_forward(params["mixer"], h, cfg, kind, positions)
@@ -178,8 +190,13 @@ def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
 
 def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
                   max_len: int, lengths=None):
+    """As :func:`block_forward`, and the layer's decode cache. A ``rec``
+    layer's state consumes every token of ``x``, pads included: its
+    caller prefills the exact prompt (``lengths`` is for the ring)."""
     h = _apply_norm(params["norm1"], x, cfg)
-    if cfg.mla:
+    if kind == "rec":
+        a, cache = R.recurrent_prefill(params["mixer"], h, cfg)
+    elif cfg.mla:
         a, cache = A.mla_prefill(params["mixer"], h, cfg, positions, max_len)
     else:
         a, cache = A.attn_prefill(params["mixer"], h, cfg, kind, positions,
@@ -189,7 +206,9 @@ def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
 
 def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
     h = _apply_norm(params["norm1"], x, cfg)
-    if cfg.mla:
+    if kind == "rec":
+        a, cache = R.recurrent_decode(params["mixer"], h, cfg, cache, pos)
+    elif cfg.mla:
         a, cache = A.mla_decode(params["mixer"], h, cfg, cache, pos)
     else:
         a, cache = A.attn_decode(params["mixer"], h, cfg, kind, cache, pos)
@@ -199,8 +218,8 @@ def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
 def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
     """Chunked-prefill step of one block (see ``attention.attn_extend``):
     only a full-depth cache can re-enter at an arbitrary position, so a
-    ``local`` layer raises."""
-    if kind == "local":
+    ``local`` layer (a ring) and a ``rec`` layer (a running state) raise."""
+    if kind in ("rec", "local"):
         raise ValueError(f"block kind {kind!r} does not support chunked "
                          "prefill (needs a full-depth positional cache)")
     h = _apply_norm(params["norm1"], x, cfg)
@@ -282,13 +301,18 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
     """One cache per layer: ``{"k", "v"}`` of (batch, max_len, Hkv, Dh)
     for a global layer, a ring with its ``"pos"`` side-car for a local
     one (``attention.init_attn_cache``), MLA's compressed ``{"c", "kr"}``
-    (``attention.init_mla_cache``)."""
+    (``attention.init_mla_cache``), a recurrent layer's ``{"h": (batch, W)
+    f32, "conv": (batch, conv_width - 1, W)}``
+    (``recurrent.init_recurrent_cache``)."""
     check_supported(cfg, serving=True)
-    if cfg.mla:
-        return [A.init_mla_cache(cfg, batch, max_len, device=device)
-                for _ in range(cfg.n_layers)]
-    return [A.init_attn_cache(cfg, kind, batch, max_len, device=device)
-            for kind in cfg.layer_kinds()]
+
+    def one(kind):
+        if kind == "rec":
+            return R.init_recurrent_cache(cfg, batch, device=device)
+        if cfg.mla:
+            return A.init_mla_cache(cfg, batch, max_len, device=device)
+        return A.init_attn_cache(cfg, kind, batch, max_len, device=device)
+    return [one(kind) for kind in cfg.layer_kinds()]
 
 
 def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,

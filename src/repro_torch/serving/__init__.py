@@ -5,7 +5,8 @@ sequences shares ONE KV cache:
 
 * admission is per slot: each request is prefilled alone, right-padded to
   a power-of-two bucket, with a length mask picking the last real token's
-  logits, and its cache rows (every leaf: a local layer's ring and its
+  logits (a model with a recurrent layer prefills at the exact prompt
+  length instead: its state would consume the pads), and its cache rows (every leaf: a local layer's ring and its
   position side-car, MLA's latent ``c`` and rope key ``kr``) are copied
   into the slot;
 * decode runs one step for the whole slot table with a per-slot position
@@ -222,6 +223,11 @@ class Engine:
         self.queue: List[Request] = []
         self.stats = EngineStats()
         self._uid = 0
+        # a recurrent prefill folds every input token, pads included, into
+        # its running state, so bucketed right-padding would corrupt it:
+        # such a model prefills at the exact prompt length
+        self._pad_safe = not (set(cfg.layer_kinds())
+                              & {"rec", "mlstm", "slstm"})
         # slot table
         self.slots: List[Optional[Request]] = [None] * max_batch
         self._pos = np.zeros((max_batch,), np.int32)
@@ -277,6 +283,8 @@ class Engine:
 
     # -- admission ---------------------------------------------------------
     def _bucket(self, plen: int) -> int:
+        if not self._pad_safe:
+            return plen
         return min(_next_pow2(max(plen, self.min_prefill_bucket)), self.max_len)
 
     def _admit(self, slot: int, req: Request) -> bool:

@@ -450,7 +450,7 @@ def emulate_wide_decode(q, k, v, lengths, n_split, chunk, scale, dt,
 
 def emulate_mma_decode(q, k, v, lengths, n_split, chunk, scale, *,
                        tile=None, p_terms=P_TERMS, drop_last_slice=False,
-                       skip_last_k_step=False):
+                       skip_last_k_step=False, store_padded_rows=False):
     """The bf16 wide body of ``csrc/decode.cu`` in plain torch, f32 (its
     output before the last rounding): each split's keys in tiles of
     ``tile`` (DECODE_WIDE_TILE) keys, zero past the split; the 16 heads as
@@ -461,10 +461,13 @@ def emulate_mma_decode(q, k, v, lengths, n_split, chunk, scale, *,
     ``p_terms`` bf16 terms (2: the kernel's head plus the bf16 of the
     remainder; 1: P rounded to bf16), l the sum of the values the terms
     hold; a split's m leaves in natural units; the merge weighs each split
-    by e^(m_s - m) / l. ``drop_last_slice``: the decode_wide_drops_last_group
-    mutant (the last warp's 64 output columns never accumulate);
-    ``skip_last_k_step``: decode_wide_skips_last_k_step (the scores miss
-    Dk's last 16 dims)."""
+    by e^(m_s - m) / l. Rows of M past G are computed and stored nowhere.
+    ``drop_last_slice``: the decode_wide_drops_last_group mutant (the last
+    warp's 64 output columns never accumulate); ``skip_last_k_step``:
+    decode_wide_skips_last_k_step (the scores miss Dk's last 16 dims);
+    ``store_padded_rows``: decode_g10_stores_padded_rows (split s stores
+    its rows G..15 too, onto split s + 1's partials of heads 0..15-G,
+    after split s + 1 has stored its own)."""
     tile = tile or attn.DECODE_WIDE_TILE
     b, _, g, dk = q.shape
     t, dv = k.shape[1], v.shape[3]
@@ -508,6 +511,12 @@ def emulate_mma_decode(q, k, v, lengths, n_split, chunk, scale, *,
                     acc[:, dv - cw:] = 0.0
                 m = m_new
             parts.append((m * LN2, l, acc))
+        if store_padded_rows:
+            for i in range(len(parts) - 1):
+                nxt = [x.clone() for x in parts[i + 1]]
+                for x, y in zip(nxt, parts[i]):
+                    x[:MMA_M - g] = y[g:]
+                parts[i + 1] = tuple(nxt)
         if parts:
             mm = torch.stack([p[0] for p in parts]).amax(0)
             ll = sum(torch.exp(p[0] - mm) * p[1] for p in parts)
@@ -715,3 +724,169 @@ def test_wide_mutants_are_caught(mla_case, mutant):
                              **{mutant: True})
     got = bad.to(torch.bfloat16).float().numpy()
     assert float(np.abs(got - mla_case["bfloat16"]["plain"]).max()) > ATOL["bfloat16"]
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-2b's local layers: Dk = Dv = 256, one KV head for 10
+# ---------------------------------------------------------------------------
+
+#: the window body's cases at head dim 256 (B, Sq, Skv, Hq, Hkv, Dk, Dv,
+#: q_offset, mask, window): a window of two tiles over 150 keys, and one
+#: longer than the sequence (recurrentgemma's 2048 at a short prompt)
+RG_WINDOW_CASES = [(1, 150, 150, 10, 1, 256, 256, 0, "window", 128),
+                   (2, 70, 70, 10, 1, 256, 256, 0, "window", 2048)]
+
+
+@pytest.mark.parametrize("case", RG_WINDOW_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_window_body_at_256_splits_dv_and_keeps_the_rule(case):
+    """The (256, 256) window instantiation: two CTAs each run the whole
+    Q.K^T and softmax and P.V for 128 of the 256 output columns. Emulated
+    that way, it equals the body over all 256 columns bit for bit, and
+    keeps the bf16 rule four times over against the plain version and the
+    JAX kernel in interpret mode (f32 on the same bf16 values), and the
+    rule itself against the JAX kernel in bf16."""
+    b, sq, skv, hq, hkv, dk, dv, off, mask, window = case
+    assert attn.prefill_dims_taken(dk, dv, causal=False, window=True)
+    (qj, kj, vj), (qt, kt, vt), plain, atol = _case_inputs(case)
+    half = dv // 2
+    emu = torch.cat([emulate_mma_attention(qt, kt, vt[..., c:c + half],
+                                           window=window)
+                     for c in (0, half)], dim=-1)
+    assert torch.equal(emu, emulate_mma_attention(qt, kt, vt, window=window))
+    jax32 = _jax_attention(qj.astype(jnp.float32), kj.astype(jnp.float32),
+                           vj.astype(jnp.float32), mask, off, window)
+    for name, want in (("plain", plain.numpy()), ("jax f32", jax32)):
+        worst = _within_rule(emu.numpy(), want, atol, MARGIN)
+        assert worst <= 1.0, f"{name}: {worst:.3f} of the rule / {MARGIN}"
+    jax16 = _jax_attention(qj, kj, vj, mask, off, window)
+    assert _within_rule(emu.to(torch.bfloat16).float().numpy(),
+                        np.asarray(jax16, np.float32), atol, 1.0) <= 1.0
+
+
+#: the decode cases at (256, 256), G 10: B 6 rows over T 80 keys, lengths
+#: 0, 1, a tile's edge either side and a full row, the default scale
+RG_G, RG_D = 10, 256
+RG_T, RG_LENGTHS = 80, [0, 1, 31, 32, 33, 80]
+RG_SCALE = 1.0 / math.sqrt(RG_D)
+#: (n_split, chunk): the wide plan at 132 SMs, one split a row, two tiles a
+#: split
+RG_PLANS = [attn.decode_plan(len(RG_LENGTHS), RG_G, 1, RG_T, RG_D, RG_D, 132),
+            attn.decode_plan(len(RG_LENGTHS), RG_G, 1, RG_T, RG_D, RG_D, 4),
+            (2, 64)]
+
+
+@pytest.fixture(scope="module")
+def rg_case():
+    """The inputs of the (256, 256, G 10) decode cases in both dtypes
+    (numpy, seed 21), JAX's decode kernel on them in interpret mode and
+    the port's plain version, computed once."""
+    rng = np.random.default_rng(21)
+    b = len(RG_LENGTHS)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((b, 1, RG_G, RG_D), (b, RG_T, 1, RG_D),
+                        (b, RG_T, 1, RG_D))]
+    lengths = np.array(RG_LENGTHS, np.int32)
+    out = {"lengths": lengths}
+    for dt in ("float32", "bfloat16"):
+        js = [jnp.asarray(a).astype(JAX_DT[dt]) for a in arrays]
+        ts = [torch.from_numpy(a).to(TORCH_DT[dt]) for a in arrays]
+        out[dt] = dict(
+            torch=ts,
+            jax=np.asarray(jops.attn_decode_template(
+                *js, jnp.asarray(lengths), scale=RG_SCALE, interpret=True),
+                np.float32),
+            plain=ref.decode_attention(*ts, torch.from_numpy(lengths),
+                                       scale=RG_SCALE).float().numpy())
+    out["bf16 values, plain f32"] = ref.decode_attention(
+        *[t.float() for t in out["bfloat16"]["torch"]],
+        torch.from_numpy(lengths), scale=RG_SCALE).numpy()
+    return out
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_wide_decode_matches_jax_at_256_g10(rg_case, dt):
+    """At Dk = Dv = 256, Hkv 1, G 10: the emulated wide body of ``dt``
+    against JAX's decode kernel in interpret mode and the port's plain
+    version, lengths 0, 1, 31, 32, 33 and T. bf16 (the tensor cores'
+    body, M padded from 10 to 16) under each of RG_PLANS, and four times
+    within the rule against the plain version in f32; f32 (the FMA body at
+    its G 10 instantiation) split in 2 of 64 keys."""
+    case = rg_case[dt]
+    qt, kt, vt = case["torch"]
+    lengths = rg_case["lengths"]
+    assert attn.decode_dims_taken(RG_D, RG_D, RG_G)
+    if dt == "float32":
+        emus = [emulate_wide_decode(qt, kt, vt, lengths, 2, 64, RG_SCALE, dt)]
+        for w in (case["jax"], case["plain"]):
+            np.testing.assert_allclose(emus[0].numpy(), w, rtol=0,
+                                       atol=ATOL[dt] / 2)
+    else:
+        emus = [emulate_mma_decode(qt, kt, vt, lengths, n, c, RG_SCALE)
+                for n, c in RG_PLANS]
+        assert RG_PLANS[0][0] > 1 and RG_PLANS[1][0] == 1
+        for emu in emus:
+            assert emu.shape == (len(RG_LENGTHS), 1, RG_G, RG_D)
+            got = emu.to(torch.bfloat16).float().numpy()
+            for w in (case["jax"], case["plain"]):
+                np.testing.assert_allclose(got, w, rtol=0, atol=ATOL[dt])
+            worst = _within_rule(emu.numpy(), rg_case["bf16 values, plain f32"],
+                                 BF16_ATOL, MARGIN)
+            assert worst <= 1.0, worst
+    for emu in emus:
+        assert not emu[0].any(), "lengths 0 must give exact zeros"
+
+
+def test_padded_rows_mutant_is_caught(rg_case):
+    """decode_g10_stores_padded_rows (scripts/port_mutation_check.sh),
+    emulated under the wide plan on queries scaled by 4 (phase 2's peaked
+    case: each head's softmax dominated by a few keys): a split's padded
+    rows 10-15 (zero queries, m = 0) land on the next split's heads 0-5,
+    whose keys then drop out of the merge, and the output misses the bf16
+    limit; the sound body keeps it on the same inputs."""
+    qt, kt, vt = rg_case["bfloat16"]["torch"]
+    lengths = rg_case["lengths"]
+    q4 = (qt.float() * 4.0).to(torch.bfloat16)
+    plain = ref.decode_attention(q4, kt, vt, torch.from_numpy(lengths),
+                                 scale=RG_SCALE).float().numpy()
+    n, c = RG_PLANS[0]
+    errs = {}
+    for mutant in (False, True):
+        emu = emulate_mma_decode(q4, kt, vt, lengths, n, c, RG_SCALE,
+                                 store_padded_rows=mutant)
+        errs[mutant] = np.abs(emu.to(torch.bfloat16).float().numpy() - plain)
+    assert float(errs[False].max()) <= ATOL["bfloat16"]
+    assert float(errs[True].max()) > ATOL["bfloat16"]
+    assert float(errs[True][:, :, RG_G - 4:].max()) == \
+        float(errs[False][:, :, RG_G - 4:].max())      # heads 6-9 untouched
+
+
+def test_256_tiles_fit_a_block_and_the_plan():
+    """At (256, 256), G 10: the bf16 wide body's three stages of 32-key
+    tiles and the f32 body's two stages of 16-key tiles fit a block; the
+    serve step's plan (4 slots, rings of 2048, 132 SMs) is 32 splits of 64
+    keys; the merge's weights fit the K stages; only this group is taken,
+    and the window mask alone takes the pair in prefill."""
+    limit, tile = 227 * 1024, attn.DECODE_WIDE_TILE
+    ksplit = MMA_WARPS // (tile // 8)
+    mma = 2 * 3 * tile * 2 * (RG_D + 8) + 4 * ksplit * MMA_M * (tile + 8)
+    assert mma == 106496 and mma <= limit
+    assert 4 * 1024 * RG_G <= 2 * 3 * tile * (RG_D + 8)
+    bk, _, _ = WIDE["float32"]
+    _, nph = pv_map(RG_D)
+    pitch = 264                            # 256 f32, padded by 2 groups
+    fma = 2 * bk * 2 * pitch * 4 + 4 * (RG_G * RG_D + RG_G * bk + 3 * RG_G
+                                        + (nph - 1) * RG_G * RG_D)
+    assert fma <= limit
+    assert attn.decode_plan(4, RG_G, 1, 2048, RG_D, RG_D, 132) == (32, 64)
+    assert attn.DECODE_WIDE_DIMS[(RG_D, RG_D)] == RG_G
+    for g in (8, 16, 1):
+        assert not attn.decode_dims_taken(RG_D, RG_D, g)
+    assert not attn.decode_dims_taken(256, 128, RG_G)
+    assert attn.decode_body(RG_D, RG_D, torch.bfloat16) == "wide mma bf16"
+    assert attn.decode_body(RG_D, RG_D, torch.float32) == "wide fma f32"
+    assert attn.prefill_dims_taken(256, 256, causal=False, window=True)
+    assert not attn.prefill_dims_taken(256, 256)
+    assert not attn.prefill_dims_taken(256, 256, causal=False)
+    assert not attn.prefill_dims_taken(256, 128, causal=False, window=True)
+    assert attn.prefill_dims_taken(80, 80, causal=False, window=True)

@@ -668,7 +668,7 @@ def test_quick_lm_cases_stay_at_full_width():
 def test_full_tier_names_the_unported_archs():
     left = [c.arch for c in tcases.tier_cases("full")
             if not tcases.is_ported(c.arch)]
-    assert left == ["recurrentgemma-2b", "xlstm-350m"]
+    assert left == ["xlstm-350m"]
     assert not [c for c in tcases.quick_cases()
                 if not tcases.is_ported(c.arch)]
 
@@ -863,7 +863,7 @@ def test_full_run_leaves_out_the_unported_cases():
     result = run_bench("full", section_names=["roofline"], device="cpu",
                        progress=lines.append)
     names = [c["arch"] for c in result.meta["cases_not_ported"]]
-    assert names == ["recurrentgemma-2b", "xlstm-350m"]
+    assert names == ["xlstm-350m"]
     assert not {c.arch for c in result.cases} & set(names)
     assert any("not ported" in line and "xlstm-350m" in line
                for line in lines)
@@ -910,8 +910,7 @@ def test_list_names_every_case(capsys):
         [c.alias for c in tcases.CASES + tcases.SERVING_CASES
          + tcases.VISION_CASES]
     assert [r["arch"] for r in out["cases"]
-            if r["builder"] == "not ported yet"] == ["recurrentgemma-2b",
-                                                     "xlstm-350m"]
+            if r["builder"] == "not ported yet"] == ["xlstm-350m"]
 
 
 def test_package_exports_jax_names_but_the_compiled_view():

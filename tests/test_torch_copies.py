@@ -58,7 +58,8 @@ def test_model_config_fields_pinned():
                                   "vit-b16", "vit-b16-cls", "detector-vit-s",
                                   "gemma3-27b", "stablelm-3b", "granite-3-8b",
                                   "chameleon-34b", "qwen1.5-110b",
-                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+                                  "recurrentgemma-2b"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_llama_config_copy_pinned(cut, arch):
     want = jget_config(arch)
@@ -72,8 +73,8 @@ def test_unknown_config_lists_known():
     with pytest.raises(KeyError, match="bert-base.*chameleon-34b.*"
                        "deepseek-v2-lite-16b.*gpt2-xl.*granite-3-8b.*"
                        "llama2-7b.*qwen1.5-110b.*qwen2-moe-a2.7b.*"
-                       "stablelm-3b"):
-        get_config("recurrentgemma-2b")
+                       "recurrentgemma-2b.*stablelm-3b"):
+        get_config("xlstm-350m")
 
 
 @pytest.mark.parametrize("arch", ["vit-b16-cls", "detector-vit-s", "gpt2-xl"])
@@ -199,7 +200,7 @@ def test_bridge_raises_on_an_unknown_entry_and_carries_every_other():
                                device="cpu")
 
 
-@pytest.mark.parametrize("unported", [dict(block_pattern=("attn", "rec")),
+@pytest.mark.parametrize("unported", [dict(block_pattern=("attn", "mlstm")),
                                       dict(attn_logit_softcap=50.0),
                                       dict(pos_emb="sinusoidal"),
                                       dict(input_mode="audio")])
@@ -450,8 +451,9 @@ def test_kernel_rows_render_the_ports_own_sites():
 
 
 def test_profiling_api_modules_isolated():
-    """The profiling API's and the bench's modules are among the files the
-    import check reads, and none of them imports jax or repro."""
+    """The profiling API's, the bench's and the recurrent mixer's modules
+    are among the files the import check reads, and none of them imports
+    jax or repro."""
     names = ("calibrate.py", "fusion.py", "hardware.py", "report.py",
              "roofline.py", "workload.py")
     core = REPO / "src" / "repro_torch" / "core"
@@ -459,7 +461,9 @@ def test_profiling_api_modules_isolated():
     bench_modules = ("__init__.py", "__main__.py", "cases.py", "compare.py",
                      "runner.py", "schema.py", "sections.py")
     assert sorted(p.name for p in bench.glob("*.py")) == sorted(bench_modules)
-    for f in [core / n for n in names] + [bench / n for n in bench_modules]:
+    recurrent = REPO / "src" / "repro_torch" / "models" / "recurrent.py"
+    for f in ([core / n for n in names] + [bench / n for n in bench_modules]
+              + [recurrent]):
         assert f.exists(), f
         assert not [m for m in _imports(f)
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")], f

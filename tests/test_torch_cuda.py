@@ -892,10 +892,11 @@ def test_decode_core_mla_in_a_cuda_graph_on_card(card):
 
 
 def test_kernels_refuse_head_dims_they_have_no_instantiation_for(card):
-    """Prefill takes both dims up to 128 or MLA's (192, 128); decode
-    both up to 128 or MLA's (576, 512) at a group of 16 alone: the
-    wrappers raise outside, and the C entries refuse what the wrappers let
-    through."""
+    """Prefill takes both dims up to 128, MLA's (192, 128) causal alone and
+    recurrentgemma's (256, 256) window alone; decode both up to 128, MLA's
+    (576, 512) at a group of 16 alone and (256, 256) at a group of 10
+    alone: the wrappers raise outside, and the C entries refuse what the
+    wrappers let through."""
     from repro_torch.kernels import attn_template as at
     for dk, dv in ((256, 128), (192, 192), (200, 64), (136, 72)):
         q, v = _randn(card, (1, 4, 2, dk), torch.bfloat16), \
@@ -913,10 +914,27 @@ def test_kernels_refuse_head_dims_they_have_no_instantiation_for(card):
             call()
     with pytest.raises(RuntimeError, match="cudaError_t"):
         at.attention_full(q, q, v, 1.0)
+    # recurrentgemma's (256, 256) is the window kernel's alone, and its
+    # window takes that pair alone
+    q = _randn(card, (1, 4, 2, 256), torch.bfloat16)
+    for call in (lambda: ops.attention_core(q, q, q),
+                 lambda: ops.attention_full(q, q, q)):
+        with pytest.raises(ValueError, match="no instantiation"):
+            call()
+    for call in (lambda: at.attention_core(q, q, q, 0, 1.0),
+                 lambda: at.attention_full(q, q, q, 1.0)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            call()
+    v = _randn(card, (1, 4, 2, 128), torch.bfloat16)
+    with pytest.raises(ValueError, match="no instantiation"):
+        ops.attention_window(q, q, v, 2)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        at.attention_window(q, q, v, 2, 0, 1.0)
     one = torch.ones(1, dtype=torch.int32, device="cuda")
     for dk, dv, g in ((640, 512, 16), (576, 514, 16), (576, 520, 16),
                       (576, 508, 16), (264, 256, 8), (576, 512, 8),
-                      (576, 512, 32)):
+                      (576, 512, 32), (256, 256, 8), (256, 256, 16),
+                      (256, 256, 1), (256, 128, 10)):
         q = _randn(card, (1, 1, g, dk), torch.float32)
         k, v = _randn(card, (1, 8, 1, dk), torch.float32), \
             _randn(card, (1, 8, 1, dv), torch.float32)
@@ -924,6 +942,82 @@ def test_kernels_refuse_head_dims_they_have_no_instantiation_for(card):
             ops.decode_core(q, k, v, one)
         with pytest.raises(RuntimeError, match="cudaError_t"):
             at.decode_core(q, k, v, one, 1.0)
+
+
+# recurrentgemma-2b's local layers: (B, Sq, Hq, Hkv, D, window) at its
+# 2048 window over 2048 and 2100 tokens (past it), a short prompt, a
+# window of a tile
+RG_WINDOW = [(1, 2048, 10, 1, 256, 2048), (1, 2100, 10, 1, 256, 2048),
+             (1, 37, 10, 1, 256, 2048), (2, 130, 10, 1, 256, 64)]
+
+
+@pytest.mark.parametrize("case", RG_WINDOW, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_window_256_on_card(card, case, dt):
+    """The window kernel's (256, 256) instantiation: bf16 as two CTAs of
+    128 output columns each, f32 on the FMA body."""
+    b, s, hq, hkv, d, w = case
+    q = _randn(card, (b, s, hq, d), dt)
+    k, v = _randn(card, (b, s, hkv, d), dt), _randn(card, (b, s, hkv, d), dt)
+    got = _launched("attention_window", lambda: ops.attention_window(q, k, v, w))
+    _assert_close(got, ref.attention(q, k, v, window=w), dt)
+
+
+@pytest.mark.parametrize("lens", [[0, 1, 31, 32], [33, 2048, 2048, 5],
+                                  [2048, 2048, 348, 52]])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_decode_core_256_g10_on_card(card, lens, dt):
+    """The wide bodies at recurrentgemma's (256, 256), one KV head for a
+    group of 10 (M padded to 16 in bf16) over rings of 2048; exact zeros at
+    length 0, the counters left at 0."""
+    q = _randn(card, (4, 1, 10, 256), dt)
+    k, v = _randn(card, (4, 2048, 1, 256), dt), _randn(card, (4, 2048, 1, 256), dt)
+    n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    assert attn.decode_body(256, 256, dt) == (
+        "wide mma bf16" if dt == torch.bfloat16 else "wide fma f32")
+    got = _launched("decode_core", lambda: ops.decode_core(q, k, v, n))
+    _assert_close(got, ref.decode_attention(q, k, v, n).to(dt), dt)
+    if 0 in lens:
+        assert not got[lens.index(0)].any()
+    assert _counters_zero()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_reduced_recurrentgemma_on_card(card, fused):
+    """Reduced recurrentgemma-2b: the kernel path's logits against the
+    plain path's; the Engine prefills at the exact prompt length and its
+    tokens on the card equal the CPU's, graphed and eager alike (the
+    graph replays against the recurrent state decode writes in place)."""
+    cfg = reduced(get_config("recurrentgemma-2b"))
+    params = init_lm(card, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=card,
+                         device="cuda")
+    with nn.backend("torch"), nn.fuse(fused):
+        want = lm_forward(params, toks, cfg)
+    ops.reset_launches()
+    with nn.fuse(fused):
+        got = lm_forward(params, toks, cfg)
+    assert ops.launches["attention_window"] == 1
+    assert ops.launches["attention_core"] == 0
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (5, 70, 11)]
+
+    def serve(p, **kw):
+        eng = Engine(cfg, p, max_batch=2, max_len=128, fused=fused, **kw)
+        assert eng._bucket(70) == 70
+        uids = [eng.add_request(x, max_new_tokens=8) for x in prompts]
+        done = {r.uid: r.output for r in eng.run()}
+        return [done[u] for u in uids]
+
+    ops.reset_launches()
+    graphed = serve(params)
+    assert ops.launches["decode_core"] > 0
+    assert graphed == serve(params, cuda_graph=False) == serve(_to(params, "cpu"))
+    with pytest.raises(ValueError):
+        PagedEngine(cfg, params, max_batch=2, max_len=128)
 
 
 MOE_MODELS = [(a, f) for a in ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")

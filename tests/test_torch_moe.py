@@ -238,11 +238,85 @@ MAX_LEN = 48
 
 @functools.lru_cache(maxsize=None)
 def _setup(arch):
+    """(jax config, port config, JAX params, bridged port params); JAX's
+    ``init_lm`` jitted (a third of its eager time on the CPU)."""
     jcfg = jreduced(jget_config(arch))
     cfg = reduced(get_config(arch))
-    jparams = init_lm(jax.random.PRNGKey(0), jcfg)
+    jparams = jax.jit(init_lm, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     params = bridge.params_from_jax(_np(jparams), cfg, device="cpu")
     return jcfg, cfg, jparams, params
+
+
+def _memo(compute):
+    """A module fixture's getter: ``compute(*key)`` once per key."""
+    memo = {}
+
+    def get(*key):
+        if key not in memo:
+            memo[key] = compute(*key)
+        return memo[key]
+    return get
+
+
+@pytest.fixture(scope="module")
+def jax_forward():
+    """JAX's ``lm_forward`` logits of the 2 x 13 tokens per (arch, JAX
+    backend, fused), each computed once."""
+    def compute(arch, backend, fused):
+        jcfg, cfg, jparams, _ = _setup(arch)
+        toks = _tokens(cfg, 2, 13)
+        with jnn.backend(backend), jnn.fuse(fused):
+            return np.asarray(jax.jit(lambda p, t: jlm_forward(p, t, jcfg))(
+                jparams, jnp.asarray(toks, jnp.int32)))
+    return _memo(compute)
+
+
+@pytest.fixture(scope="module")
+def jax_serve_chain():
+    """JAX's prefill of the 2 x 9 tokens, 4 greedy decode steps and a
+    7-token extend chunk at 13 per (arch, JAX backend, fused): (tokens,
+    decode logits, extend logits, caches), each computed once."""
+    def compute(arch, backend, fused):
+        jcfg, cfg, jparams, _ = _setup(arch)
+        toks = _tokens(cfg, 2, 9, seed=1)
+        with jnn.backend(backend), jnn.fuse(fused):
+            logits, jc = jax.jit(lambda p, t: jlm_prefill(p, t, jcfg,
+                                                          max_len=MAX_LEN))(
+                jparams, jnp.asarray(toks, jnp.int32))
+            decode = jax.jit(lambda p, t, i, c: jlm_decode(p, t, i, c, jcfg))
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            want, want_logits = [np.asarray(tok)], []
+            for i in range(4):
+                logits, jc = decode(jparams, tok, jnp.int32(9 + i), jc)
+                want_logits.append(np.asarray(logits))
+                tok = jnp.argmax(logits, -1).astype(jnp.int32)
+                want.append(np.asarray(tok))
+            chunk = _tokens(cfg, 2, 7, seed=2)
+            want_ext, jc = jax.jit(
+                lambda p, t, c: jlm_extend(p, t, 13, c, jcfg))(
+                    jparams, jnp.asarray(chunk, jnp.int32), jc)
+        return (np.stack(want), np.stack(want_logits), np.asarray(want_ext),
+                _np(jc))
+    return _memo(compute)
+
+
+@pytest.fixture(scope="module")
+def jax_engines():
+    """JAX's ``Engine`` tokens on the mixed request set per (arch, fused),
+    and its ``PagedEngine``'s on the prefix set per (arch, "paged") with
+    its hit rate: each served once."""
+    def compute(arch, fused):
+        jcfg, cfg, jparams, _ = _setup(arch)
+        with jnn.backend("jnp"):
+            if fused == "paged":
+                reqs, extra = _request_set("prefix", cfg.vocab_size)
+                jeng = JPagedEngine(jcfg, jparams, max_batch=3, max_len=64,
+                                    block_size=8, **extra)
+                return _serve(jeng, reqs), jeng.prefix_cache.hit_rate
+            reqs, _ = _request_set("mixed", cfg.vocab_size)
+            return _serve(JEngine(jcfg, jparams, max_batch=3, max_len=64,
+                                  fused=fused), reqs)
+    return _memo(compute)
 
 
 def _tokens(cfg, b, s, seed=0):
@@ -270,12 +344,11 @@ def test_layer_structure_bridged():
 @pytest.mark.parametrize("port_backend,jax_backend",
                          [("torch", "jnp"), ("cuda", "pallas_interpret")])
 @pytest.mark.parametrize("fused", [False, True])
-def test_lm_forward_matches_jax(arch, port_backend, jax_backend, fused):
-    jcfg, cfg, jparams, params = _setup(arch)
+def test_lm_forward_matches_jax(jax_forward, arch, port_backend, jax_backend,
+                                fused):
+    _, cfg, _, params = _setup(arch)
     toks = _tokens(cfg, 2, 13)
-    with jnn.backend(jax_backend), jnn.fuse(fused):
-        want = jax.jit(lambda p, t: jlm_forward(p, t, jcfg))(
-            jparams, jnp.asarray(toks, jnp.int32))
+    want = jax_forward(arch, jax_backend, fused)
     with nn.backend(port_backend), nn.fuse(fused):
         got = TT.lm_forward(params, torch.from_numpy(toks), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
@@ -286,27 +359,14 @@ def test_lm_forward_matches_jax(arch, port_backend, jax_backend, fused):
 @pytest.mark.parametrize("port_backend,jax_backend",
                          [("torch", "jnp"), ("cuda", "pallas_interpret")])
 @pytest.mark.parametrize("fused", [False, True])
-def test_prefill_decode_extend_match_jax(arch, port_backend, jax_backend,
-                                         fused):
+def test_prefill_decode_extend_match_jax(jax_serve_chain, arch, port_backend,
+                                         jax_backend, fused):
     """lm_prefill's logits and caches, 4 greedy lm_decode steps (tokens
     identical, logits within 1e-4) and an lm_extend chunk, against JAX."""
-    jcfg, cfg, jparams, params = _setup(arch)
+    _, cfg, _, params = _setup(arch)
     toks = _tokens(cfg, 2, 9, seed=1)
-    with jnn.backend(jax_backend), jnn.fuse(fused):
-        logits, jc = jax.jit(lambda p, t: jlm_prefill(p, t, jcfg,
-                                                      max_len=MAX_LEN))(
-            jparams, jnp.asarray(toks, jnp.int32))
-        decode = jax.jit(lambda p, t, i, c: jlm_decode(p, t, i, c, jcfg))
-        tok = jnp.argmax(logits, -1).astype(jnp.int32)
-        want, want_logits = [np.asarray(tok)], []
-        for i in range(4):
-            logits, jc = decode(jparams, tok, jnp.int32(9 + i), jc)
-            want_logits.append(np.asarray(logits))
-            tok = jnp.argmax(logits, -1).astype(jnp.int32)
-            want.append(np.asarray(tok))
-        chunk = _tokens(cfg, 2, 7, seed=2)
-        want_ext, jc = jax.jit(lambda p, t, c: jlm_extend(p, t, 13, c, jcfg))(
-            jparams, jnp.asarray(chunk, jnp.int32), jc)
+    chunk = _tokens(cfg, 2, 7, seed=2)
+    want, want_logits, want_ext, jc = jax_serve_chain(arch, jax_backend, fused)
     with nn.backend(port_backend), nn.fuse(fused):
         logits, caches = TT.lm_prefill(params, torch.from_numpy(toks), cfg,
                                        max_len=MAX_LEN)
@@ -319,12 +379,12 @@ def test_prefill_decode_extend_match_jax(arch, port_backend, jax_backend,
             got.append(t.numpy())
         got_ext, caches = TT.lm_extend(params, torch.from_numpy(chunk), 13,
                                        caches, cfg)
-    np.testing.assert_array_equal(np.stack(got), np.stack(want))
-    np.testing.assert_allclose(np.stack(got_logits), np.stack(want_logits),
+    np.testing.assert_array_equal(np.stack(got), want)
+    np.testing.assert_allclose(np.stack(got_logits), want_logits,
                                atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(got_ext.numpy(), np.asarray(want_ext),
+    np.testing.assert_allclose(got_ext.numpy(), want_ext,
                                atol=1e-4, rtol=1e-4)
-    for g, w in zip(caches, bridge.caches_from_jax(_np(jc), cfg,
+    for g, w in zip(caches, bridge.caches_from_jax(jc, cfg,
                                                    device="cpu")):
         assert set(g) == set(w)
         for key in g:
@@ -353,14 +413,14 @@ def _serve(engine, reqs):
 
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("fused", [False, True])
-def test_engine_and_cold_paged_engine_tokens_match_jax(arch, fused):
+def test_engine_and_cold_paged_engine_tokens_match_jax(jax_engines, arch,
+                                                       fused):
     """The mixed request set: the port's Engine and cold PagedEngine give
     JAX's Engine's tokens."""
-    jcfg, cfg, jparams, params = _setup(arch)
+    _, cfg, _, params = _setup(arch)
     reqs, _ = _request_set("mixed", cfg.vocab_size)
     kw = dict(max_batch=3, max_len=64, fused=fused)
-    with jnn.backend("jnp"):
-        want = _serve(JEngine(jcfg, jparams, **kw), reqs)
+    want = jax_engines(arch, fused)
     got = _serve(Engine(cfg, params, **kw), reqs)
     eng = PagedEngine(cfg, params, block_size=8, **kw)
     paged = _serve(eng, reqs)
@@ -372,20 +432,19 @@ def test_engine_and_cold_paged_engine_tokens_match_jax(arch, fused):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_chunked_paged_engine_with_prefix_hits_matches_jax(arch):
+def test_chunked_paged_engine_with_prefix_hits_matches_jax(jax_engines,
+                                                           arch):
     """Chunked prefill with prefix-cache hits: the same chunks as JAX's
     PagedEngine (so the same capacities), the same tokens; every request
     finishes and every block comes back."""
-    jcfg, cfg, jparams, params = _setup(arch)
+    _, cfg, _, params = _setup(arch)
     reqs, extra = _request_set("prefix", cfg.vocab_size)
     kw = dict(max_batch=3, max_len=64, block_size=8, **extra)
-    with jnn.backend("jnp"):
-        jeng = JPagedEngine(jcfg, jparams, **kw)
-        want = _serve(jeng, reqs)
+    want, jhit_rate = jax_engines(arch, "paged")
     eng = PagedEngine(cfg, params, **kw)
     got = _serve(eng, reqs)
     assert got == want and [len(o) for o in got] == [b for _, b in reqs]
-    assert eng.prefix_cache.hit_rate == jeng.prefix_cache.hit_rate > 0
+    assert eng.prefix_cache.hit_rate == jhit_rate > 0
     assert eng.allocator.free_blocks + len(eng.prefix_cache) == \
         eng.allocator.num_blocks - 1
 
