@@ -62,7 +62,12 @@ Phases, each printing JSON lines:
              prompt; decode at (256, 256), G 10, over rings of 2048 at
              lengths 0, 1, 31-33, full and the serve run's, and with
              peaked queries; rope on its 10 and 1 heads of 256; GeGLU at
-             7680; the row norms at 2560;
+             7680; the row norms at 2560; xlstm-350m's shapes
+             (xl_kernel_cases): layer_norm at 1024 and rms_norm at 2048 and
+             1024 at its decode step and a 512-token prefill, geglu on the
+             contiguous halves of its ff_up (1365 a row: vectors straddle
+             rows; at 97 and 2 tokens the last vector is partial), and the
+             kernel refusing the strided halves;
    moe     - qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a dense first
              layer) at full width and depth in bf16 (random weights from
              a seeded generator on the card), one after the other, each
@@ -95,9 +100,20 @@ Phases, each printing JSON lines:
              forward at s16 and s2048 with the shares of the recurrent
              mixer's sites (``rglru_scan``, ``rglru_gates``,
              ``causal_conv1d``), the GEMMs and attention;
+   xlstm   - xlstm-350m at full size in bf16 (528,361,640 parameters, the
+             config's count; (mlstm x 7, slstm) x 3): the Engine (4 slots,
+             max_len 512) prefills each prompt at its exact length (a
+             prompt that pads the mLSTM's last 256-token chunk, one that
+             fills it, one shorter than the conv tail); the PagedEngine
+             refuses the model; unfused and fused, eager then graphed,
+             tokens identical, with ``serve``'s checks and its graph vs
+             eager line (the step's byte bound reads and writes the mLSTM's
+             matrix memory and the sLSTM's state); the anchored logit rule;
+             the measured split of one eager b1 forward at s16 and s512
+             with the shares of the xLSTM sites;
 3. serve   - for each of llama2-7b, stablelm-3b, gpt2-xl and gemma3-27b at
-             full width in bf16, gpt2-xl at full depth, the others at their
-             first layers (SERVE_LAYERS: 16, 16 and 12; random weights from a seeded
+             full width in bf16, at their first layers (SERVE_LAYERS: 4,
+             4, 12 and 12; random weights from a seeded
              generator on the card), the continuous-batching ``Engine``
              unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
@@ -143,7 +159,8 @@ Phases, each printing JSON lines:
              block back, warm and cold service TTFT; (d) the measured GEMM /
              NonGEMM split of one eager paged decode step and ``paged_frac``;
 4. profile - a per-op measured profile of ``lm_forward`` (batch 1, seq 16)
-             on the kernel path, unfused and fused, for the three models,
+             on the kernel path, unfused and fused, for the three models
+             at their serve depth,
              and gemma3-27b (its first 6 layers) at seq 16 and 2048,
              where its window bites, unfused and fused (its GeGLU kernel at
              the 2048 bucket): the measured
@@ -221,7 +238,11 @@ Phases, each printing JSON lines:
              at the last 64-token chunk of a 512-deep cache beside SDPA with
              the causal-offset mask spelled out; MLA's prefill (s256) and its
              absorbed decode (kv 512, the serve run's lengths) beside SDPA,
-             also in the kernels line under each kernel's ``mla``.
+             also in the kernels line under each kernel's ``mla``;
+             xlstm-350m's layer_norm, rms_norm and geglu at its decode step
+             (in the kernels line under ``xlstm``, with phase xlstm's
+             launches) and at a 512-token prefill, beside ``F.layer_norm``,
+             ``F.rms_norm`` and ``torch.mul`` of the same operands.
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -278,8 +299,14 @@ EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: pass the time it is held to); llama2-7b and stablelm-3b half their 32
 #: (at full depth they took 73 and 67 s of a 573 s run; with phase
 #: recurrent added, the script would pass its time; phase bench serves
-#: stablelm-3b whole); gpt2-xl serves at full depth
-SERVE_LAYERS = {"gemma3-27b": 12, "llama2-7b": 16, "stablelm-3b": 16}
+#: stablelm-3b whole), and with phase xlstm added an eighth of their 32
+#: (at 16 they took 37 and 42 s of a 506 s run, at 8 20 and 19 s of a
+#: 643 s one) and gpt2-xl a quarter of its 48 (22 s at 48, 12 at 24). The
+#: MoE models stay whole: at half depth qwen2-moe-a2.7b's kernel path read
+#: 0.308 from its plain path against a limit of 0.272 (its routing flips
+#: between the paths, and the limit shrinks with the depth)
+SERVE_LAYERS = {"gemma3-27b": 12, "llama2-7b": 4, "stablelm-3b": 4,
+                "gpt2-xl": 12}
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 #: the depth gemma3-27b's profiles run at: the first layers of the served
@@ -456,12 +483,34 @@ MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
 RG_ARCH = "recurrentgemma-2b"
 RG_MAX_LEN = 4096
 RG_PROMPTS = (2100, 2040, 333, 37, 700, 90)
-#: the sequence lengths of its measured b1 splits, and the op sites whose
-#: shares they print: the recurrent mixer's NonGEMM sites, its GEMMs and
-#: attention (GEMM by tag, as in JAX)
-RG_PROFILE_SEQS = (16, 2048)
-RG_SITES = ("rglru_scan", "rglru_gates", "causal_conv1d", "linear",
-            "einsum", "flash_attention")
+#: the sequence lengths of its measured b1 splits, each with the times its
+#: ops are timed past the first (the measured backend's ``repeats``), and
+#: the op sites whose shares they print: the recurrent mixer's NonGEMM
+#: sites, then its GEMMs and attention (GEMM by tag, as in JAX)
+RG_PROFILE_SEQS = ((16, 3), (2048, 3))
+RG_SITES = (("rglru_scan", "rglru_gates", "causal_conv1d"),
+            ("linear", "einsum", "flash_attention"))
+#: phase xlstm: xlstm-350m at full size in bf16 (528,361,640 parameters,
+#: 1.057 GB), its Engine at XL_MAX_LEN; prompt lengths (prefilled at the
+#: exact length) that pad the mLSTM's last 256-token chunk (300: one whole
+#: chunk and 44 of the next), fill one exactly (256), stay inside one (97,
+#: 33, 12) and run shorter than the conv's 3-row tail (2)
+XL_ARCH = "xlstm-350m"
+XL_MAX_LEN = 512
+XL_PROMPTS = (300, 256, 97, 2, 33, 12)
+#: the sequence lengths of its measured b1 splits, each with the times its
+#: ops are timed past the first (the measured backend's ``repeats``: at
+#: s512 the forward runs 64,235 ops, each timed behind a 0.5 ms pad, so
+#: the best of 4 took 128 s; there each op is timed once), and the op
+#: sites whose shares they print: the xLSTM mixers' NonGEMM sites, then
+#: the cells' products and the projections (GEMM by tag, as in JAX)
+XL_PROFILE_SEQS = ((16, 3), (512, 0))
+XL_SITES = (("slstm_scan", "mlstm_dmatrix", "mlstm_normalizer", "mlstm_gates",
+             "causal_conv1d", "rms_norm"),
+            ("mlstm_intra", "mlstm_inter", "linear"))
+#: (B, S) of the token batches phase xlstm gives its kernels: the Engine's
+#: 4-slot decode step and a 512-token prefill (XL_MAX_LEN, the split's)
+XL_KERNEL_BATCHES = ((4, 1), (1, 512))
 BENCH_KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
                  "fused_add_layer_norm", "rope", "swiglu", "attention_core",
                  "decode_core", "attention_full", "nms",
@@ -491,13 +540,19 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
     of which fusion folds one into ``fused_add_layer_norm``. SwiGLU is a
     kernel fused or not; unfused GeGLU and rope are the plain op chains, as
     in the JAX package. MLA adds its latent's RMSNorm a layer; an MoE layer
-    runs SwiGLU on its experts and, with shared experts, on theirs."""
+    runs SwiGLU on its experts and, with shared experts, on theirs. An
+    xLSTM layer (``mlstm``, ``slstm``) is its pre-norm, its mixer and the
+    residual add: one block norm, the mixer's RMSNorm, and in an sLSTM
+    layer under fusion its FFN's GeGLU; no attention, no second norm."""
     n = cfg.n_layers
     kinds = cfg.layer_kinds()
     n_local = kinds.count("local")
-    n_attn = n - kinds.count("rec")             # layers with attention
+    n_x = kinds.count("mlstm") + kinds.count("slstm")   # xLSTM layers
+    n_blk = n - n_x                             # layers with norm2 and an FFN
+    n_attn = n_blk - kinds.count("rec")         # layers with attention
     if extend and n_attn < n:
-        fail(f"{cfg.name}: a local or recurrent layer has no chunked prefill")
+        fail(f"{cfg.name}: a local, recurrent or xLSTM layer has no chunked "
+             "prefill")
     if decode:
         out = {"decode_core": n_attn}
     elif not cfg.causal:
@@ -506,16 +561,19 @@ def per_forward_launches(cfg, fused: bool, decode: bool = False,
         out = {"attention_core": n_attn - n_local, "attention_window": n_local}
     if cfg.norm == "rmsnorm":
         per_layer = 2 + 2 * cfg.post_norm + 2 * cfg.qk_norm + cfg.mla
-        out["rms_norm"] = n * (per_layer - fused) + 1
+        out["rms_norm"] = n_blk * (per_layer - fused) + 1 + n_x
         if fused:
-            out["fused_add_rms_norm"] = n
+            out["fused_add_rms_norm"] = n_blk
     else:
-        out["layer_norm"] = n + 1 if fused else 2 * n + 1
+        out["layer_norm"] = (n_blk + 1 if fused else 2 * n_blk + 1) + n_x
+        out["rms_norm"] = n_x
         if fused:
-            out["fused_add_layer_norm"] = n
+            out["fused_add_layer_norm"] = n_blk
     if cfg.ffn == "swiglu" or (fused and cfg.ffn == "geglu"):
         n_moe = n - cfg.first_dense_layers if cfg.is_moe else 0
-        out[cfg.ffn] = n + n_moe * bool(cfg.n_shared_experts)
+        out[cfg.ffn] = n_blk + n_moe * bool(cfg.n_shared_experts)
+    if fused and "slstm" in kinds:
+        out["geglu"] = out.get("geglu", 0) + kinds.count("slstm")
     if fused and cfg.pos_emb == "rope":
         out["rope"] = 2 * n_attn
     return {k: v for k, v in out.items() if v}
@@ -551,7 +609,8 @@ def glu_sweep(torch, gen, dt, n: int = 1 << 16):
 def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns ({kernel: max abs error over its cases},
-    the same over the MLA shapes, the same over recurrentgemma-2b's)."""
+    the same over the MLA shapes, over recurrentgemma-2b's, over
+    xlstm-350m's)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attn_template, norms, rope
     from repro_torch.kernels import softmax_xent as xent
@@ -594,12 +653,13 @@ def check_kernels(torch, ops, ref, gen):
                 + mean).to(dt)
 
     def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False,
-                body=None, mla=False, rg=False, **extra):
+                body=None, mla=False, rg=False, xl=False, **extra):
         """``rms_scaled``: atol times the plain output's RMS where that is
         below 1 (the window fragment's cases, see the note at TOL);
         ``body``: the row norms' plan body, printed with the case, as is
-        ``extra`` (rope's plan); ``mla``, ``rg``: an MLA or a
-        recurrentgemma-2b shape, whose worst error is kept apart too."""
+        ``extra`` (rope's plan); ``mla``, ``rg``, ``xl``: an MLA, a
+        recurrentgemma-2b or an xlstm-350m shape, whose worst error is kept
+        apart too."""
         torch.cuda.synchronize()
         atol, rtol = tol[dtname]
         err = (got.float() - want.float()).abs()
@@ -619,6 +679,8 @@ def check_kernels(torch, ops, ref, gen):
             worst_mla[name] = max(worst_mla.get(name, 0.0), float(err.max()))
         if rg:
             worst_rg[name] = max(worst_rg.get(name, 0.0), float(err.max()))
+        if xl:
+            worst_xl[name] = max(worst_xl.get(name, 0.0), float(err.max()))
 
     def exact(name, got, want, dtname, case, body=None):
         torch.cuda.synchronize()
@@ -630,7 +692,7 @@ def check_kernels(torch, ops, ref, gen):
                  "version's (one f32 add, rounded once, on both sides)")
 
     worst = dict.fromkeys(SOURCES, 0.0)
-    worst_mla, worst_rg = {}, {}
+    worst_mla, worst_rg, worst_xl = {}, {}, {}
     bodies = set()
 
     def body(x, dt, *others):
@@ -906,6 +968,11 @@ def check_kernels(torch, ops, ref, gen):
         for name, fn, plain, case, kw in rg_kernel_cases(torch, ops, ref,
                                                           randn, dt):
             compare(name, fn(), plain(), dtname, case, rg=True, **kw)
+        # xlstm-350m (phase xlstm): its shapes of the three kernels its main
+        # path runs (xl_kernel_cases)
+        for name, fn, plain, case, kw in xl_kernel_cases(torch, ops, ref,
+                                                          randn, dt):
+            compare(name, fn(), plain(), dtname, case, xl=True, **kw)
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
         # multiples of the 64-key tile, 128 / 256 / 1024 are
         for b, sq, skv, hq, hkv, dk, dv in [
@@ -1011,7 +1078,7 @@ def check_kernels(torch, ops, ref, gen):
         if not (got[at + 1] and not got[above + 1]):
             fail(f"nms {case}: IoU exactly 0.5 must keep (box {at + 1}), one "
                  f"ulp above suppress (box {above + 1})")
-    return worst, worst_mla, worst_rg
+    return worst, worst_mla, worst_rg, worst_xl
 
 
 def rg_kernel_cases(torch, ops, ref, randn, dt):
@@ -1082,6 +1149,52 @@ def rg_kernel_cases(torch, ops, ref, randn, dt):
                       lambda x=x, sc=sc, r=res: ops.fused_add_rms_norm(x, r, sc)[0],
                       lambda x=x, sc=sc, r=res: ref.fused_add_rms_norm(x, r, sc)[0],
                       f"x,res{list(shape)}", {}))
+    return cases
+
+
+def xl_kernel_cases(torch, ops, ref, randn, dt):
+    """xlstm-350m's shapes of the kernels its main path runs, as (kernel,
+    launch, plain version, case, compare's keywords), at each of
+    XL_KERNEL_BATCHES: ``layer_norm`` on the blocks' 1024-wide rows,
+    ``rms_norm`` on the mLSTM's 2048-wide cell output (and the sLSTM's
+    1024), ``geglu`` on the halves of an ``ff_up`` output of 2 x 1365 split
+    as ``models/xlstm.py`` splits it (contiguous copies; 1365 is odd, so
+    the kernel's 8-byte vectors straddle rows), also at the serve run's
+    prefills of 97 and 2 tokens, whose last vector is partial (1 and 2 of
+    4 bf16 elements; 1 and 0 of 2 f32). Also checks that the kernel refuses
+    the strided halves themselves."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(XL_ARCH)
+    d, di = cfg.d_model, int(cfg.d_model * cfg.mlstm_proj_factor)
+    d_ff = int(d * cfg.slstm_ff_factor)
+    cases = []
+    for b, s in XL_KERNEL_BATCHES + ((1, 97), (1, 2)):
+        up = randn((b, s, 2 * d_ff), dt, 3.0)
+        gate, val = up.chunk(2, dim=-1)
+        try:
+            ops.geglu(gate, val)
+            fail(f"geglu took the strided halves of ff_up {[b, s, 2 * d_ff]}")
+        except ValueError:
+            pass
+        g, u = gate.contiguous(), val.contiguous()
+        width = 8 // g.element_size()
+        cases.append(("geglu", lambda g=g, u=u: ops.geglu(g, u),
+                      lambda gate=gate, val=val: ref.geglu(gate, val),
+                      f"halves of ff_up{[b, s, 2 * d_ff]} ({b * s * d_ff} "
+                      f"elements, {b * s * d_ff % width} in a last partial "
+                      "vector)", {}))
+    for b, s in XL_KERNEL_BATCHES:
+        x, w, bias = randn((b, s, d), dt), randn((d,), dt), randn((d,), dt)
+        cases.append(("layer_norm",
+                      lambda x=x, w=w, bias=bias: ops.layer_norm(x, w, bias),
+                      lambda x=x, w=w, bias=bias: ref.layer_norm(x, w, bias),
+                      f"x{[b, s, d]}", {}))
+        for width in (di, d):
+            x, w = randn((b, s, width), dt), randn((width,), dt)
+            cases.append(("rms_norm", lambda x=x, w=w: ops.rms_norm(x, w),
+                          lambda x=x, w=w: ref.rms_norm(x, w),
+                          f"x{[b, s, width]}", {}))
     return cases
 
 
@@ -1479,6 +1592,48 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
              bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
     out["attention_window"]["recurrentgemma"] = rg_prefill
     out["decode_core"]["recurrentgemma"] = rg_decode
+    # xlstm-350m (phase xlstm): its three kernels at the 4-slot decode step
+    # (the kernels line, under "xlstm") and at a 512-token prefill (lines of
+    # their own): layer_norm on the blocks' rows, rms_norm on the mLSTM's
+    # cell output, geglu on the contiguous halves of ff_up (torch.mul of
+    # the same operands beside it; no one PyTorch call computes GeGLU)
+    glu_flops = _script("glu_timing").FLOPS["geglu"]
+    for b, s in XL_KERNEL_BATCHES:
+        what = "decode step" if s == 1 else f"prefill s{s}"
+        x, w, bias = randn((b, s, 1024)), randn((1024,)), randn((1024,))
+        n = x.numel()
+        ln = entry(f"x[{b},{s},1024] bf16 (xlstm-350m {what})",
+                   lambda x=x, w=w, bias=bias: ops.layer_norm(x, w, bias),
+                   lambda x=x, w=w, bias=bias: ref.layer_norm(x, w, bias),
+                   lambda x=x, w=w, bias=bias: F.layer_norm(x, (1024,), w,
+                                                            bias, 1e-5),
+                   2 * n * 2 + 2 * 1024 * 2, 8 * n)
+        x, w = randn((b, s, 2048)), randn((2048,))
+        n = x.numel()
+        rms = entry(f"x[{b},{s},2048] bf16 (xlstm-350m mLSTM out_norm, {what})",
+                    lambda x=x, w=w: ops.rms_norm(x, w),
+                    lambda x=x, w=w: ref.rms_norm(x, w),
+                    (lambda x=x, w=w: F.rms_norm(x, (2048,), w, 1e-6))
+                    if hasattr(F, "rms_norm") else None,
+                    2 * n * 2 + 2048 * 2, 4 * n)
+        gate, val = randn((b, s, 2730)).chunk(2, dim=-1)
+        g, u = gate.contiguous(), val.contiguous()
+        n = g.numel()
+        glu = entry(f"halves of ff_up[{b},{s},2730] bf16 (xlstm-350m sLSTM "
+                    f"FFN, {what})", lambda g=g, u=u: ops.geglu(g, u),
+                    lambda g=g, u=u: ref.geglu(g, u), None, 3 * 2 * n,
+                    glu_flops * n)
+        glu["mul_ms"] = entry("torch.mul of the same operands",
+                              lambda g=g, u=u: torch.mul(g, u), None, None,
+                              0, 0)["ms"]
+        rows = {"layer_norm": ln, "rms_norm": rms, "geglu": glu}
+        for name, row in rows.items():
+            if s == 1:
+                out[name]["xlstm"] = row
+            else:
+                emit(phase="timing", kernel=f"{name} xlstm prefill",
+                     **{k: v for k, v in row.items() if k != "bound"},
+                     bound_ms=row["bound"][0], bound_by=row["bound"][1])
     return out
 
 
@@ -1656,9 +1811,11 @@ def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
     the MoE dispatch runs every expert, so every expert's weights),
     each row's ``pos + 1`` cached keys and values in every attention layer
     (a ring's at most its window), each recurrent layer's state (``h`` in
-    f32 and the conv's last inputs) read and written once a row and,
-    paged, the (B, max_len) view gathered: read from the pools once and
-    written once."""
+    f32 and the conv's last inputs), each mLSTM layer's (``C``, ``n``,
+    ``m`` in f32 and the conv's last inputs) and each sLSTM layer's (``c``,
+    ``n``, ``m``, ``h`` in f32) read and written once a row and, paged,
+    the (B, max_len) view gathered: read from the pools once and written
+    once."""
     b = len(pos)
     weights = sum(t.numel() * t.element_size() for t in _leaves(params))
     for table in ("embed", "pos"):
@@ -1668,11 +1825,17 @@ def step_bytes(cfg, params, pos, max_len: int, paged: bool) -> int:
     kv_row = 2 * cfg.n_kv_heads * cfg.resolved_head_dim * KV_BYTES
     if cfg.mla:                       # the latent and the rope key
         kv_row = (cfg.kv_lora_rank + cfg.qk_rope_dim) * KV_BYTES
+    kinds = cfg.layer_kinds()
     keys = sum(min(int(p) + 1, cfg.window_size if kind == "local" else max_len)
-               for kind in cfg.layer_kinds() if kind != "rec" for p in pos)
+               for kind in kinds if kind in ("attn", "local") for p in pos)
     w = cfg.lru_width or cfg.d_model
-    state = (cfg.layer_kinds().count("rec") * b * 2
-             * (4 * w + (cfg.conv_width - 1) * w * KV_BYTES))
+    di = int(cfg.d_model * cfg.mlstm_proj_factor)
+    dh = di // cfg.n_heads
+    per_row = {"rec": 4 * w + (cfg.conv_width - 1) * w * KV_BYTES,
+               "mlstm": (4 * cfg.n_heads * (dh * dh + dh + 1)
+                         + (cfg.conv_width - 1) * di * KV_BYTES),
+               "slstm": 4 * 4 * cfg.d_model}
+    state = sum(b * 2 * per_row[k] for k in kinds if k in per_row)
     view = 2 * b * max_len * kv_row * cfg.n_layers if paged else 0
     return weights + keys * kv_row + state + view
 
@@ -1755,18 +1918,28 @@ def logits_replay_diff(torch, engine, cfg) -> float:
     """One decode step's logits (``make_serve_step(greedy=False)``) on the
     engine's cache at its last step's tokens and positions, through a new
     CUDA graph: its warm-up (the eager step) against its replay on the same
-    inputs; the max |difference|, 0 where the replay is bit-identical. The
-    step rewrites the same KV rows each time. Launches are not checked
-    after this."""
+    inputs and the same state; the max |difference|, 0 where the replay is
+    bit-identical. The step rewrites the same KV rows each time; a running
+    state (a recurrent or xLSTM layer's), which the step advances, is put
+    back before the replay. Launches are not checked after this."""
     from repro_torch.serving import make_serve_step
     from repro_torch.serving.cuda_graph import StepGraph
 
     step = make_serve_step(cfg, greedy=False, fused=engine.fused)
     params, caches = engine.params, engine._caches
     inputs = [x.cpu().numpy() for x in engine._run_step._inputs]
+    running = [c for c, kind in zip(caches, cfg.layer_kinds())
+               if kind not in ("attn", "local")]
+    saved = [{n: t.clone() for n, t in c.items()} for c in running]
+
+    def restore():
+        for c, s in zip(running, saved):
+            for n, t in c.items():
+                t.copy_(s[n])
     graph = StepGraph(lambda t, p: step(params, t, p, caches)[0], inputs,
                       engine.device)
-    eager = graph(*inputs).float().clone()
+    eager = graph(*inputs).float().clone()     # the warm-up, then capture
+    restore()
     return (graph(*inputs).float() - eager).abs().max().item()
 
 
@@ -2096,111 +2269,123 @@ def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
 
 
 # ---------------------------------------------------------------------------
-# phase recurrent: recurrentgemma-2b served at full size
+# phases recurrent and xlstm: a model whose layers carry a running state
 # ---------------------------------------------------------------------------
 
-def recurrent_split(torch, ops, params, cfg, rng, seq: int) -> None:
+def mixer_split(torch, ops, params, cfg, rng, phase: str, seq: int,
+                repeats: int, sites) -> None:
     """The measured split of one eager b1 ``lm_forward`` of ``seq`` tokens
-    (the kernel path, unfused) through ``Workload.profile("measured")``,
-    with the shares of RG_SITES and of the recurrent mixer's NonGEMM sites
-    together."""
+    (the kernel path, unfused) through ``Workload.profile("measured")``
+    (each op timed ``1 + repeats`` times), with the shares of ``sites``
+    (the mixer's NonGEMM sites, the others) and of the mixer's NonGEMM
+    sites together, and the profile's own wall."""
     from repro_torch.models import lm_forward
 
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, seq))).cuda()
     name = f"{cfg.name} unfused b-1 s-{seq} bf16"
+    t0 = time.perf_counter()
     _, prof, wall_ms, per = measured(ops, lm_forward, (params, toks, cfg),
-                                     name, False)
+                                     name, False, repeats=repeats)
     if per != per_forward_launches(cfg, False):
-        fail(f"recurrent: {name}: launched {per} per forward, expected "
+        fail(f"{phase}: {name}: launched {per} per forward, expected "
              f"{per_forward_launches(cfg, False)}")
-    sites = dict.fromkeys(RG_SITES, 0.0)
+    found = dict.fromkeys(sites[0] + sites[1], 0.0)
     for (g, site), t, _ in prof.top_op_sites(10 ** 6):
-        if site in sites:
-            sites[site] += t
+        if site in found:
+            found[site] += t
     total = prof.total_seconds
-    mixer = sum(sites[k] for k in RG_SITES[:3])
-    emit_profile("recurrent", prof, wall_ms, per, layers=cfg.n_layers, seq=seq,
-                 site_frac={k: round(t / total, 4) for k, t in sites.items()},
-                 site_ms={k: round(t * 1e3, 4) for k, t in sites.items()},
-                 rec_nongemm_ms=round(mixer * 1e3, 4),
-                 rec_nongemm_frac=round(mixer / total, 4))
-    missing = [k for k in RG_SITES if not sites[k]]
+    mixer = sum(found[k] for k in sites[0])
+    emit_profile(phase, prof, wall_ms, per, layers=cfg.n_layers, seq=seq,
+                 site_frac={k: round(t / total, 4) for k, t in found.items()},
+                 site_ms={k: round(t * 1e3, 4) for k, t in found.items()},
+                 mixer_nongemm_ms=round(mixer * 1e3, 4),
+                 mixer_nongemm_frac=round(mixer / total, 4),
+                 measured_repeats=repeats,
+                 profile_s=round(time.perf_counter() - t0, 2))
+    missing = [k for k, t in found.items() if not t]
     if missing:
-        fail(f"recurrent: {name}: no device time at the sites {missing}")
+        fail(f"{phase}: {name}: no device time at the sites {missing}")
 
 
-def recurrent(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
-              launches: dict, rg_launches: dict, decode_lengths: dict,
-              paths_only: bool = False) -> None:
-    """Phase ``recurrent``: recurrentgemma-2b at full size in bf16 (random
-    weights from SEED), its 26 layers (rec, rec, local) x 8 and a (rec,
-    rec) trail: the Engine (4 slots, RG_MAX_LEN) prefills RG_PROMPTS at
-    their exact lengths (``_bucket``); the PagedEngine refuses the model;
-    unfused and fused, the Engine serves them eager and graphed, tokens
-    identical, decode tok/s and the replay beside the step's byte bound;
-    the kernel path's logits against the plain path's under the anchored
-    rule; the measured split of one eager b1 forward at each of
-    RG_PROFILE_SEQS. The launches of its served runs go to ``launches`` and
-    to ``rg_launches``; the ring lengths of the last decode step of the
-    first 4 requests to ``decode_lengths``. Its memory comes back at the
-    end."""
-    cfg = get_config(RG_ARCH).replace(dtype="bfloat16", param_dtype="bfloat16")
+def stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+             phase: str, arch: str, max_len: int, prompt_lens, profiles,
+             sites, launches: dict, own_launches: dict,
+             paths_only: bool = False) -> None:
+    """Phase ``phase`` (``recurrent``, ``xlstm``): ``arch``, whose layers
+    carry a running state (RG-LRU, mLSTM, sLSTM), at full size in bf16
+    (random weights from SEED): the parameter count is the config's; the
+    Engine (4 slots, ``max_len``) prefills each of ``prompt_lens`` at its
+    exact length (``_bucket``: a state would consume pads); the
+    PagedEngine refuses the model; unfused and fused, the Engine serves
+    them eager and graphed, tokens identical, decode tok/s and the replay
+    beside the step's byte bound (which reads and writes the state); the
+    kernel path's logits against the plain path's under the anchored rule;
+    the measured split of one eager b1 forward at each (seq, repeats) of
+    ``profiles`` (``mixer_split``). The launches of its served runs go to
+    ``launches`` and to ``own_launches``; the walls of its parts to a
+    ``walls`` line. Its memory comes back at the end."""
+    cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
     t0 = time.perf_counter()
     mem0 = torch.cuda.memory_allocated()
     params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    emit(phase="recurrent", step="init", config=cfg.name, n_params=n_params,
+    emit(phase=phase, step="init", config=cfg.name, n_params=n_params,
          layer_kinds=cfg.layer_kinds(), init_s=round(time.perf_counter() - t0, 3),
          mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
     if n_params != cfg.n_params():
-        fail(f"recurrent: {n_params} parameters, the config counts "
+        fail(f"{phase}: {n_params} parameters, the config counts "
              f"{cfg.n_params()}")
     rng = np.random.default_rng(SEED)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
-               for n in RG_PROMPTS]
-    decode_lengths[RG_ARCH] = [min(n + NEW_TOKENS - 1, cfg.window_size)
-                               for n in RG_PROMPTS[:4]]
-    probe = Engine(cfg, params, max_batch=4, max_len=RG_MAX_LEN)
-    buckets = [probe._bucket(n) for n in RG_PROMPTS]
+               for n in prompt_lens]
+    probe = Engine(cfg, params, max_batch=4, max_len=max_len)
+    buckets = [probe._bucket(n) for n in prompt_lens]
     del probe
     try:
-        PagedEngine(cfg, params, max_batch=4, max_len=RG_MAX_LEN)
+        PagedEngine(cfg, params, max_batch=4, max_len=max_len)
         refused = None
     except ValueError as e:
         refused = str(e)
-    emit(phase="recurrent", step="engines", prompt_lens=list(RG_PROMPTS),
+    emit(phase=phase, step="engines", prompt_lens=list(prompt_lens),
          prefill_lens=buckets, paged_engine_refused=refused)
-    if buckets != list(RG_PROMPTS):
-        fail(f"recurrent: the Engine pads the prompts to {buckets}: a "
-             "recurrent state would consume the pads")
+    if buckets != list(prompt_lens):
+        fail(f"{phase}: the Engine pads the prompts to {buckets}: a running "
+             "state would consume the pads")
     if refused is None:
-        fail("recurrent: the PagedEngine took a model with recurrent layers")
+        fail(f"{phase}: the PagedEngine took a model with {cfg.layer_kinds()[0]}"
+             " layers")
+    walls = {}
     for fused in (False, True):
+        t1 = time.perf_counter()
         if not paths_only:
             eager = serve(torch, ops, _build, Engine, params, cfg, prompts,
-                          fused, RG_MAX_LEN, "engine", cuda_graph=False,
+                          fused, max_len, "engine", cuda_graph=False,
                           repeats=REPEATS)
             graphed = serve(torch, ops, _build, Engine, params, cfg, prompts,
-                            fused, RG_MAX_LEN, "engine",
+                            fused, max_len, "engine",
                             same_as=eager["tokens"], repeats=REPEATS)
-            emit_graph_vs_eager("recurrent", cfg, fused, "engine", graphed,
-                                eager)
+            emit_graph_vs_eager(phase, cfg, fused, "engine", graphed, eager)
             for run in (eager, graphed):
                 for k, n in run["launches"].items():
                     launches[k] += n
-                    rg_launches[k] = rg_launches.get(k, 0) + n
-        compare_paths(torch, nn, params, cfg, prompts[:4], fused, RG_MAX_LEN)
+                    own_launches[k] = own_launches.get(k, 0) + n
+        t2 = time.perf_counter()
+        compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len)
+        walls[f"serve fused={fused}"] = round(t2 - t1, 2)
+        walls[f"compare_paths fused={fused}"] = round(time.perf_counter() - t2, 2)
     if not paths_only:
-        for seq in RG_PROFILE_SEQS:
-            recurrent_split(torch, ops, params, cfg, rng, seq)
+        for seq, repeats in profiles:
+            mixer_split(torch, ops, params, cfg, rng, phase, seq, repeats,
+                        sites)
+    emit(phase=phase, step="walls", walls_s=walls)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() - mem0
-    emit(phase="recurrent", step="freed", config=cfg.name, left_bytes=left)
+    emit(phase=phase, step="freed", config=cfg.name, left_bytes=left)
     if left > 1 << 30:
-        fail(f"recurrent: {left} bytes left after its weights were freed")
+        fail(f"{phase}: {left} bytes left after its weights were freed")
 
 
 # ---------------------------------------------------------------------------
@@ -2522,14 +2707,15 @@ def emit_profile(phase, prof, wall_ms, per_forward, **info):
         fail(f"{phase}: {prof.name}: no device time measured")
 
 
-def measured(ops, fn, args, name, fused, mode=None):
+def measured(ops, fn, args, name, fused, mode=None, repeats=3):
     """(workload, measured profile, median eager wall ms, launches per call)
     of ``fn(*args)`` on the kernel path, through the profiling API: a
     ``Workload`` over the call, with ``QuantizeDequantTransform(mode)``
     where ``mode`` is set and ``FusionTransform`` where ``fused``; its
     ``wallclock`` backend (one warm-up call, which warms cuBLAS, then the
     median of WALL_REPEATS; their launches give the launches per call),
-    then its ``measured`` backend."""
+    then its ``measured`` backend, each op timed ``1 + repeats`` times (the
+    best kept)."""
     from repro_torch.core import (FusionTransform, QuantizeDequantTransform,
                                   Workload)
 
@@ -2543,7 +2729,8 @@ def measured(ops, fn, args, name, fused, mode=None):
     if any(v % calls for v in ops.launches.values()):
         fail(f"{name}: {dict(ops.launches)} launches in {calls} calls")
     per = {k: v // calls for k, v in ops.launches.items() if v}
-    return w, w.profile("measured"), wall.total_seconds * 1e3, per
+    return (w, w.profile("measured", repeats=repeats),
+            wall.total_seconds * 1e3, per)
 
 
 def _max_diff(a, b) -> float:
@@ -2940,7 +3127,8 @@ def main(argv=None) -> int:
     # -- phase 2: kernels --------------------------------------------------
     gen = torch.Generator("cuda").manual_seed(SEED)
     if not args.paths_only:
-        worst, worst_mla, worst_rg = check_kernels(torch, ops, ref, gen)
+        worst, worst_mla, worst_rg, worst_xl = check_kernels(torch, ops, ref,
+                                                             gen)
 
     lap("kernels")
     launches = dict.fromkeys(SOURCES, 0)
@@ -2952,10 +3140,18 @@ def main(argv=None) -> int:
     lap("moe")
     # -- phase recurrent: recurrentgemma-2b, full size -----------------------
     rg_launches = {}
-    recurrent(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
-              launches, rg_launches, decode_lengths, args.paths_only)
+    stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+             "recurrent", RG_ARCH, RG_MAX_LEN, RG_PROMPTS, RG_PROFILE_SEQS,
+             RG_SITES, launches, rg_launches, args.paths_only)
 
     lap("recurrent")
+    # -- phase xlstm: xlstm-350m, full size ----------------------------------
+    xl_launches = {}
+    stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
+             "xlstm", XL_ARCH, XL_MAX_LEN, XL_PROMPTS, XL_PROFILE_SEQS,
+             XL_SITES, launches, xl_launches, args.paths_only)
+
+    lap("xlstm")
     # -- phases 3 and 4, one model at a time -------------------------------
     qdq_kept = []           # (model, variant, measured profile, records)
     nms_inputs = None
@@ -3135,17 +3331,20 @@ def main(argv=None) -> int:
             "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms",
                                                          "amax_ms")
                                      if k in tm}})
-        for key, errs in (("mla", worst_mla), ("recurrentgemma", worst_rg)):
-            if key in tm:       # MLA's and recurrentgemma-2b's shapes
+        for key, errs in (("mla", worst_mla), ("recurrentgemma", worst_rg),
+                          ("xlstm", worst_xl)):
+            if key in tm:       # MLA's, recurrentgemma-2b's, xlstm-350m's shapes
                 m = tm[key]
                 kernels[-1][key] = {
                     "shape": m["shape"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                     "library_ms": m["library_ms"], "eager_ms": m["eager_ms"],
                     "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                     "max_abs_err": errs[name],
-                    **{k: m[k] for k in ("body", "plan") if k in m}}
-        if "recurrentgemma" in tm:
-            kernels[-1]["recurrentgemma"]["launches"] = rg_launches.get(name, 0)
+                    **{k: m[k] for k in ("body", "plan", "mul_ms") if k in m}}
+        for key, counts in (("recurrentgemma", rg_launches),
+                            ("xlstm", xl_launches)):
+            if key in tm:
+                kernels[-1][key]["launches"] = counts.get(name, 0)
     lap("timing")
     emit(phase="done", seconds=round(time.perf_counter() - t_start, 2),
          bench_s=round(bench_s, 2), phase_s=walls)

@@ -102,8 +102,9 @@ def quick_cases() -> List[BenchCase]:
 
 
 def is_ported(arch: str) -> bool:
-    """Whether the port has ``arch``'s config (the xLSTM arch of the full
-    tier waits for its mixers)."""
+    """Whether the port has ``arch``'s config. Every arch of both tiers
+    has one; the runner and ``list`` still name any case whose arch has
+    none, as not ported."""
     try:
         get_config(arch)
     except KeyError:

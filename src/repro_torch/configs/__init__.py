@@ -15,7 +15,9 @@ mixture-of-experts configs qwen2-moe-a2.7b
 (``repro/configs/qwen2_moe_a2_7b.py``) and deepseek-v2-lite-16b (MLA,
 ``repro/configs/deepseek_v2_lite_16b.py``), and the hybrid recurrent
 recurrentgemma-2b (``repro/configs/recurrentgemma_2b.py``: RG-LRU blocks
-beside sliding-window attention), run through the LM stack;
+beside sliding-window attention) and xlstm-350m
+(``repro/configs/xlstm_350m.py``: mLSTM and sLSTM blocks), run through the
+LM stack;
 the vision family (``vit-b16-cls``, ``repro/configs/vit_b16.py``, and
 ``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
 ``repro_torch.models.vision``.
@@ -281,6 +283,31 @@ _CONFIGS: Dict[str, ModelConfig] = {
         tie_embeddings=True,
         scale_embeddings=True,
         loss_chunk=512,
+    ),
+    # xLSTM 350M (repro/configs/xlstm_350m.py): seven mLSTM blocks to each
+    # sLSTM block, 24 layers; chunkwise-parallel mLSTM (inner width 2048,
+    # chunk 256, conv 4), a sequential sLSTM with a GeGLU FFN tail of 1365;
+    # LayerNorm pre-norms, no positions, untied head
+    "xlstm-350m": ModelConfig(
+        remat_policy="proj",
+        name="xlstm-350m",
+        family="ssm",
+        n_layers=24,
+        d_model=1024,
+        n_heads=4,
+        n_kv_heads=4,
+        d_ff=0,
+        vocab_size=50304,
+        block_pattern=("mlstm",) * 7 + ("slstm",),
+        mlstm_proj_factor=2.0,
+        slstm_ff_factor=4.0 / 3.0,
+        mlstm_chunk=256,
+        conv_width=4,
+        pos_emb="none",
+        norm="layernorm",
+        ffn="gelu",
+        causal=True,
+        tie_embeddings=False,
     ),
     # the embeddings stub: the LM stack on precomputed patch embeddings
     "vit-b16": ModelConfig(

@@ -254,7 +254,9 @@ class _OpMode(TorchDispatchMode):
 
         kwargs = kwargs or {}
         scope = nn.scope_path()
-        if self.repeats is None:
+        best = 0.0
+        if self.repeats is None or func.is_view:
+            # a view launches no kernel: no device time to take
             out = func(*args, **kwargs)
         else:
             on_card = any(t.is_cuda for t in _tensors((args, kwargs))) \
@@ -285,7 +287,8 @@ def timed_run(fn: Callable, *args, repeats: int = 3, **kwargs):
     """Run ``fn`` op by op, each op synchronised and timed on its own.
 
     Returns ``(fn's result, [TimedOp, ...])``. Each op that does not
-    mutate an input runs ``1 + repeats`` times and keeps its best time.
+    mutate an input runs ``1 + repeats`` times and keeps its best time; a
+    view op (an alias of its input, no kernel) runs once and takes 0.
     """
     with _OpMode(repeats=repeats) as mode:
         out = fn(*args, **kwargs)

@@ -11,6 +11,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -253,3 +254,17 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(dtype)
+
+
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (nearest even), as the JAX package's
+    ``jnp.asarray(value, dtype)``: sqrt(5376) = 73.32 is 73.5 in bf16. On
+    the host, so no tensor op enters a capture or the card's stream."""
+    if dtype == torch.float16:
+        return float(np.float16(value))
+    f = np.float32(value)
+    if dtype == torch.bfloat16:
+        bits = int(f.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+        f = np.uint32(bits).view(np.float32)
+    return float(f)

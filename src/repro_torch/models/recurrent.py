@@ -171,6 +171,16 @@ def recurrent_forward(params, x, cfg: ModelConfig):
     return nn.linear(h * g, params["w_out"].to(x.dtype))
 
 
+def _conv_tail(u, cfg: ModelConfig):
+    """The last ``conv_width - 1`` rows of the conv's input stream ``u``
+    (B, S, W) in the activation dtype, left zero-padded where the prompt is
+    shorter (the conv sees zeros before the first token)."""
+    kw = cfg.conv_width - 1
+    tail = u[:, -kw:]
+    tail = F.pad(tail, (0, 0, kw - tail.shape[1], 0))
+    return tail.to(cfg.activation_dtype).contiguous()
+
+
 def recurrent_prefill(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward that also returns the decode state: the final
     RG-LRU state (f32) and the last ``conv_width - 1`` conv inputs, left
@@ -182,11 +192,7 @@ def recurrent_prefill(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     a, b = _rglru_coeffs(params, u_c)
     h_f32 = _scan(a, b)
     y = nn.linear(h_f32.to(x.dtype) * g, params["w_out"].to(x.dtype))
-    kw = cfg.conv_width - 1
-    tail = u[:, -kw:]
-    tail = F.pad(tail, (0, 0, kw - tail.shape[1], 0))
-    cache = {"h": h_f32[:, -1].contiguous(),
-             "conv": tail.to(cfg.activation_dtype).contiguous()}
+    cache = {"h": h_f32[:, -1].contiguous(), "conv": _conv_tail(u, cfg)}
     return y, cache
 
 

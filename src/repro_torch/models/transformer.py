@@ -9,8 +9,11 @@ positions (GPT-2, BERT, the ViT stub) or none (the vision backbone). Each layer'
 ``cfg.layer_kinds()``: ``"attn"`` (global), ``"local"`` (sliding-window
 attention over a ring cache, Gemma 3's 5:1 pattern) or ``"rec"`` (the
 RG-LRU recurrent mixer, ``models/recurrent.py``: RecurrentGemma's two
-recurrent blocks to each local one; its state consumes every token, so
-the engine prefills it at the exact prompt length). Gemma 3 adds
+recurrent blocks to each local one), ``"mlstm"`` or ``"slstm"`` (the
+xLSTM mixers, ``models/xlstm.py``: a block of one pre-norm and the mixer,
+which carries the sLSTM's own FFN, with no second norm and no block FFN).
+A recurrent or xLSTM state consumes every token, so the engine prefills
+such a model at the exact prompt length. Gemma 3 adds
 qk-norm, post-norms around each sub-block (``cfg.post_norm``), zero-centred
 norm scales, GeGLU and sqrt(d)-scaled tied embeddings. Decoders attend
 causally; encoders
@@ -42,7 +45,6 @@ from __future__ import annotations
 import math
 from typing import List, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -51,13 +53,17 @@ from repro_torch.core.taxonomy import OpGroup
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models import xlstm as X
+from repro_torch.models.common import ModelConfig, dense_init, rounded
 
 
 #: the attention block kinds: global (full cache) and sliding-window (ring)
 ATTN_KINDS = ("attn", "local")
-#: every block kind the port runs: attention and the RG-LRU recurrence
-BLOCK_KINDS = ATTN_KINDS + ("rec",)
+#: the xLSTM block kinds: a pre-norm, the mixer and the residual add alone
+XLSTM_KINDS = ("mlstm", "slstm")
+#: every block kind the port runs: attention, the RG-LRU recurrence and
+#: the xLSTM mixers
+BLOCK_KINDS = ATTN_KINDS + ("rec",) + XLSTM_KINDS
 
 
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
@@ -120,6 +126,9 @@ def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
 def init_block(generator: torch.Generator, cfg: ModelConfig,
                layer_idx: int = 0, kind: str = "attn") -> dict:
     dev = generator.device
+    if kind in XLSTM_KINDS:
+        init = X.init_mlstm if kind == "mlstm" else X.init_slstm
+        return {"norm1": _init_norm(cfg, dev), "mixer": init(generator, cfg)}
     if kind == "rec":
         mixer = R.init_recurrent(generator, cfg)
     elif cfg.mla:
@@ -177,8 +186,11 @@ def _block_rest(params, a, x, cfg: ModelConfig, with_aux: bool = False):
 
 def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
     """-> (x, aux): aux the MoE layer's load-balance loss, None for a dense
-    layer."""
+    or an xLSTM layer."""
     h = _apply_norm(params["norm1"], x, cfg)
+    if kind in XLSTM_KINDS:
+        fwd = X.mlstm_forward if kind == "mlstm" else X.slstm_forward
+        return nn.residual_add(x, fwd(params["mixer"], h, cfg)), None
     if kind == "rec":
         a = R.recurrent_forward(params["mixer"], h, cfg)
     elif cfg.mla:
@@ -190,10 +202,15 @@ def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
 
 def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
                   max_len: int, lengths=None):
-    """As :func:`block_forward`, and the layer's decode cache. A ``rec``
-    layer's state consumes every token of ``x``, pads included: its
-    caller prefills the exact prompt (``lengths`` is for the ring)."""
+    """As :func:`block_forward`, and the layer's decode cache. A ``rec``,
+    ``mlstm`` or ``slstm`` layer's state consumes every token of ``x``,
+    pads included: its caller prefills the exact prompt (``lengths`` is
+    for the ring)."""
     h = _apply_norm(params["norm1"], x, cfg)
+    if kind in XLSTM_KINDS:
+        pre = X.mlstm_prefill if kind == "mlstm" else X.slstm_prefill
+        a, cache = pre(params["mixer"], h, cfg)
+        return nn.residual_add(x, a), cache
     if kind == "rec":
         a, cache = R.recurrent_prefill(params["mixer"], h, cfg)
     elif cfg.mla:
@@ -206,6 +223,10 @@ def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
 
 def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
     h = _apply_norm(params["norm1"], x, cfg)
+    if kind in XLSTM_KINDS:
+        dec = X.mlstm_decode if kind == "mlstm" else X.slstm_decode
+        a, cache = dec(params["mixer"], h, cfg, cache, pos)
+        return nn.residual_add(x, a), cache
     if kind == "rec":
         a, cache = R.recurrent_decode(params["mixer"], h, cfg, cache, pos)
     elif cfg.mla:
@@ -218,8 +239,9 @@ def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos):
 def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
     """Chunked-prefill step of one block (see ``attention.attn_extend``):
     only a full-depth cache can re-enter at an arbitrary position, so a
-    ``local`` layer (a ring) and a ``rec`` layer (a running state) raise."""
-    if kind in ("rec", "local"):
+    ``local`` layer (a ring) and a ``rec``, ``mlstm`` or ``slstm`` layer (a
+    running state) raise."""
+    if kind in ("rec", "local") + XLSTM_KINDS:
         raise ValueError(f"block kind {kind!r} does not support chunked "
                          "prefill (needs a full-depth positional cache)")
     h = _apply_norm(params["norm1"], x, cfg)
@@ -228,20 +250,6 @@ def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
     else:
         a, cache = A.attn_extend(params["mixer"], h, cfg, kind, cache, start)
     return _block_rest(params, a, x, cfg)[0], cache
-
-
-def _rounded(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype`` (nearest even), as the JAX package's
-    ``jnp.asarray(value, dtype)``: sqrt(5376) = 73.32 is 73.5 in bf16. On
-    the host, so no tensor op enters a capture or the card's stream."""
-    if dtype == torch.float16:
-        return float(np.float16(value))
-    f = np.float32(value)
-    if dtype == torch.bfloat16:
-        bits = int(f.view(np.uint32))
-        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
-        f = np.uint32(bits).view(np.float32)
-    return float(f)
 
 
 def embed_inputs(params, inputs, cfg: ModelConfig, positions):
@@ -255,7 +263,7 @@ def embed_inputs(params, inputs, cfg: ModelConfig, positions):
     else:      # precomputed modality-frontend embeddings (the ViT stub)
         x = inputs.to(cfg.activation_dtype)
     if cfg.scale_embeddings:
-        x = nn.scale(x, _rounded(math.sqrt(cfg.d_model), x.dtype))
+        x = nn.scale(x, rounded(math.sqrt(cfg.d_model), x.dtype))
     if cfg.pos_emb == "learned":
         with nn.scope(OpGroup.MEMORY, "pos_learned"):
             x = x + F.embedding(positions, params["pos"]).to(x.dtype)
@@ -303,10 +311,16 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
     one (``attention.init_attn_cache``), MLA's compressed ``{"c", "kr"}``
     (``attention.init_mla_cache``), a recurrent layer's ``{"h": (batch, W)
     f32, "conv": (batch, conv_width - 1, W)}``
-    (``recurrent.init_recurrent_cache``)."""
+    (``recurrent.init_recurrent_cache``), an mLSTM layer's ``{"C", "n",
+    "m"}`` f32 and its conv tail (``xlstm.init_mlstm_cache``), an sLSTM
+    layer's ``{"c", "n", "m", "h"}`` f32 (``xlstm.init_slstm_cache``)."""
     check_supported(cfg, serving=True)
 
     def one(kind):
+        if kind == "mlstm":
+            return X.init_mlstm_cache(cfg, batch, device=device)
+        if kind == "slstm":
+            return X.init_slstm_cache(cfg, batch, device=device)
         if kind == "rec":
             return R.init_recurrent_cache(cfg, batch, device=device)
         if cfg.mla:

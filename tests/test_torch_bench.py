@@ -666,11 +666,12 @@ def test_quick_lm_cases_stay_at_full_width():
 
 
 def test_full_tier_names_the_unported_archs():
-    left = [c.arch for c in tcases.tier_cases("full")
-            if not tcases.is_ported(c.arch)]
-    assert left == ["xlstm-350m"]
-    assert not [c for c in tcases.quick_cases()
-                if not tcases.is_ported(c.arch)]
+    """Every arch of both tiers is ported; an arch without a config in the
+    port (``is_ported`` reads ``get_config``) would be named."""
+    assert [c.arch for c in tcases.tier_cases("full")
+            if not tcases.is_ported(c.arch)] == []
+    assert tcases.is_ported("xlstm-350m")
+    assert not tcases.is_ported("musicgen-large")
 
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl"])
@@ -856,17 +857,23 @@ def test_full_tier_moe_cases_run_ok_on_reduced_configs(monkeypatch,
     assert {r["case"] for r in rows} >= {c.alias for c in moe}
 
 
-def test_full_run_leaves_out_the_unported_cases():
-    """A full run names the archs the port cannot build yet, before any
-    section runs."""
+@pytest.mark.parametrize("unported", [(), ("xlstm-350m",)])
+def test_full_run_leaves_out_the_unported_cases(monkeypatch, unported):
+    """A full run names the archs the port cannot build, before any section
+    runs: none now; with ``is_ported`` patched to refuse one, that one."""
+    if unported:
+        monkeypatch.setattr(tcases, "is_ported",
+                            lambda arch: arch not in unported)
     lines = []
     result = run_bench("full", section_names=["roofline"], device="cpu",
                        progress=lines.append)
     names = [c["arch"] for c in result.meta["cases_not_ported"]]
-    assert names == ["xlstm-350m"]
+    assert names == list(unported)
     assert not {c.arch for c in result.cases} & set(names)
+    assert [c.arch for c in result.cases] == \
+        [c.arch for c in tcases.tier_cases("full") if c.arch not in unported]
     assert any("not ported" in line and "xlstm-350m" in line
-               for line in lines)
+               for line in lines) == bool(unported)
 
 
 # ---------------------------------------------------------------------------
@@ -901,16 +908,22 @@ def test_cli_raises_without_cuda_unless_the_cpu_is_asked_for(tmp_path):
     assert r.stdout.splitlines()[-1].startswith("kernel launches {")
 
 
-def test_list_names_every_case(capsys):
+@pytest.mark.parametrize("unported", [(), ("xlstm-350m",)])
+def test_list_names_every_case(capsys, monkeypatch, unported):
+    """``list`` names every case, and no arch as not ported; with
+    ``is_ported`` patched to refuse one, that one."""
     from repro_torch.bench.__main__ import main
 
+    if unported:
+        monkeypatch.setattr(tcases, "is_ported",
+                            lambda arch: arch not in unported)
     assert main(["list", "--json"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert [r["name"] for r in out["cases"]] == \
         [c.alias for c in tcases.CASES + tcases.SERVING_CASES
          + tcases.VISION_CASES]
     assert [r["arch"] for r in out["cases"]
-            if r["builder"] == "not ported yet"] == ["xlstm-350m"]
+            if r["builder"] == "not ported yet"] == list(unported)
 
 
 def test_package_exports_jax_names_but_the_compiled_view():

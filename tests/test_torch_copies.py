@@ -59,7 +59,7 @@ def test_model_config_fields_pinned():
                                   "gemma3-27b", "stablelm-3b", "granite-3-8b",
                                   "chameleon-34b", "qwen1.5-110b",
                                   "qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "xlstm-350m"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_llama_config_copy_pinned(cut, arch):
     want = jget_config(arch)
@@ -73,8 +73,8 @@ def test_unknown_config_lists_known():
     with pytest.raises(KeyError, match="bert-base.*chameleon-34b.*"
                        "deepseek-v2-lite-16b.*gpt2-xl.*granite-3-8b.*"
                        "llama2-7b.*qwen1.5-110b.*qwen2-moe-a2.7b.*"
-                       "recurrentgemma-2b.*stablelm-3b"):
-        get_config("xlstm-350m")
+                       "recurrentgemma-2b.*stablelm-3b.*xlstm-350m"):
+        get_config("musicgen-large")
 
 
 @pytest.mark.parametrize("arch", ["vit-b16-cls", "detector-vit-s", "gpt2-xl"])
@@ -200,7 +200,7 @@ def test_bridge_raises_on_an_unknown_entry_and_carries_every_other():
                                device="cpu")
 
 
-@pytest.mark.parametrize("unported", [dict(block_pattern=("attn", "mlstm")),
+@pytest.mark.parametrize("unported", [dict(final_logit_softcap=30.0),
                                       dict(attn_logit_softcap=50.0),
                                       dict(pos_emb="sinusoidal"),
                                       dict(input_mode="audio")])
@@ -451,9 +451,9 @@ def test_kernel_rows_render_the_ports_own_sites():
 
 
 def test_profiling_api_modules_isolated():
-    """The profiling API's, the bench's and the recurrent mixer's modules
-    are among the files the import check reads, and none of them imports
-    jax or repro."""
+    """The profiling API's, the bench's, the recurrent mixer's and the
+    xLSTM mixers' modules are among the files the import check reads, and
+    none of them imports jax or repro."""
     names = ("calibrate.py", "fusion.py", "hardware.py", "report.py",
              "roofline.py", "workload.py")
     core = REPO / "src" / "repro_torch" / "core"
@@ -461,9 +461,9 @@ def test_profiling_api_modules_isolated():
     bench_modules = ("__init__.py", "__main__.py", "cases.py", "compare.py",
                      "runner.py", "schema.py", "sections.py")
     assert sorted(p.name for p in bench.glob("*.py")) == sorted(bench_modules)
-    recurrent = REPO / "src" / "repro_torch" / "models" / "recurrent.py"
+    models = REPO / "src" / "repro_torch" / "models"
     for f in ([core / n for n in names] + [bench / n for n in bench_modules]
-              + [recurrent]):
+              + [models / "recurrent.py", models / "xlstm.py"]):
         assert f.exists(), f
         assert not [m for m in _imports(f)
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")], f

@@ -1020,6 +1020,59 @@ def test_reduced_recurrentgemma_on_card(card, fused):
         PagedEngine(cfg, params, max_batch=2, max_len=128)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_reduced_xlstm_on_card(card, fused):
+    """Reduced xlstm-350m: the kernel path's logits against the plain
+    path's (the fused path's GeGLU on ff_up's contiguous halves); the
+    Engine prefills at the exact prompt length and its tokens on the card
+    equal the CPU's, graphed and eager alike (the graph replays against
+    the mLSTM and sLSTM states decode writes in place); one eager decode
+    step reads nothing on the host."""
+    from repro_torch.models import init_lm_cache
+    from repro_torch.serving import make_serve_step
+    cfg = reduced(get_config("xlstm-350m"))
+    params = init_lm(card, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 45), generator=card,
+                         device="cuda")
+    with nn.backend("torch"), nn.fuse(fused):
+        want = lm_forward(params, toks, cfg)
+    ops.reset_launches()
+    with nn.fuse(fused):
+        got = lm_forward(params, toks, cfg)
+    assert ops.launches["layer_norm"] == cfg.n_layers + 1
+    assert ops.launches["rms_norm"] == cfg.n_layers
+    assert ops.launches["geglu"] == (1 if fused else 0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+               for n in (5, 40, 2)]
+
+    def serve(p, **kw):
+        eng = Engine(cfg, p, max_batch=2, max_len=64, fused=fused, **kw)
+        assert eng._bucket(40) == 40
+        uids = [eng.add_request(x, max_new_tokens=8) for x in prompts]
+        done = {r.uid: r.output for r in eng.run()}
+        return [done[u] for u in uids]
+
+    assert serve(params) == serve(params, cuda_graph=False) == \
+        serve(_to(params, "cpu"))
+    with pytest.raises(ValueError):
+        PagedEngine(cfg, params, max_batch=2, max_len=64)
+    token = torch.tensor([3, 4], device="cuda")
+    pos = torch.tensor([5, 9], dtype=torch.int32, device="cuda")
+    caches = init_lm_cache(cfg, 2, 64, device="cuda")
+    step = make_serve_step(cfg, fused=fused)
+    step(params, token, pos, caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(params, token, pos, caches)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 MOE_MODELS = [(a, f) for a in ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
               for f in (False, True)]
 
