@@ -67,7 +67,14 @@ Phases, each printing JSON lines:
              1024 at its decode step and a 512-token prefill, geglu on the
              contiguous halves of its ff_up (1365 a row: vectors straddle
              rows; at 97 and 2 tokens the last vector is partial), and the
-             kernel refusing the strided halves;
+             kernel refusing the strided halves; the softcap fragment
+             (scripts/softcap_check.py's cases): caps 50, 20 and 5 on the
+             causal, window and full masks and decode, head dims 64, 80
+             and 128, a chunk's q_offset, rows that see no key held to
+             exact zeros, decode in many splits over 4096 keys;
+             musicgen-large's shapes (mg_kernel_cases): the LayerNorms at
+             2048, causal attention at 32 heads of 64 over its prefill,
+             decode at group 1 over a 2048-deep cache;
    moe     - qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a dense first
              layer) at full width and depth in bf16 (random weights from
              a seeded generator on the card), one after the other, each
@@ -76,7 +83,8 @@ Phases, each printing JSON lines:
              ``models/moe.py``, at the config's capacity and at 0.5 (choices
              dropped); unfused and fused, the ``Engine`` serves 6 requests
              of 16 new tokens, eager then graphed, tokens identical, with
-             ``serve``'s repeats, launch and counter checks and its graph
+             ``serve``'s repeats (one eager, MOE_EAGER_REPEATS), launch and
+             counter checks and its graph
              vs eager line (the step's byte bound reads every expert's
              weights); the ``PagedEngine`` graphed, cold with the
              ``Engine``'s tokens exactly and in 64-token chunks with prefix
@@ -86,9 +94,11 @@ Phases, each printing JSON lines:
              plain path's (and fused against unfused) under the anchored
              rule; the measured split of one eager b1 s16 forward with the
              shares of the MoE sites, beside its ``eager-modeled:h100`` view;
-   recurrent - recurrentgemma-2b at full size in bf16 (2.895 B
-             parameters; (rec, rec, local) x 8 and a (rec, rec) trail): the
-             Engine (4 slots, max_len 4096) prefills each prompt at its
+   recurrent - recurrentgemma-2b in bf16 (the full model's 2.895 B
+             parameters made and counted; (rec, rec, local) x 8 and a (rec,
+             rec) trail), served at full width and its first 9 layers
+             (RG_LAYERS): the Engine (4 slots, max_len 4096) prefills each
+             prompt at its
              exact length (``_bucket``; the RG-LRU state would consume
              pads), one prompt past the 2048-token window, one that wraps
              its rings in decode; the PagedEngine refuses the model;
@@ -97,11 +107,13 @@ Phases, each printing JSON lines:
              vs eager line (the step's byte bound reads the recurrent
              state too); the kernel path's logits against the plain path's
              under the anchored rule; the measured split of one eager b1
-             forward at s16 and s2048 with the shares of the recurrent
-             mixer's sites (``rglru_scan``, ``rglru_gates``,
-             ``causal_conv1d``), the GEMMs and attention;
-   xlstm   - xlstm-350m at full size in bf16 (528,361,640 parameters, the
-             config's count; (mlstm x 7, slstm) x 3): the Engine (4 slots,
+             forward at s16 (9 layers) and s2048 (one pattern repeat, 3
+             layers) with the shares of the recurrent mixer's sites
+             (``rglru_scan``, ``rglru_gates``, ``causal_conv1d``), the GEMMs
+             and attention;
+   xlstm   - xlstm-350m in bf16 (the full model's 528,361,640 parameters
+             made and counted; (mlstm x 7, slstm) x 3), served at full width
+             and one pattern repeat, 8 layers (XL_LAYERS): the Engine (4 slots,
              max_len 512) prefills each prompt at its exact length (a
              prompt that pads the mLSTM's last 256-token chunk, one that
              fills it, one shorter than the conv tail); the PagedEngine
@@ -110,10 +122,24 @@ Phases, each printing JSON lines:
              eager line (the step's byte bound reads and writes the mLSTM's
              matrix memory and the sLSTM's state); the anchored logit rule;
              the measured split of one eager b1 forward at s16 and s512
-             with the shares of the xLSTM sites;
+             (8 layers) with the shares of the xLSTM sites;
+   musicgen - musicgen-large at full size in bf16 (48 layers, 2.42 B
+             parameters, the config's count) on frame embeddings from
+             seeded generators (its EnCodec frontend is a stub):
+             ``make_prefill_step`` on 4 rows of 1500, 750, 250 and 37
+             frames, right-padded with ``lengths``, then 16 steps of
+             ``make_serve_step`` over the 4 slots, each fed a fresh frame a
+             slot, eager and as a ``StepGraph`` (float frames through its
+             pinned buffers), unfused and fused: codebook tokens identical,
+             launches exactly what the prefill and the steps need, the
+             replay beside the step's byte bound; the kernel path's last
+             prefill logits and one decode step's logits against the plain
+             path's under the anchored rule; the measured split of one
+             eager b1 forward at s16 and s1500 with the shares of
+             ``pos_sinusoidal``, the LayerNorms and GELU;
 3. serve   - for each of llama2-7b, stablelm-3b, gpt2-xl and gemma3-27b at
              full width in bf16, at their first layers (SERVE_LAYERS: 4,
-             4, 12 and 12; random weights from a seeded
+             4, 12 and 6; random weights from a seeded
              generator on the card), the continuous-batching ``Engine``
              unfused and fused
              (``Engine(fused=True)``: ``nn.fuse()``) serves 6 requests of 16
@@ -136,6 +162,14 @@ Phases, each printing JSON lines:
              path's chunked prefill (``--paths-only`` runs only these
              comparisons, to read what they see of a kernel broken on
              purpose);
+   softcap - after gemma3-27b's serve phase, its first 6 layers (one
+             repeat of its pattern) with Gemma 2's published logit caps
+             (attention 50, final 30; ``cfg.replace``, no new config): the
+             Engine serves phase 3's prompts unfused and fused, eager then
+             graphed, tokens identical, with ``serve``'s checks; the same
+             engine without the caps graphed once beside it (the replay's
+             cost of the cap); the kernel path's logits against the plain
+             path's under the anchored rule;
    paged   - llama2-7b and stablelm-3b through the ``PagedEngine``
              (``max_batch=4``, ``max_len=512``, 16-token blocks), unfused
              and fused: (a) cold, the serve phase's prompts, tokens
@@ -242,7 +276,13 @@ Phases, each printing JSON lines:
              xlstm-350m's layer_norm, rms_norm and geglu at its decode step
              (in the kernels line under ``xlstm``, with phase xlstm's
              launches) and at a 512-token prefill, beside ``F.layer_norm``,
-             ``F.rms_norm`` and ``torch.mul`` of the same operands.
+             ``F.rms_norm`` and ``torch.mul`` of the same operands; the
+             capped attention_window, attention_core and decode_core at
+             gemma3-27b's shapes beside compiled ``flex_attention`` with
+             the cap as its score modification, the same kernels uncapped
+             and SDPA uncapped (under each kernel's ``softcap``) and
+             musicgen-large's prefill attention and decode beside SDPA
+             (under ``musicgen``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -301,11 +341,13 @@ EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: recurrent added, the script would pass its time; phase bench serves
 #: stablelm-3b whole), and with phase xlstm added an eighth of their 32
 #: (at 16 they took 37 and 42 s of a 506 s run, at 8 20 and 19 s of a
-#: 643 s one) and gpt2-xl a quarter of its 48 (22 s at 48, 12 at 24). The
+#: 643 s one) and gpt2-xl a quarter of its 48 (22 s at 48, 12 at 24), and
+#: with phases softcap and musicgen added gemma3-27b one repeat (17.3 s at
+#: 12 layers of a 581 s run; PERF.md §4). The
 #: MoE models stay whole: at half depth qwen2-moe-a2.7b's kernel path read
 #: 0.308 from its plain path against a limit of 0.272 (its routing flips
 #: between the paths, and the limit shrinks with the depth)
-SERVE_LAYERS = {"gemma3-27b": 12, "llama2-7b": 4, "stablelm-3b": 4,
+SERVE_LAYERS = {"gemma3-27b": 6, "llama2-7b": 4, "stablelm-3b": 4,
                 "gpt2-xl": 12}
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
@@ -342,7 +384,8 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
 # |kernel - plain| <= atol + rtol * |plain|: both compute in f32; bf16 output
 # may round the other way by one ulp (2^-8 relative), f32 only differs in
 # summation order and in the exp / rsqrt intrinsics. The window fragment's
-# cases scale atol by the plain output's RMS (where below 1): a row over
+# cases, the capped causal and decode cases and musicgen-large's attention
+# scale atol by the plain output's RMS (where below 1): a row over
 # 1024 keys of randn q, k, v averages ~377 effective values, RMS ~0.05, so
 # a flat 3e-2 could let through a key too many or too few; rtol still
 # covers the ulp of each rounded output
@@ -475,6 +518,11 @@ MOE_KERNEL_BATCHES = ((1, 256), (4, 1), (1, CHUNK))
 #: the op sites whose share phase moe's measured split prints
 MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
              "expert_ffn")
+#: the repeats of phase moe's eager serve (its graphed serve keeps
+#: REPEATS): the eager MoE step is host-bound, ~4.5 s a run of the
+#: prompts, so three more runs of both models, unfused and fused, cost
+#: ~50 s of the script's time, which musicgen and softcap needed
+MOE_EAGER_REPEATS = 1
 #: phase recurrent: recurrentgemma-2b at full size in bf16 (2.895 B
 #: parameters, 5.79 GB), its Engine at RG_MAX_LEN; prompt lengths that are
 #: no powers of two (the engine prefills a recurrent model at the exact
@@ -483,11 +531,18 @@ MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
 RG_ARCH = "recurrentgemma-2b"
 RG_MAX_LEN = 4096
 RG_PROMPTS = (2100, 2040, 333, 37, 700, 90)
+#: the depth phase recurrent serves it at: its first three (rec, rec,
+#: local) repeats of eight, full width, three local layers to run its
+#: window and rings (at 26 layers phase recurrent took 29.6–47.1 s of
+#: 459–594 s runs, PERF.md §4)
+RG_LAYERS = 9
 #: the sequence lengths of its measured b1 splits, each with the times its
-#: ops are timed past the first (the measured backend's ``repeats``), and
-#: the op sites whose shares they print: the recurrent mixer's NonGEMM
-#: sites, then its GEMMs and attention (GEMM by tag, as in JAX)
-RG_PROFILE_SEQS = ((16, 3), (2048, 3))
+#: ops are timed past the first (the measured backend's ``repeats``) and the
+#: layers it runs (None: the served depth; s2048 one (rec, rec, local)
+#: repeat: at 26 layers it took 9.9 s of a 581 s run, PERF.md §4), and the
+#: op sites whose shares they print: the recurrent mixer's NonGEMM sites,
+#: then its GEMMs and attention (GEMM by tag, as in JAX)
+RG_PROFILE_SEQS = ((16, 3, None), (2048, 3, 3))
 RG_SITES = (("rglru_scan", "rglru_gates", "causal_conv1d"),
             ("linear", "einsum", "flash_attention"))
 #: phase xlstm: xlstm-350m at full size in bf16 (528,361,640 parameters,
@@ -501,16 +556,41 @@ XL_PROMPTS = (300, 256, 97, 2, 33, 12)
 #: the sequence lengths of its measured b1 splits, each with the times its
 #: ops are timed past the first (the measured backend's ``repeats``: at
 #: s512 the forward runs 64,235 ops, each timed behind a 0.5 ms pad, so
-#: the best of 4 took 128 s; there each op is timed once), and the op
-#: sites whose shares they print: the xLSTM mixers' NonGEMM sites, then
-#: the cells' products and the projections (GEMM by tag, as in JAX)
-XL_PROFILE_SEQS = ((16, 3), (512, 0))
+#: the best of 4 took 128 s; there each op is timed once) and the layers
+#: they run (None: the served depth; at 24 layers the s512 split took
+#: 39.1 s of a 581 s run, PERF.md §4), and the op sites whose shares they
+#: print: the xLSTM mixers' NonGEMM sites, then the cells' products and
+#: the projections (GEMM by tag, as in JAX)
+XL_PROFILE_SEQS = ((16, 3, None), (512, 0, None))
+#: the depth phase xlstm serves it at: one (mlstm x 7, slstm) repeat of
+#: its three, full width (at 24 layers phase xlstm took 56.6–98.7 s of
+#: 459–594 s runs, PERF.md §4)
+XL_LAYERS = 8
 XL_SITES = (("slstm_scan", "mlstm_dmatrix", "mlstm_normalizer", "mlstm_gates",
              "causal_conv1d", "rms_norm"),
             ("mlstm_intra", "mlstm_inter", "linear"))
 #: (B, S) of the token batches phase xlstm gives its kernels: the Engine's
 #: 4-slot decode step and a 512-token prefill (XL_MAX_LEN, the split's)
 XL_KERNEL_BATCHES = ((4, 1), (1, 512))
+#: phase softcap: gemma3-27b at full width, its first SC_LAYERS layers of
+#: phase 3's served params (one repeat of its five-local, one-global
+#: pattern), with Gemma 2's published logit caps (google/gemma-2-27b's
+#: config.json: attn_logit_softcapping 50.0, final_logit_softcapping 30.0)
+#: set by cfg.replace: no new config
+SC_ARCH, SC_LAYERS = "gemma3-27b", 6
+SC_CAPS = dict(attn_logit_softcap=50.0, final_logit_softcap=30.0)
+#: phase musicgen: musicgen-large at full size in bf16 (48 layers), frame
+#: embeddings in place of tokens (its EnCodec frontend is a stub, as in
+#: JAX): a prefill of 4 rows of 1500, 750, 250 and 37 frames (30, 15, 5
+#: and 0.74 s of audio at EnCodec's 50 Hz), right-padded, into caches of
+#: MG_MAX_LEN, then NEW_TOKENS decode steps over the 4 slots
+MG_ARCH, MG_MAX_LEN = "musicgen-large", 2048
+MG_FRAMES = (1500, 750, 250, 37)
+#: its measured b1 splits (seq, repeats) and the sites they print: the
+#: NonGEMM sites of its blocks, then the GEMMs and attention
+MG_PROFILE_SEQS = ((16, 3), (1500, 0))
+MG_SITES = (("pos_sinusoidal", "layer_norm", "gelu"),
+            ("linear", "flash_attention"))
 BENCH_KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
                  "fused_add_layer_norm", "rope", "swiglu", "attention_core",
                  "decode_core", "attention_full", "nms",
@@ -610,7 +690,8 @@ def check_kernels(torch, ops, ref, gen):
     """Every kernel vs its plain version at the main path's shapes and odd
     ones, bf16 and f32. Returns ({kernel: max abs error over its cases},
     the same over the MLA shapes, over recurrentgemma-2b's, over
-    xlstm-350m's)."""
+    xlstm-350m's, over the capped attention cases, over musicgen-large's
+    shapes)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import attn_template, norms, rope
     from repro_torch.kernels import softmax_xent as xent
@@ -653,34 +734,43 @@ def check_kernels(torch, ops, ref, gen):
                 + mean).to(dt)
 
     def compare(name, got, want, dtname, case, tol=TOL, rms_scaled=False,
-                body=None, mla=False, rg=False, xl=False, **extra):
+                body=None, mla=False, rg=False, xl=False, sc=False, mg=False,
+                zero_rows=None, **extra):
         """``rms_scaled``: atol times the plain output's RMS where that is
-        below 1 (the window fragment's cases, see the note at TOL);
+        below 1 (attention over long rows, see the note at TOL);
         ``body``: the row norms' plan body, printed with the case, as is
-        ``extra`` (rope's plan); ``mla``, ``rg``, ``xl``: an MLA, a
-        recurrentgemma-2b or an xlstm-350m shape, whose worst error is kept
-        apart too."""
+        ``extra`` (rope's plan); ``mla``, ``rg``, ``xl``, ``sc``, ``mg``: an
+        MLA, a recurrentgemma-2b, an xlstm-350m shape, a capped case or a
+        musicgen-large shape, whose worst error is kept apart too;
+        ``zero_rows``: the (row, head) outputs that see no key, which must
+        be exact zeros in the kernel's output as in the plain version's."""
         torch.cuda.synchronize()
         atol, rtol = tol[dtname]
         err = (got.float() - want.float()).abs()
         info = dict(extra) if body is None else dict(extra, body=body)
-        if rms_scaled:
+        if rms_scaled:      # a case whose every row sees no key: atol 0
             rms = float(want.float().square().mean().sqrt())
             atol *= min(1.0, rms)
-            info.update(plain_rms=rms, max_abs_err_over_rms=float(err.max()) / rms)
+            info.update(plain_rms=rms, max_abs_err_over_rms=float(err.max()) / rms
+                        if rms else None)
         lim = atol + rtol * want.float().abs()
         ok = bool((err <= lim).all()) and bool(torch.isfinite(got.float()).all())
+        if zero_rows is not None:
+            dead = want.float().abs().amax(-1) == 0
+            exact = int(dead.sum()) == zero_rows and not got[dead].float().any()
+            info.update(zero_rows=zero_rows, zero_rows_exact=exact)
+            ok = ok and exact
         emit(phase="kernels", kernel=name, case=case, dtype=dtname,
              max_abs_err=float(err.max()), atol=atol, rtol=rtol, ok=ok, **info)
         if not ok:
-            fail(f"{name} {case} {dtname}: kernel disagrees with plain version")
+            fail(f"{name} {case} {dtname}: kernel disagrees with plain version"
+                 + ("" if info.get("zero_rows_exact", True) else
+                    "; a row that sees no key is not exact zeros"))
         worst[name] = max(worst[name], float(err.max()))
-        if mla:
-            worst_mla[name] = max(worst_mla.get(name, 0.0), float(err.max()))
-        if rg:
-            worst_rg[name] = max(worst_rg.get(name, 0.0), float(err.max()))
-        if xl:
-            worst_xl[name] = max(worst_xl.get(name, 0.0), float(err.max()))
+        for hit, errs in ((mla, worst_mla), (rg, worst_rg), (xl, worst_xl),
+                          (sc, worst_sc), (mg, worst_mg)):
+            if hit:
+                errs[name] = max(errs.get(name, 0.0), float(err.max()))
 
     def exact(name, got, want, dtname, case, body=None):
         torch.cuda.synchronize()
@@ -692,7 +782,7 @@ def check_kernels(torch, ops, ref, gen):
                  "version's (one f32 add, rounded once, on both sides)")
 
     worst = dict.fromkeys(SOURCES, 0.0)
-    worst_mla, worst_rg, worst_xl = {}, {}, {}
+    worst_mla, worst_rg, worst_xl, worst_sc, worst_mg = {}, {}, {}, {}, {}
     bodies = set()
 
     def body(x, dt, *others):
@@ -973,6 +1063,17 @@ def check_kernels(torch, ops, ref, gen):
         for name, fn, plain, case, kw in xl_kernel_cases(torch, ops, ref,
                                                           randn, dt):
             compare(name, fn(), plain(), dtname, case, xl=True, **kw)
+        # the softcap fragment (phase softcap): caps 50, 20 and 5 on the
+        # three masks and decode at head dims 64, 80 and 128, rows that see
+        # no key exact zeros (scripts/softcap_check.py's cases)
+        for name, fn, plain, case, kw in _script("softcap_check").softcap_cases(
+                torch, ops, ref, randn, dt, sms):
+            compare(name, fn(), plain(), dtname, case, sc=True, **kw)
+        # musicgen-large (phase musicgen): its shapes of the four kernels
+        # its main path runs (mg_kernel_cases)
+        for name, fn, plain, case, kw in mg_kernel_cases(torch, ops, ref,
+                                                          randn, dt):
+            compare(name, fn(), plain(), dtname, case, mg=True, **kw)
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
         # multiples of the 64-key tile, 128 / 256 / 1024 are
         for b, sq, skv, hq, hkv, dk, dv in [
@@ -1078,7 +1179,59 @@ def check_kernels(torch, ops, ref, gen):
         if not (got[at + 1] and not got[above + 1]):
             fail(f"nms {case}: IoU exactly 0.5 must keep (box {at + 1}), one "
                  f"ulp above suppress (box {above + 1})")
-    return worst, worst_mla, worst_rg, worst_xl
+    return worst, worst_mla, worst_rg, worst_xl, worst_sc, worst_mg
+
+
+def mg_kernel_cases(torch, ops, ref, randn, dt):
+    """musicgen-large's shapes of the kernels its main path runs, as
+    (kernel, launch, plain version, case, compare's keywords): the
+    LayerNorms on 2048-wide rows (plain and fused with the residual) at its
+    prefill batch of MG_FRAMES rows and its 4-slot decode step; causal
+    attention at 32 heads of 64 (MHA) over the prefill batch, each row
+    padded to the longest; decode at group 1, head dim 64, over the
+    MG_MAX_LEN-deep cache at the serve run's first and last lengths. The
+    attention cases' atol is scaled by the plain output's RMS: rows over
+    hundreds of keys average to outputs of about bf16's atol."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attn_template
+
+    cfg = get_config(MG_ARCH)
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    b, s = len(MG_FRAMES), max(MG_FRAMES)
+    cases = []
+    for shape in ((b, s, d), (b, 1, d)):
+        x, w, bias = randn(shape, dt), randn((d,), dt), randn((d,), dt)
+        res = randn(shape, dt, 4.0)
+        cases.append(("layer_norm",
+                      lambda x=x, w=w, bias=bias: ops.layer_norm(x, w, bias),
+                      lambda x=x, w=w, bias=bias: ref.layer_norm(x, w, bias),
+                      f"x{list(shape)}", {}))
+        cases.append(("fused_add_layer_norm",
+                      lambda x=x, r=res, w=w, bias=bias:
+                          ops.fused_add_layer_norm(x, r, w, bias)[0],
+                      lambda x=x, r=res, w=w, bias=bias:
+                          ref.fused_add_layer_norm(x, r, w, bias)[0],
+                      f"x,res{list(shape)}", {}))
+    q = randn((b, s, h, dh), dt)
+    k, v = randn((b, s, h, dh), dt), randn((b, s, h, dh), dt)
+    cases.append(("attention_core",
+                  lambda: ops.attention_core(q, k, v),
+                  lambda: ref.attention(q, k, v),
+                  f"q,k,v{[b, s, h, dh]} causal (musicgen prefill)",
+                  dict(rms_scaled=True)))
+    for step in (0, NEW_TOKENS - 1):
+        lens = [n + step for n in MG_FRAMES]
+        q1 = randn((b, 1, h, dh), dt)
+        k1, v1 = randn((b, MG_MAX_LEN, h, dh), dt), randn((b, MG_MAX_LEN, h, dh), dt)
+        n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cases.append(("decode_core",
+                      lambda q=q1, k=k1, v=v1, n=n: ops.decode_core(q, k, v, n),
+                      lambda q=q1, k=k1, v=v1, n=n: ref.decode_attention(q, k, v, n),
+                      f"q[{b},1,{h},{dh}] kv[{b},{MG_MAX_LEN},{h},{dh}] "
+                      f"lengths={lens} (musicgen decode, group 1)",
+                      dict(rms_scaled=True,
+                           body=attn_template.decode_body(dh, dh, dt))))
+    return cases
 
 
 def rg_kernel_cases(torch, ops, ref, randn, dt):
@@ -1592,6 +1745,17 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
              bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
     out["attention_window"]["recurrentgemma"] = rg_prefill
     out["decode_core"]["recurrentgemma"] = rg_decode
+    # the softcap fragment at gemma3-27b's shapes (phase softcap; the
+    # kernels line under "softcap"), each beside capped flex_attention, the
+    # same kernel uncapped and SDPA uncapped, timed in this call; and
+    # musicgen-large's prefill attention and decode (phase musicgen; under
+    # "musicgen")
+    capped, mg = time_capped_and_musicgen(torch, ops, ref, timer, entry,
+                                          randn, body, out, extra)
+    for name, row in capped.items():
+        out[name]["softcap"] = row
+    for name, row in mg.items():
+        out[name]["musicgen"] = row
     # xlstm-350m (phase xlstm): its three kernels at the 4-slot decode step
     # (the kernels line, under "xlstm") and at a 512-token prefill (lines of
     # their own): layer_norm on the blocks' rows, rms_norm on the mLSTM's
@@ -1637,6 +1801,136 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
     return out
 
 
+def time_capped_and_musicgen(torch, ops, ref, timer, entry, randn, body, out,
+                             extra):
+    """Phase 5's rows of the softcap fragment at gemma3-27b's shapes, each
+    with the uncapped kernel's and SDPA's (uncapped, a reference only) ms
+    of the same inputs, timed in this call (``uncapped_ms``,
+    ``sdpa_uncapped_ms``): the window prefill q[1,2048,32,128] at window
+    1024, the global causal prefill, the ring decode kv[4,1024,16,128]; and
+    musicgen-large's causal prefill over its MG_FRAMES rows and its decode
+    at group 1 over kv[4,MG_MAX_LEN,32,64] beside SDPA. The capped rows'
+    library call is compiled ``flex_attention`` with the cap as its score
+    modification and the mask as its block mask
+    (``scripts/softcap_check.py``'s ``flex_capped``), its distance from the
+    plain version kept as ``library_max_abs_err``. The capped bound is the
+    largest of the bytes' time, the products' at the bf16 rate and the
+    cap's three f32 operations a visible score (division, tanh, product)
+    at the f32 rate: the tensor cores and the FMA units run at once."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.hardware import H100
+
+    cap = SC_CAPS["attn_logit_softcap"]
+    flex_capped = _script("softcap_check").flex_capped
+
+    def capped_row(shape, kernel, plain, library, nbytes, flops, scores,
+                   uncapped):
+        lib_call, lib_out = library
+        row = entry(f"{shape} softcap={cap}", kernel, plain, lib_call, nbytes,
+                    flops, "bfloat16", body)
+        t_bytes = nbytes / H100.hbm_bw
+        t_ops = max(flops / PEAK_FLOPS["bfloat16"],
+                    3 * scores / PEAK_FLOPS["float32"])
+        row["bound"] = (max(t_bytes, t_ops) * 1e3,
+                        "bytes" if t_bytes >= t_ops else "operations")
+        row["library_max_abs_err"] = float(
+            (lib_out().float() - plain().float()).abs().max())
+        row["uncapped_ms"] = timer(uncapped["kernel"])
+        row["sdpa_uncapped_ms"] = timer(uncapped["sdpa"])
+        return row
+
+    b, s, hq, hkv, dh, w = 1, 2048, 32, 16, 128, 1024
+    q = randn((b, s, hq, dh))
+    k, v = randn((b, s, hkv, dh)), randn((b, s, hkv, dh))
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+              for a in (k, v))
+    ar = torch.arange(s, device="cuda")
+    band = (ar[:, None] >= ar[None, :]) & (ar[:, None] - ar[None, :] < w)
+    nbytes = 2 * b * s * dh * (2 * hq + 2 * hkv)
+    rows = {}
+    vis = int(band.sum())
+    rows["attention_window"] = capped_row(
+        f"q[1,{s},{hq},{dh}] kv[1,{s},{hkv},{dh}] bf16 window={w} "
+        "(gemma3-27b local prefill, 2048 bucket)",
+        lambda: ops.attention_window(q, k, v, w, softcap=cap),
+        lambda: ref.attention(q, k, v, window=w, softcap=cap),
+        flex_capped(torch, cap, q, k, v,
+                    lambda b, h, qi, ki: (qi >= ki) & (qi - ki < w)), nbytes,
+        2 * b * hq * vis * 2 * dh, b * hq * vis,
+        dict(kernel=lambda: ops.attention_window(q, k, v, w),
+             sdpa=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=band)))
+    vis = s * (s + 1) // 2
+    rows["attention_core"] = capped_row(
+        f"q[1,{s},{hq},{dh}] kv[1,{s},{hkv},{dh}] bf16 causal "
+        "(gemma3-27b global prefill, 2048 bucket)",
+        lambda: ops.attention_core(q, k, v, softcap=cap),
+        lambda: ref.attention(q, k, v, softcap=cap),
+        flex_capped(torch, cap, q, k, v, lambda b, h, qi, ki: qi >= ki),
+        nbytes, 2 * b * hq * vis * 2 * dh, b * hq * vis,
+        dict(kernel=lambda: ops.attention_core(q, k, v),
+             sdpa=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)))
+    b, t = 4, 1024
+    lens_l = [t, t, t, 53]
+    q1 = randn((b, 1, hq, dh))
+    k1, v1 = randn((b, t, hkv, dh)), randn((b, t, hkv, dh))
+    ring = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < ring[:, None])[:, None, None, :]
+    qt1 = q1.transpose(1, 2).contiguous()
+    kt1, vt1 = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+                for a in (k1, v1))
+    kv = sum(lens_l)
+    rows["decode_core"] = capped_row(
+        f"q[4,1,{hq},{dh}] kv[4,{t},{hkv},{dh}] bf16 lengths={lens_l} "
+        "(gemma3-27b ring decode)",
+        lambda: ops.decode_core(q1, k1, v1, ring, softcap=cap),
+        lambda: ref.decode_attention(q1, k1, v1, ring, softcap=cap),
+        flex_capped(torch, cap, q1, k1, v1,
+                    lambda b, h, qi, ki: ki < ring[b], batch=b),
+        2 * (2 * b * hq * dh + 2 * kv * hkv * dh), 4 * kv * hq * dh, kv * hq,
+        dict(kernel=lambda: ops.decode_core(q1, k1, v1, ring),
+             sdpa=lambda: F.scaled_dot_product_attention(qt1, kt1, vt1,
+                                                         attn_mask=mask)))
+    rows["decode_core"]["body"] = "fma"
+    # musicgen-large: 32 heads of 64, MHA
+    h, dh = 32, 64
+    b, s = len(MG_FRAMES), max(MG_FRAMES)
+    q, k, v = (randn((b, s, h, dh)) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    vis = s * (s + 1) // 2
+    mg = {"attention_core": entry(
+        f"q,k,v[{b},{s},{h},{dh}] bf16 causal (musicgen-large prefill of "
+        f"{list(MG_FRAMES)} frames, padded to {s})",
+        lambda: ops.attention_core(q, k, v), lambda: ref.attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        4 * b * s * h * dh * 2, 2 * b * h * vis * 2 * dh, "bfloat16", body)}
+    t = MG_MAX_LEN
+    lens_l = [n + NEW_TOKENS - 1 for n in MG_FRAMES]
+    q1 = randn((b, 1, h, dh))
+    k1, v1 = randn((b, t, h, dh)), randn((b, t, h, dh))
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None])[:, None, None, :]
+    qt1, kt1, vt1 = (a.transpose(1, 2).contiguous() for a in (q1, k1, v1))
+    kv = sum(lens_l)
+    mg["decode_core"] = entry(
+        f"q[4,1,{h},{dh}] kv[4,{t},{h},{dh}] bf16 lengths={lens_l} "
+        "(musicgen-large decode, group 1)",
+        lambda: ops.decode_core(q1, k1, v1, lens),
+        lambda: ref.decode_attention(q1, k1, v1, lens),
+        lambda: F.scaled_dot_product_attention(qt1, kt1, vt1, attn_mask=mask),
+        2 * (2 * b * h * dh + 2 * kv * h * dh), 4 * kv * h * dh, "bfloat16")
+    mg["decode_core"]["body"] = "fma"
+    for tag, group in (("softcap", rows), ("musicgen", mg)):
+        for name, tm in group.items():
+            emit(phase="timing", kernel=f"{name} {tag}",
+                 **{k: v for k, v in tm.items() if k != "bound"},
+                 bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
+    return rows, mg
+
+
 def _script(name: str):
     """``scripts/<name>.py`` of this tree: the row norms' timed cases
     (``norm_timing``), rope's and NMS's (``rope_nms_timing``), the gated
@@ -1653,7 +1947,7 @@ def _script(name: str):
 # ---------------------------------------------------------------------------
 
 def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
-                  max_len: int, extend_prompt=None):
+                  max_len: int, extend_prompt=None, frames=None):
     """The model's kernel path against another path of the same model, on
     the card, on the same weights: for the unfused model the plain path
     (``"torch"`` backend), for the fused one both the fused plain path and
@@ -1665,7 +1959,11 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
     the rest in chunks of CHUNK at their absolute offsets: ``attention_core``
     at ``q_offset`` over the whole cache depth): the kernel path's last-token
     logits against ``lm_prefill`` of the whole prompt on the same path, and
-    against the plain path's chunked prefill. Prints every reading, then
+    against the plain path's chunked prefill. With ``frames`` (an
+    ``input_mode="embeddings"`` model: right-padded frame embeddings
+    (B, S, d_model), their lengths, the (B, d_model) frame fed to decode;
+    ``prompts`` unused), one prefill of the whole batch with its lengths
+    and the decode step on the fed frame. Prints every reading, then
     fails if one is past its limit: F32_ANCHOR times the reference path's
     distance from the plain path run with f32 activations, LOGIT_ATOL at
     the least."""
@@ -1682,31 +1980,45 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
             return fn(c)
 
     bad = []
+    phase = "serve" if frames is None else "musicgen"
 
     def check(step, vs, lk, lt, l32, **info):
-        check_anchored("serve", step, bad, lk, lt, l32, model=cfg.name,
+        check_anchored(phase, step, bad, lk, lt, l32, model=cfg.name,
                        fused=fused, against=f"{vs[0]} fused={vs[1]}", **info)
 
-    rows = []
-    for p in prompts:
-        toks = torch.tensor([p], device="cuda")
+    if frames is not None:
+        x, pos, feed = frames
 
         def prefill(c):
-            return lm_prefill(params, toks, c, max_len=max_len)
+            return lm_prefill(params, x, c, max_len=max_len, lengths=pos)
         lk, caches = run(kernel, prefill)
         l32 = run(("torch", False), prefill, cfg32)[0]
         for vs in others:
             check("prefill_logits", vs, lk, run(vs, prefill)[0], l32,
-                  prompt_len=len(p))
-        rows.append((lk, caches))
+                  frames=pos.tolist())
         del l32
+        token = torch.from_numpy(feed).cuda()
+    else:
+        rows = []
+        for p in prompts:
+            toks = torch.tensor([p], device="cuda")
 
-    token = torch.cat([lk.argmax(-1) for lk, _ in rows])
-    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                       device="cuda")
-    # every leaf: a ring's "pos" side-car too
-    caches = [{n: torch.cat([c[i][n] for _, c in rows]) for n in rows[0][1][i]}
-              for i in range(cfg.n_layers)]
+            def prefill(c):
+                return lm_prefill(params, toks, c, max_len=max_len)
+            lk, caches = run(kernel, prefill)
+            l32 = run(("torch", False), prefill, cfg32)[0]
+            for vs in others:
+                check("prefill_logits", vs, lk, run(vs, prefill)[0], l32,
+                      prompt_len=len(p))
+            rows.append((lk, caches))
+            del l32
+
+        token = torch.cat([lk.argmax(-1) for lk, _ in rows])
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device="cuda")
+        # every leaf: a ring's "pos" side-car too
+        caches = [{n: torch.cat([c[i][n] for _, c in rows])
+                   for n in rows[0][1][i]} for i in range(cfg.n_layers)]
 
     def decode(c):                      # each path writes its own copy
         # the activations' leaves in the path's dtype; a recurrent state's
@@ -1745,7 +2057,7 @@ def compare_paths(torch, nn, params, cfg, prompts, fused: bool,
         check("extend_logits", ("torch", fused), lk,
               run(("torch", fused), chunked), l32, **info)
     if bad:
-        fail(f"serve: {cfg.name} fused={fused} logits past their limits: "
+        fail(f"{phase}: {cfg.name} fused={fused} logits past their limits: "
              + "; ".join(bad))
 
 
@@ -2231,7 +2543,7 @@ def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
             if not paths_only:
                 eager = serve(torch, ops, _build, Engine, params, cfg, prompts,
                               fused, max_len, "engine", cuda_graph=False,
-                              repeats=REPEATS)
+                              repeats=MOE_EAGER_REPEATS)
                 graphed = serve(torch, ops, _build, Engine, params, cfg,
                                 prompts, fused, max_len, "engine",
                                 same_as=eager["tokens"], repeats=REPEATS)
@@ -2273,15 +2585,17 @@ def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
 # ---------------------------------------------------------------------------
 
 def mixer_split(torch, ops, params, cfg, rng, phase: str, seq: int,
-                repeats: int, sites) -> None:
+                repeats: int, sites, inputs=None) -> None:
     """The measured split of one eager b1 ``lm_forward`` of ``seq`` tokens
     (the kernel path, unfused) through ``Workload.profile("measured")``
     (each op timed ``1 + repeats`` times), with the shares of ``sites``
     (the mixer's NonGEMM sites, the others) and of the mixer's NonGEMM
-    sites together, and the profile's own wall."""
+    sites together, and the profile's own wall. ``inputs``: the (1, seq,
+    d_model) frames of a model that takes embeddings, in place of tokens."""
     from repro_torch.models import lm_forward
 
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, seq))).cuda()
+    toks = inputs if inputs is not None else torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (1, seq))).cuda()
     name = f"{cfg.name} unfused b-1 s-{seq} bf16"
     t0 = time.perf_counter()
     _, prof, wall_ms, per = measured(ops, lm_forward, (params, toks, cfg),
@@ -2308,20 +2622,22 @@ def mixer_split(torch, ops, params, cfg, rng, phase: str, seq: int,
 
 
 def stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
-             phase: str, arch: str, max_len: int, prompt_lens, profiles,
-             sites, launches: dict, own_launches: dict,
+             phase: str, arch: str, layers: int, max_len: int, prompt_lens,
+             profiles, sites, launches: dict, own_launches: dict,
              paths_only: bool = False) -> None:
     """Phase ``phase`` (``recurrent``, ``xlstm``): ``arch``, whose layers
-    carry a running state (RG-LRU, mLSTM, sLSTM), at full size in bf16
-    (random weights from SEED): the parameter count is the config's; the
-    Engine (4 slots, ``max_len``) prefills each of ``prompt_lens`` at its
+    carry a running state (RG-LRU, mLSTM, sLSTM), made at full size in
+    bf16 (random weights from SEED; the parameter count the config's) and
+    served at full width, its first ``layers`` layers: the Engine (4 slots,
+    ``max_len``) prefills each of ``prompt_lens`` at its
     exact length (``_bucket``: a state would consume pads); the
     PagedEngine refuses the model; unfused and fused, the Engine serves
     them eager and graphed, tokens identical, decode tok/s and the replay
     beside the step's byte bound (which reads and writes the state); the
     kernel path's logits against the plain path's under the anchored rule;
-    the measured split of one eager b1 forward at each (seq, repeats) of
-    ``profiles`` (``mixer_split``). The launches of its served runs go to
+    the measured split of one eager b1 forward at each (seq, repeats,
+    layers) of ``profiles`` (``mixer_split``; its first ``layers``, all
+    where None). The launches of its served runs go to
     ``launches`` and to ``own_launches``; the walls of its parts to a
     ``walls`` line. Its memory comes back at the end."""
     cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
@@ -2336,6 +2652,11 @@ def stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
     if n_params != cfg.n_params():
         fail(f"{phase}: {n_params} parameters, the config counts "
              f"{cfg.n_params()}")
+    # the served depth: its first ``layers`` layers, full width
+    params = {**params, "layers": params["layers"][:layers]}
+    cfg = cfg.replace(n_layers=layers)
+    emit(phase=phase, step="served depth", layers=layers,
+         layer_kinds=cfg.layer_kinds())
     rng = np.random.default_rng(SEED)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in prompt_lens]
@@ -2375,9 +2696,11 @@ def stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
         walls[f"serve fused={fused}"] = round(t2 - t1, 2)
         walls[f"compare_paths fused={fused}"] = round(time.perf_counter() - t2, 2)
     if not paths_only:
-        for seq, repeats in profiles:
-            mixer_split(torch, ops, params, cfg, rng, phase, seq, repeats,
-                        sites)
+        for seq, repeats, cut in profiles:     # the first ``cut`` layers
+            mixer_split(torch, ops,
+                        {**params, "layers": params["layers"][:cut]},
+                        cfg.replace(n_layers=cut or layers), rng, phase, seq,
+                        repeats, sites)
     emit(phase=phase, step="walls", walls_s=walls)
     del params
     gc.collect()
@@ -2386,6 +2709,195 @@ def stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
     emit(phase=phase, step="freed", config=cfg.name, left_bytes=left)
     if left > 1 << 30:
         fail(f"{phase}: {left} bytes left after its weights were freed")
+
+
+# ---------------------------------------------------------------------------
+# phase softcap: gemma3-27b with Gemma 2's logit caps
+# ---------------------------------------------------------------------------
+
+def softcap_phase(torch, nn, ops, _build, Engine, params, cfg, prompts,
+                  max_len: int, launches: dict, own_launches: dict,
+                  paths_only: bool = False) -> None:
+    """Phase ``softcap``: ``cfg`` (gemma3-27b at full width, phase 3's
+    served ``params``) cut to its first SC_LAYERS layers with SC_CAPS set:
+    the capped attention kernels (window in the local layers, causal in
+    the global one, decode in both) and the final logit cap on the main
+    path. Unfused and fused, the Engine (4 slots, ``max_len``) serves
+    ``prompts`` (phase 3's, past the 1024-token window) eager then graphed,
+    tokens identical, with ``serve``'s repeats, launch, counter and memory
+    checks; the same engine without the caps is served graphed once in
+    the same process, its replay beside the capped one's; then the kernel
+    path's logits against the plain path's under the anchored rule. The
+    capped runs' launches go to ``launches`` and ``own_launches``."""
+    ccfg = cfg.replace(n_layers=SC_LAYERS, **SC_CAPS)
+    ucfg = cfg.replace(n_layers=SC_LAYERS)
+    cut = {**params, "layers": params["layers"][:SC_LAYERS]}
+    emit(phase="softcap", step="config", config=ccfg.name,
+         layers=SC_LAYERS, layer_kinds=ccfg.layer_kinds(), **SC_CAPS,
+         n_params=sum(t.numel() for t in _leaves(cut)))
+    for fused in (False, True):
+        if not paths_only:
+            eager = serve(torch, ops, _build, Engine, cut, ccfg, prompts, fused,
+                          max_len, "engine, capped", cuda_graph=False,
+                          repeats=REPEATS)
+            graphed = serve(torch, ops, _build, Engine, cut, ccfg, prompts,
+                            fused, max_len, "engine, capped",
+                            same_as=eager["tokens"], repeats=REPEATS)
+            uncapped = serve(torch, ops, _build, Engine, cut, ucfg, prompts,
+                             fused, max_len, "engine, uncapped", repeats=1)
+            cap_ms = graphed["replay"]["replay_ms"]
+            plain_ms = uncapped["replay"]["replay_ms"]
+            emit_graph_vs_eager("softcap", ccfg, fused, "engine, capped",
+                                graphed, eager, uncapped_replay_ms=plain_ms,
+                                cap_replay_cost_ms=round(cap_ms - plain_ms, 4))
+            for run in (eager, graphed):
+                for k, n in run["launches"].items():
+                    launches[k] += n
+                    own_launches[k] = own_launches.get(k, 0) + n
+        compare_paths(torch, nn, cut, ccfg, prompts[:4], fused, max_len)
+
+
+# ---------------------------------------------------------------------------
+# phase musicgen: musicgen-large through the step builders, on frames
+# ---------------------------------------------------------------------------
+
+def musicgen_phase(torch, nn, ops, _build, init_lm, get_config,
+                   launches: dict, own_launches: dict,
+                   paths_only: bool = False) -> None:
+    """Phase ``musicgen``: musicgen-large at full size in bf16 (random
+    weights from SEED, the parameter count the config's), served through
+    ``make_prefill_step`` and ``make_serve_step`` on frame embeddings from
+    seeded generators: the prefill of MG_FRAMES right-padded rows with
+    their ``lengths``, then NEW_TOKENS decode steps of the 4 slots, each fed
+    a fresh (4, d_model) frame batch, eager and as a ``StepGraph`` (float
+    frames and int32 positions through its pinned buffers), from copies of
+    the same caches: codebook tokens identical, launches exactly what the
+    prefill and the steps need, counters zero, the replay beside the
+    step's byte bound (every weight and each row's valid keys and values);
+    unfused and fused. Then the kernel path's last prefill logits and one
+    decode step's logits against the plain path's (the fused path's also
+    against the unfused kernel path's) under the anchored rule, and the
+    measured b1 split at each of MG_PROFILE_SEQS."""
+    from repro_torch.serving import make_prefill_step, make_serve_step
+    from repro_torch.serving.cuda_graph import StepGraph
+
+    cfg = get_config(MG_ARCH).replace(dtype="bfloat16", param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    params = init_lm(torch.Generator("cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit(phase="musicgen", step="init", config=cfg.name, n_params=n_params,
+         weight_gb=round(2 * n_params / 1e9, 3),
+         init_s=round(time.perf_counter() - t0, 3),
+         mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    if n_params != cfg.n_params():
+        fail(f"musicgen: {n_params} parameters, the config counts "
+             f"{cfg.n_params()}")
+    b, s, d = len(MG_FRAMES), max(MG_FRAMES), cfg.d_model
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    frames = torch.randn((b, s, d), generator=gen, device="cuda")
+    for i, n in enumerate(MG_FRAMES):
+        frames[i, n:] = 0.0                          # right-padded
+    lengths = torch.tensor(MG_FRAMES, dtype=torch.int32, device="cuda")
+    feeds = torch.randn((NEW_TOKENS, b, d),
+                        generator=torch.Generator().manual_seed(SEED + 3)).numpy()
+    pos0 = np.array(MG_FRAMES, np.int32)
+    walls = {}
+    for fused in (False, True):
+        t1 = time.perf_counter()
+        prefill = make_prefill_step(cfg, MG_MAX_LEN, fused=fused)
+        step = make_serve_step(cfg, greedy=True, fused=fused)
+        if not paths_only:
+            ops.reset_launches()
+            logits, caches = prefill(params, frames, lengths)
+            runs = {}
+            for graphed in (False, True):
+                cs = [{n: t.clone() for n, t in c.items()} for c in caches]
+
+                def run(f, p, cs=cs):
+                    return step(params, f, p, cs)[0]
+                if graphed:
+                    runner = StepGraph(run, [feeds[0], pos0], torch.device("cuda"))
+                else:
+                    def runner(f, p, run=run):
+                        return run(torch.from_numpy(f).cuda(),
+                                   torch.from_numpy(p).cuda())
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                toks = [runner(feeds[i], pos0 + i).cpu().numpy()
+                        for i in range(NEW_TOKENS)]
+                torch.cuda.synchronize()
+                runs[graphed] = dict(tokens=np.stack(toks).tolist(),
+                                     s=time.perf_counter() - t2,
+                                     graph=runner if graphed else None)
+                del cs
+            need = {}
+            for per, times in ((per_forward_launches(cfg, fused), 1),
+                               (per_forward_launches(cfg, fused, decode=True),
+                                2 * NEW_TOKENS)):
+                for k, n in per.items():
+                    need[k] = need.get(k, 0) + n * times
+            got = {k: v for k, v in ops.launches.items() if v}
+            check_counters(torch, _build, f"musicgen fused={fused}")
+            graph = runs[True]["graph"]
+            for _ in range(3):
+                graph._graph.replay()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            for _ in range(20):
+                graph._graph.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            replay = e0.elapsed_time(e1) / 20
+            last = (pos0 + NEW_TOKENS - 1).tolist()
+            nbytes = step_bytes(cfg, params, last, MG_MAX_LEN, paged=False)
+            b_ms, _ = bound_ms(nbytes, 0.0, "bfloat16")
+            emit(phase="musicgen", model=cfg.name, fused=fused,
+                 step="prefill_step, then serve_step eager vs graph",
+                 frames=list(MG_FRAMES), max_len=MG_MAX_LEN,
+                 prefill_logits_shape=list(logits.shape),
+                 tokens_identical=runs[False]["tokens"] == runs[True]["tokens"],
+                 first_tokens=[int(t) for t in logits.float().argmax(-1)],
+                 tokens=runs[True]["tokens"],
+                 eager_decode_tok_per_s=round(b * NEW_TOKENS / runs[False]["s"], 2),
+                 graph_decode_tok_per_s=round(b * NEW_TOKENS / runs[True]["s"], 2),
+                 replay_ms=round(replay, 4), bound_ms=round(b_ms, 4),
+                 bound_by="bytes", step_bytes=nbytes, positions=last,
+                 bound_frac=round(b_ms / replay, 4), launches=got, need=need)
+            if runs[False]["tokens"] != runs[True]["tokens"]:
+                fail(f"musicgen fused={fused}: the graph's codebook tokens "
+                     "differ from the eager step's")
+            if any(not 0 <= t < cfg.vocab_size for row in runs[True]["tokens"]
+                   for t in row):
+                fail(f"musicgen fused={fused}: a token outside the codebook")
+            if got != need:
+                fail(f"musicgen fused={fused}: launched {got}, the prefill and "
+                     f"{2 * NEW_TOKENS} steps need {need}")
+            for k, n in got.items():
+                launches[k] += n
+                own_launches[k] = own_launches.get(k, 0) + n
+            del runs, graph, runner, run, caches, logits
+            gc.collect()
+        t2 = time.perf_counter()
+        compare_paths(torch, nn, params, cfg, None, fused, MG_MAX_LEN,
+                      frames=(frames, lengths, feeds[0]))
+        walls[f"serve fused={fused}"] = round(t2 - t1, 2)
+        walls[f"compare_paths fused={fused}"] = round(time.perf_counter() - t2, 2)
+    if not paths_only:
+        rng = np.random.default_rng(SEED)
+        for seq, repeats in MG_PROFILE_SEQS:
+            x = torch.randn((1, seq, d), generator=gen, device="cuda")
+            mixer_split(torch, ops, params, cfg, rng, "musicgen", seq, repeats,
+                        MG_SITES, inputs=x)
+    emit(phase="musicgen", step="walls", walls_s=walls)
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - mem0
+    emit(phase="musicgen", step="freed", config=cfg.name, left_bytes=left)
+    if left > 1 << 30:
+        fail(f"musicgen: {left} bytes left after its weights were freed")
 
 
 # ---------------------------------------------------------------------------
@@ -3127,8 +3639,8 @@ def main(argv=None) -> int:
     # -- phase 2: kernels --------------------------------------------------
     gen = torch.Generator("cuda").manual_seed(SEED)
     if not args.paths_only:
-        worst, worst_mla, worst_rg, worst_xl = check_kernels(torch, ops, ref,
-                                                             gen)
+        (worst, worst_mla, worst_rg, worst_xl, worst_sc,
+         worst_mg) = check_kernels(torch, ops, ref, gen)
 
     lap("kernels")
     launches = dict.fromkeys(SOURCES, 0)
@@ -3141,17 +3653,26 @@ def main(argv=None) -> int:
     # -- phase recurrent: recurrentgemma-2b, full size -----------------------
     rg_launches = {}
     stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
-             "recurrent", RG_ARCH, RG_MAX_LEN, RG_PROMPTS, RG_PROFILE_SEQS,
+             "recurrent", RG_ARCH, RG_LAYERS, RG_MAX_LEN, RG_PROMPTS,
+             RG_PROFILE_SEQS,
              RG_SITES, launches, rg_launches, args.paths_only)
 
     lap("recurrent")
     # -- phase xlstm: xlstm-350m, full size ----------------------------------
     xl_launches = {}
     stateful(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
-             "xlstm", XL_ARCH, XL_MAX_LEN, XL_PROMPTS, XL_PROFILE_SEQS,
+             "xlstm", XL_ARCH, XL_LAYERS, XL_MAX_LEN, XL_PROMPTS,
+             XL_PROFILE_SEQS,
              XL_SITES, launches, xl_launches, args.paths_only)
 
     lap("xlstm")
+    # -- phase musicgen: musicgen-large, full size, on frames ----------------
+    mg_launches = {}
+    musicgen_phase(torch, nn, ops, _build, init_lm, get_config, launches,
+                   mg_launches, args.paths_only)
+
+    lap("musicgen")
+    sc_launches = {}
     # -- phases 3 and 4, one model at a time -------------------------------
     qdq_kept = []           # (model, variant, measured profile, records)
     nms_inputs = None
@@ -3232,6 +3753,12 @@ def main(argv=None) -> int:
             compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len,
                           extend_prompt)
         lap(f"{arch} serve")
+        if arch == SC_ARCH:
+            # -- phase softcap: its first layers with Gemma 2's caps -------
+            softcap_phase(torch, nn, ops, _build, Engine, params, cfg,
+                          prompts, max_len, launches, sc_launches,
+                          args.paths_only)
+            lap("softcap")
         if not args.paths_only:
             pcfg = cfg.replace(n_layers=PROFILE_LAYERS.get(arch, cfg.n_layers))
             for seq, fused in PROFILES.get(arch, ((16, False), (16, True))):
@@ -3332,17 +3859,22 @@ def main(argv=None) -> int:
                                                          "amax_ms")
                                      if k in tm}})
         for key, errs in (("mla", worst_mla), ("recurrentgemma", worst_rg),
-                          ("xlstm", worst_xl)):
-            if key in tm:       # MLA's, recurrentgemma-2b's, xlstm-350m's shapes
-                m = tm[key]
+                          ("xlstm", worst_xl), ("softcap", worst_sc),
+                          ("musicgen", worst_mg)):
+            if key in tm:       # MLA's, recurrentgemma-2b's, xlstm-350m's,
+                m = tm[key]     # the capped and musicgen-large's shapes
                 kernels[-1][key] = {
                     "shape": m["shape"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                     "library_ms": m["library_ms"], "eager_ms": m["eager_ms"],
                     "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                     "max_abs_err": errs[name],
-                    **{k: m[k] for k in ("body", "plan", "mul_ms") if k in m}}
+                    **{k: m[k] for k in ("body", "plan", "mul_ms",
+                                         "uncapped_ms", "sdpa_uncapped_ms",
+                                         "library_max_abs_err")
+                       if k in m}}
         for key, counts in (("recurrentgemma", rg_launches),
-                            ("xlstm", xl_launches)):
+                            ("xlstm", xl_launches), ("softcap", sc_launches),
+                            ("musicgen", mg_launches)):
             if key in tm:
                 kernels[-1][key]["launches"] = counts.get(name, 0)
     lap("timing")

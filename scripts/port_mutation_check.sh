@@ -101,6 +101,15 @@ mut decode_wide_skips_last_k_step decode.cu \
 # of heads 0-5 (and, one split a row, on the next row's output)
 mut decode_g10_stores_padded_rows decode.cu \
   's/if (row >= G) continue;/if (row >= kMmaM) continue;/g'
+# the bf16 body's softcap after the mask instead of before it: a masked
+# score becomes -cap * log2(e), so a row that sees no key leaves as a mean
+# of the values (phase 2's capped window case with rows past the keys)
+mut attn_softcap_after_mask attention.cu \
+  's/^            s\[j\]\[e\] = repro::softcap<CAP>(s\[j\]\[e\] \* scale, cap) \* kLog2e;$/            s[j][e] *= scale;/; /if (!vis) s\[j\]\[e\] = repro::kNegInf;/{n;s/^          }$/          }\n          if constexpr (CAP) s[j][e] = repro::softcap<CAP>(s[j][e], cap) * kLog2e;/}'
+# decode's softcap taken on the log2-unit score (tanh of s * log2(e) / cap,
+# brought back to natural units): a capped score moves past a few units
+mut decode_softcap_log2_units decode.cu \
+  's/valid ? repro::softcap<CAP>(sc \* scale, cap) : repro::kNegInf;/valid ? repro::softcap<CAP>(sc * scale * kLog2e, cap) * kLn2 : repro::kNegInf;/'
 # the MoE combine ignoring keep: a dropped choice reads the clamped row
 # e*C - 1 of another token (phase moe's layer reference catches it)
 mut moe_combine_ignores_keep models/moe.py \

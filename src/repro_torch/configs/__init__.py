@@ -16,8 +16,10 @@ mixture-of-experts configs qwen2-moe-a2.7b
 ``repro/configs/deepseek_v2_lite_16b.py``), and the hybrid recurrent
 recurrentgemma-2b (``repro/configs/recurrentgemma_2b.py``: RG-LRU blocks
 beside sliding-window attention) and xlstm-350m
-(``repro/configs/xlstm_350m.py``: mLSTM and sLSTM blocks), run through the
-LM stack;
+(``repro/configs/xlstm_350m.py``: mLSTM and sLSTM blocks), and the audio
+decoder musicgen-large (``repro/configs/musicgen_large.py``: sinusoidal
+positions over precomputed EnCodec frame embeddings), run through the LM
+stack;
 the vision family (``vit-b16-cls``, ``repro/configs/vit_b16.py``, and
 ``detector-vit-s``, ``repro/configs/detector_vit_s.py``) through
 ``repro_torch.models.vision``.
@@ -308,6 +310,29 @@ _CONFIGS: Dict[str, ModelConfig] = {
         ffn="gelu",
         causal=True,
         tie_embeddings=False,
+    ),
+    # repro/configs/musicgen_large.py: the audio decoder over precomputed
+    # EnCodec frame embeddings (the frontend is a stub), one codebook head
+    "musicgen-large": ModelConfig(
+        remat_policy="proj",
+        name="musicgen-large",
+        family="audio",
+        n_layers=48,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=32,
+        d_ff=8192,
+        vocab_size=2048,
+        block_pattern=("attn",),
+        pos_emb="sinusoidal",
+        norm="layernorm",
+        ffn="gelu",
+        ffn_bias=True,
+        qkv_bias=False,
+        causal=True,
+        tie_embeddings=False,
+        input_mode="embeddings",
+        loss_chunk=0,
     ),
     # the embeddings stub: the LM stack on precomputed patch embeddings
     "vit-b16": ModelConfig(

@@ -32,6 +32,12 @@ row and head to finish merges the partial softmaxes, in the same launch
 (``csrc/decode.cu``). MLA's absorbed decode runs a wide body of its own,
 in bf16 on the tensor cores with a plan of 32-key splits that fills the
 card for its one KV head, in f32 on the FMA units (:func:`decode_body`).
+
+The softcap fragment (``softcap=``, Gemma 2's attention logit cap): the
+scores are capped, ``tanh(s / cap) * cap`` on the natural-unit score
+before the mask, in instantiations of their own that
+``csrc/attention_softcap.cu`` and ``csrc/decode_softcap.cu`` build beside
+the uncapped ones, at the common head dims alone (:func:`softcap_taken`).
 """
 
 from __future__ import annotations
@@ -87,6 +93,13 @@ def decode_dims_taken(dk: int, dv: int, group: int) -> bool:
     return DECODE_WIDE_DIMS.get((dk, dv)) == group
 
 
+def softcap_taken(dk: int, dv: int) -> bool:
+    """Whether the capped instantiations take (Dk, Dv): the common ones
+    alone, both up to :data:`COMMON_MAX_DIM` (no model caps MLA's or
+    recurrentgemma's wide attention)."""
+    return 0 < dk <= COMMON_MAX_DIM and 0 < dv <= COMMON_MAX_DIM
+
+
 def decode_wide(dk: int, dv: int) -> bool:
     """Whether (Dk, Dv) runs one of decode's wide bodies (a head dim past
     128: MLA's absorbed decode, recurrentgemma's 256), which
@@ -103,6 +116,19 @@ _FULL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
               _I, _I, _P]
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 ctypes.c_float, _I, _I, _I, _I, _P]
+
+
+def _entry(source: str, symbol: str, args: list, softcap: Optional[float]):
+    """(the C entry ``symbol`` of ``csrc/<source>.cu``, ()), or with
+    ``softcap`` (its ``_softcap`` twin in ``<source>_softcap.cu``, which
+    takes a ``float cap`` right after the scale, (the cap,)): what the call
+    passes after the scale."""
+    if softcap is None:
+        return _build.entry(source, symbol, args), ()
+    at = args.index(ctypes.c_float) + 1
+    capped = args[:at] + [ctypes.c_float] + args[at:]
+    return (_build.entry(f"{source}_softcap", f"{symbol}_softcap", capped),
+            (float(softcap),))
 
 #: keys per staged tile of csrc/decode.cu's common body (kBK) and of its
 #: bf16 wide body (kMmaBK; the f32 wide body's 16 divide it): a split
@@ -181,59 +207,59 @@ def decode_plan(b: int, hq: int, hkv: int, t: int, dk: int, dv: int,
     return n, decode_chunk(t, n, wide=wide)
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_offset: int, scale: float) -> torch.Tensor:
-    """Causal launch on validated, contiguous CUDA tensors."""
+def _prefill(name: str, symbol: str, args: list, q, k, v, mask_args: tuple,
+             scale: float, softcap: Optional[float]) -> torch.Tensor:
+    """One launch of ``csrc/attention.cu``'s entry ``symbol`` (capped, of
+    ``attention_softcap.cu``'s twin) on validated, contiguous CUDA
+    tensors; ``mask_args``: the entry's q_offset and window, as it takes
+    them."""
     b, sq, hq, dk = q.shape
     _, skv, hkv, dv = v.shape
     o = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=q.device)
     dev, stream = _build.stream_and_device(q)
-    fn = _build.entry("attention", "repro_attention_causal", _ATTN_ARGS)
+    fn, cap = _entry("attention", symbol, args, softcap)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, sq, skv, hq, hkv, dk, dv, q_offset, scale,
-                    _build.DTYPE_CODE[q.dtype], dev, stream), "attention_core")
+                    b, sq, skv, hq, hkv, dk, dv, *mask_args, scale, *cap,
+                    _build.DTYPE_CODE[q.dtype], dev, stream), name)
     return o
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_offset: int, scale: float,
+                   softcap: Optional[float] = None) -> torch.Tensor:
+    """Causal launch on validated, contiguous CUDA tensors."""
+    return _prefill("attention_core", "repro_attention_causal", _ATTN_ARGS,
+                    q, k, v, (q_offset,), scale, softcap)
 
 
 def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int, q_offset: int, scale: float) -> torch.Tensor:
+                     window: int, q_offset: int, scale: float,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """Sliding-window launch on validated, contiguous CUDA tensors."""
-    b, sq, hq, dk = q.shape
-    _, skv, hkv, dv = v.shape
-    o = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=q.device)
-    dev, stream = _build.stream_and_device(q)
-    fn = _build.entry("attention", "repro_attention_window", _WINDOW_ARGS)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, sq, skv, hq, hkv, dk, dv, q_offset, window, scale,
-                    _build.DTYPE_CODE[q.dtype], dev, stream),
-                 "attention_window")
-    return o
+    return _prefill("attention_window", "repro_attention_window",
+                    _WINDOW_ARGS, q, k, v, (q_offset, window), scale, softcap)
 
 
 def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: float) -> torch.Tensor:
+                   scale: float,
+                   softcap: Optional[float] = None) -> torch.Tensor:
     """Full-mask launch on validated, contiguous CUDA tensors."""
-    b, sq, hq, dk = q.shape
-    _, skv, hkv, dv = v.shape
-    o = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=q.device)
-    dev, stream = _build.stream_and_device(q)
-    fn = _build.entry("attention", "repro_attention_full", _FULL_ARGS)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, sq, skv, hq, hkv, dk, dv, scale,
-                    _build.DTYPE_CODE[q.dtype], dev, stream), "attention_full")
-    return o
+    return _prefill("attention_full", "repro_attention_full", _FULL_ARGS,
+                    q, k, v, (), scale, softcap)
 
 
 def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lengths: torch.Tensor, scale: float,
-                plan: Optional[tuple] = None) -> torch.Tensor:
+                plan: Optional[tuple] = None,
+                softcap: Optional[float] = None) -> torch.Tensor:
     """Decode launch on validated, contiguous CUDA tensors; ``lengths`` is
     int32 (B,) on the same card and is read by the kernel alone. With more
     than one split, the partial (m, l, acc) go to f32 scratch from
     ``torch.empty``, and the last split of each (row, KV head) to finish
     merges them, as its stream's counters (``_build.counters``) say.
     ``plan``: (n_split, chunk) in place of :func:`decode_plan`'s (a timing
-    script's candidates; the entry refuses one its body cannot run)."""
+    script's candidates; the entry refuses one its body cannot run).
+    ``softcap``: the capped entry of ``csrc/decode_softcap.cu``."""
     b, _, hq, dk = q.shape
     _, t, hkv, dv = v.shape
     o = torch.empty((b, 1, hq, dv), dtype=v.dtype, device=q.device)
@@ -250,10 +276,10 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                dtype=torch.float32, device=q.device),
                    _build.counters(q.device, stream, b * hkv))
     ptrs = [x.data_ptr() for x in scratch] or [None, None, None]
-    fn = _build.entry("decode", "repro_decode", _DECODE_ARGS)
+    fn, cap = _entry("decode", "repro_decode", _DECODE_ARGS, softcap)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     lengths.data_ptr(), o.data_ptr(), *ptrs,
-                    b, t, hq, hkv, dk, dv, scale, chunk, n_split,
+                    b, t, hq, hkv, dk, dv, scale, *cap, chunk, n_split,
                     _build.DTYPE_CODE[q.dtype], dev, stream),
                  "decode_core")
     return o

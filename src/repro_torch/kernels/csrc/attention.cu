@@ -111,6 +111,18 @@
 //     the TPU body. A row that saw no key at all (Skv == 0, a window past
 //     the keys) leaves the epilogue as exact zeros.
 //
+// The softcap fragment (the TPU body's `softcap`, Gemma 2's attention
+// logit cap): every body takes a compile-time CAP; where it is set the
+// scores are capped, tanh(s / cap) * cap with tanhf and an IEEE division,
+// on the natural-unit score s * scale, before the bf16 body folds log2(e)
+// in and before the mask, so a masked score stays NEG_INF and a row that
+// sees no key still leaves as zeros. The capped instantiations are the
+// common ones alone (head dims up to 128, the three masks, both dtypes):
+// no model caps MLA's (192, 128) or recurrentgemma's (256, 256), whose
+// bodies already spend their registers. attention_softcap.cu builds them
+// as a library of their own; an uncapped instantiation compiles to the
+// code it had without the cap.
+//
 // What it still leaves, for later work: wgmma (the only way to the full
 // tensor-core rate) fed by a warp-specialised TMA producer over a deeper
 // ring of stages, and a split over KV for the shapes that fill few SMs
@@ -164,13 +176,14 @@ __device__ __forceinline__ float group_sum(float v) {
 }
 
 // DKMAX / DVMAX: the largest Dk / Dv the instantiation takes (the staging
-// copies' trip counts and the output columns a thread owns)
-template <typename T, bool VEC, int MASK, int DKMAX, int DVMAX>
+// copies' trip counts and the output columns a thread owns); CAP: the
+// scores capped at `cap` (repro::softcap) before the mask
+template <typename T, bool VEC, int MASK, int DKMAX, int DVMAX, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
-                       int window, float scale) {
+                       int window, float scale, float cap) {
   constexpr int kOCols = DVMAX / kGroup;  // output columns per thread
   extern __shared__ float smem[];
   const int ldq = Dk + 1, ldk = Dk + 1, ldp = kBK + 1;
@@ -247,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
         bool visible = kpos < Skv;  // the ragged last KV tile
         if constexpr (MASK != kFull) visible = visible && qpos >= kpos;
         if constexpr (MASK == kWindow) visible = visible && qpos - kpos < window;
-        s[i][j] = visible ? s[i][j] * scale : repro::kNegInf;
+        s[i][j] = visible ? repro::softcap<CAP>(s[i][j] * scale, cap) : repro::kNegInf;
         mt = fmaxf(mt, s[i][j]);
       }
       const float m_new = fmaxf(m_i[i], group_max(mt));
@@ -370,8 +383,10 @@ __host__ __device__ constexpr int chunks_pow2(int dmax) {
 // 192 and 256, whose Q fragments take 48 and 96 registers more; otherwise
 // the padded dims are runtime values. The grid's z splits Dv: CTA z
 // computes the columns [z * Dv / gridDim.z, (z + 1) * Dv / gridDim.z) of
-// the output (all of them where gridDim.z is 1)
-template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT>
+// the output (all of them where gridDim.z is 1). CAP: the scores capped at
+// `cap` in natural units (s * scale, repro::softcap), then folded into log2
+// units and masked; otherwise scaled by scale_log2 = scale * log2(e) alone
+template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, bool CAP>
 __global__ void __launch_bounds__(WARPS * 32,
                                   EXACT ? (DKMAX > 128 ? 8 : 12) / WARPS : 1)
     attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -379,7 +394,7 @@ __global__ void __launch_bounds__(WARPS * 32,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
                     int Hkv, int Dk, int Dv, int q_offset, int window,
-                    float scale_log2, bool vec) {
+                    float scale_log2, float scale, float cap, bool vec) {
   constexpr int NT = WARPS * 32, BQ = WARPS * 16;
   constexpr int KSTEPS = DKMAX / 16;  // k16 steps of Q.K^T
   constexpr int DTILES = DVMAX / 8;   // n8 tiles of the output
@@ -486,7 +501,8 @@ __global__ void __launch_bounds__(WARPS * 32,
             mma_bf16(s[2 * np + 1], qf[kk], kf[np][2], kf[np][3]);
           }
         }
-      // into log2 units; the mask only where the tile needs it
+      // into log2 units (capped first, in natural units); the mask only
+      // where the tile needs it
       const int qpos0 = q_offset + qw0 + (lane >> 2);  // rows g, g + 8
       const bool tail = k0 + kTK > Skv;
       const bool diag = MASK != kFull && k0 + kTK - 1 > q_offset + qw0;
@@ -495,7 +511,10 @@ __global__ void __launch_bounds__(WARPS * 32,
       for (int j = 0; j < STILES; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[j][e] *= scale_log2;
+          if constexpr (CAP)
+            s[j][e] = repro::softcap<CAP>(s[j][e] * scale, cap) * kLog2e;
+          else
+            s[j][e] *= scale_log2;
           if (tail || diag || edge) {
             const int kpos = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
             const int qpos = qpos0 + (e >> 1) * 8;
@@ -588,18 +607,19 @@ __global__ void __launch_bounds__(WARPS * 32,
   }
 }
 
-template <typename T, bool VEC, int MASK>
+template <typename T, bool VEC, int MASK, bool CAP>
 int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
-                int q_offset, int window, float scale, cudaStream_t stream) {
+                int q_offset, int window, float scale, float cap,
+                cudaStream_t stream) {
   // Dk past 128 (MLA's causal prefill, recurrentgemma's window) stages
   // wider rows: instantiations of their own, so the common one keeps its
-  // trip counts
-  auto kernel = attn_kernel<T, VEC, MASK, kDMax, kDMax>;
-  if constexpr (MASK == kCausal)
-    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kDkWide, kDMax>;
-  if constexpr (MASK == kWindow)
-    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kD256, kD256>;
+  // trip counts; capped, none (the entry refuses them)
+  auto kernel = attn_kernel<T, VEC, MASK, kDMax, kDMax, CAP>;
+  if constexpr (MASK == kCausal && !CAP)
+    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kDkWide, kDMax, false>;
+  if constexpr (MASK == kWindow && !CAP)
+    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kD256, kD256, false>;
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -609,42 +629,45 @@ int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, Dk, Dv,
-      q_offset, window, scale);
+      q_offset, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int MASK>
+template <typename T, int MASK, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
-           int window, float scale, cudaStream_t stream) {
+           int window, float scale, float cap, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = Dk % V == 0 && Dv % V == 0 && repro::aligned16(q) &&
                    repro::aligned16(k) && repro::aligned16(v);
-  return vec ? launch_impl<T, true, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,
-                                          Dv, q_offset, window, scale, stream)
-             : launch_impl<T, false, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,
-                                           Dv, q_offset, window, scale, stream);
+  return vec ? launch_impl<T, true, MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
+                                               Dk, Dv, q_offset, window, scale,
+                                               cap, stream)
+             : launch_impl<T, false, MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
+                                                Dk, Dv, q_offset, window, scale,
+                                                cap, stream);
 }
 
 // DV_SPLIT: the CTAs (grid z) that share a row tile's output columns
-template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, int DV_SPLIT = 1>
+template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, bool CAP,
+          int DV_SPLIT = 1>
 int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
                     int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
-                    int q_offset, int window, float scale, bool vec,
+                    int q_offset, int window, float scale, float cap, bool vec,
                     cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(pad16(Dk), pad16(Dv / DV_SPLIT));
   cudaError_t err = cudaFuncSetAttribute(
-      attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT>,
+      attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = 16 * WARPS;
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + rows - 1) / rows, DV_SPLIT);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT>
+  attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT, CAP>
       <<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, Hq, Hkv, Dk, Dv, q_offset, window, scale * kLog2e, vec);
+      Skv, Hq, Hkv, Dk, Dv, q_offset, window, scale * kLog2e, scale, cap, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,11 +675,13 @@ int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
 // (64, 64), (128, 128), causal only MLA's (192, 128), or, window only,
 // recurrentgemma's (256, 256) as two CTAs of (256, 128); 2 warps a CTA where 4-warp
 // tiles would fill at most half the SMs (the vit-b16 and detector shapes;
-// llama's 128 CTAs at s256 run faster at 4 warps)
-template <int MASK>
+// llama's 128 CTAs at s256 run faster at 4 warps); capped, the common
+// pairs alone (the entry refuses the wide ones)
+template <int MASK, bool CAP>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
-               int window, float scale, int device, cudaStream_t stream) {
+               int window, float scale, float cap, int device,
+               cudaStream_t stream) {
   const bool vec = Dk % 8 == 0 && Dv % 8 == 0 && repro::aligned16(q) &&
                    repro::aligned16(k) && repro::aligned16(v);
   int sms = 0;
@@ -667,24 +692,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       2 * static_cast<int64_t>(B) * Hq * ((Sq + 63) / 64) <= sms;
   const int dkp = pad16(Dk), dvp = pad16(Dv);
 #define REPRO_MMA(DK, DV, W, X)                                              \
-  launch_mma_impl<MASK, DK, DV, W, X>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk,   \
-                                      Dv, q_offset, window, scale, vec,      \
-                                      stream)
+  launch_mma_impl<MASK, DK, DV, W, X, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv,  \
+                                           Dk, Dv, q_offset, window, scale,  \
+                                           cap, vec, stream)
 #define REPRO_MMA_DIMS(DK, DV, W)                                            \
   (Dk == DK && Dv == DV ? REPRO_MMA(DK, DV, W, true)                         \
                         : REPRO_MMA(DK, DV, W, false))
-  if constexpr (MASK == kCausal)
+  if constexpr (MASK == kCausal && !CAP)
     if (Dk == kDkWide)  // MLA's (192, 128) alone: exact trip counts
       return narrow ? REPRO_MMA(192, 128, 2, true) : REPRO_MMA(192, 128, 4, true);
-  if constexpr (MASK == kWindow)
+  if constexpr (MASK == kWindow && !CAP)
     if (Dk == kD256)  // (256, 256) alone: Dv over two CTAs of 128 columns
       return narrow
-          ? launch_mma_impl<MASK, 256, 128, 2, true, 2>(
+          ? launch_mma_impl<MASK, 256, 128, 2, true, false, 2>(
                 q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window,
-                scale, vec, stream)
-          : launch_mma_impl<MASK, 256, 128, 4, true, 2>(
+                scale, cap, vec, stream)
+          : launch_mma_impl<MASK, 256, 128, 4, true, false, 2>(
                 q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window,
-                scale, vec, stream);
+                scale, cap, vec, stream);
   if (dkp > 64 || dvp > 64)
     return narrow ? REPRO_MMA_DIMS(128, 128, 2) : REPRO_MMA_DIMS(128, 128, 4);
   return narrow ? REPRO_MMA_DIMS(64, 64, 2) : REPRO_MMA_DIMS(64, 64, 4);
@@ -692,27 +717,36 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 #undef REPRO_MMA
 }
 
-template <int MASK>
+// CAP: the capped instantiations, at the common head dims alone (both up
+// to 128: no model caps MLA's or recurrentgemma's attention), cap > 0
+template <int MASK, bool CAP>
 int entry(const void* q, const void* k, const void* v, void* o, int B, int Sq,
           int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, int window,
-          float scale, int dtype, int device, void* stream) {
+          float scale, float cap, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
       !dims_taken(Dk, Dv, MASK) || q_offset < 0 || window <= 0 ||
-      (Sq + kBQ - 1) / kBQ > 65535)
+      (Sq + kBQ - 1) / kBQ > 65535 ||
+      (CAP && (Dk > kDMax || Dv > kDMax || !(cap > 0.f))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float, MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                               q_offset, window, scale, s);
+    return launch<float, MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                                    q_offset, window, scale, cap, s);
   if (dtype == repro::kBF16)
-    return launch_mma<MASK>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
-                            window, scale, device, s);
+    return launch_mma<MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                                 q_offset, window, scale, cap, device, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
+
+// attention_softcap.cu builds this source again with REPRO_ATTENTION_SOFTCAP
+// defined: the capped entries (the same names with _softcap and a `cap`
+// argument), in a library of their own, so that nvcc compiles the two sets
+// of instantiations in parallel
+#ifndef REPRO_ATTENTION_SOFTCAP
 
 // causal: query row i sits at q_offset + i and sees keys up to it
 extern "C" int repro_attention_causal(const void* q, const void* k,
@@ -720,8 +754,8 @@ extern "C" int repro_attention_causal(const void* q, const void* k,
                                       int Skv, int Hq, int Hkv, int Dk, int Dv,
                                       int q_offset, float scale, int dtype,
                                       int device, void* stream) {
-  return entry<kCausal>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, 1,
-                        scale, dtype, device, stream);
+  return entry<kCausal, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                               q_offset, 1, scale, 0.f, dtype, device, stream);
 }
 
 // window: causal, and query row i sees only keys at q_offset + i - kpos <
@@ -731,8 +765,9 @@ extern "C" int repro_attention_window(const void* q, const void* k,
                                       int Skv, int Hq, int Hkv, int Dk, int Dv,
                                       int q_offset, int window, float scale,
                                       int dtype, int device, void* stream) {
-  return entry<kWindow>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
-                        window, scale, dtype, device, stream);
+  return entry<kWindow, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                               q_offset, window, scale, 0.f, dtype, device,
+                               stream);
 }
 
 // full: every key is visible (KV padding only); Sq != Skv allowed
@@ -741,6 +776,37 @@ extern "C" int repro_attention_full(const void* q, const void* k,
                                     int Skv, int Hq, int Hkv, int Dk, int Dv,
                                     float scale, int dtype, int device,
                                     void* stream) {
-  return entry<kFull>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, 1, scale,
-                      dtype, device, stream);
+  return entry<kFull, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, 1,
+                             scale, 0.f, dtype, device, stream);
 }
+
+#else
+
+// the three masks with the scores capped at `cap` (> 0) before the mask;
+// head dims up to 128
+extern "C" int repro_attention_causal_softcap(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, float scale,
+    float cap, int dtype, int device, void* stream) {
+  return entry<kCausal, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                              q_offset, 1, scale, cap, dtype, device, stream);
+}
+
+extern "C" int repro_attention_window_softcap(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, int window,
+    float scale, float cap, int dtype, int device, void* stream) {
+  return entry<kWindow, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                              q_offset, window, scale, cap, dtype, device,
+                              stream);
+}
+
+extern "C" int repro_attention_full_softcap(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Skv, int Hq, int Hkv, int Dk, int Dv, float scale, float cap,
+    int dtype, int device, void* stream) {
+  return entry<kFull, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, 1,
+                            scale, cap, dtype, device, stream);
+}
+
+#endif

@@ -18,6 +18,19 @@ constexpr int kBF16 = 1;
 // finite, as in the JAX kernels: exp(m_prev - m_new) never sees -inf - -inf
 constexpr float kNegInf = -1e30f;
 
+// The attention logit cap of the TPU body `_online_softmax_step`
+// (src/repro/kernels/attn_template.py:136-138): tanh(s / cap) * cap on the
+// natural-unit score, after the scale and before the mask (a masked score
+// stays NEG_INF, so a row that sees no key still leaves as zeros). tanhf and
+// an IEEE division: tanh.approx.f32 errs by ~2^-11 relative, 0.025 of a
+// score at cap 50, past f32's limits. CAP false returns the score as it
+// is, so an uncapped instantiation compiles to the code it had without it
+template <bool CAP>
+__device__ __forceinline__ float softcap(float s, float cap) {
+  if constexpr (CAP) return tanhf(s / cap) * cap;
+  return s;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -91,6 +91,17 @@
 //   shuffles closing each score, four adjacent P.V columns a thread;
 //   q, the scores and the (m, l) state in f32: 179 KB (89 KB at 256 / 256
 //   and G 10, its instantiation at that group).
+//
+// The softcap fragment (the TPU body's `softcap`, Gemma 2's attention
+// logit cap): the common body takes a compile-time CAP; where it is set
+// each score is capped, tanh(s / cap) * cap with tanhf and an IEEE
+// division, on the natural-unit score before the mask (this body has no
+// log2 fold), so a key past the length stays NEG_INF and a length of 0
+// still gives zeros. The partials' (m, l) and the merge are those of the
+// capped scores, unchanged. The wide bodies take no cap: no model caps
+// MLA's absorbed decode or recurrentgemma's 256 / 256, and their registers
+// are spent. decode_softcap.cu builds the capped instantiations as a
+// library of their own; an uncapped one compiles to the code it had.
 #include "common.cuh"
 
 namespace {
@@ -209,14 +220,17 @@ __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* __restrict__
 // GC: the group G = Hq / Hkv where it is 1, 2, 4 or 8 (16 in the f32 wide
 // body: MLA's), known at compile time, so that a thread's G partial dots
 // and accumulators stay in registers and its loops carry no branch; 0: any
-// G up to kGMax, guarded. BK: keys a tile; PW: P.V columns a thread owns
-template <typename T, bool VEC, int GC, int BK, int PW>
+// G up to kGMax, guarded. BK: keys a tile; PW: P.V columns a thread owns;
+// CAP: the scores capped at `cap` (repro::softcap, natural units) before
+// the mask
+template <typename T, bool VEC, int GC, int BK, int PW, bool CAP>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
                   T* __restrict__ o, float* __restrict__ part_acc,
                   float* __restrict__ part_ml, int* __restrict__ sem, int Tlen,
-                  int Hq, int Hkv, int Dk, int Dv, float scale, int chunk) {
+                  int Hq, int Hkv, int Dk, int Dv, float scale, float cap,
+                  int chunk) {
   constexpr int VW = VEC ? 16 / sizeof(T) : 1;  // elements a score load reads
   constexpr int TPK = kThreads / BK;            // threads a key (2, 4, 8)
   constexpr int NPL = (BK + 31) / 32;           // scores a lane of the softmax
@@ -332,7 +346,8 @@ __global__ void __launch_bounds__(kThreads)
         float sc = part[g];
 #pragma unroll
         for (int o = 1; o < TPK; o <<= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
-        if (sub == 0) Ss[g * BK + key] = valid ? sc * scale : repro::kNegInf;
+        if (sub == 0)
+          Ss[g * BK + key] = valid ? repro::softcap<CAP>(sc * scale, cap) : repro::kNegInf;
       }
     }
     __syncthreads();
@@ -823,38 +838,41 @@ int launch_mma(const void* q, const void* k, const void* v, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VEC, int GC, int BK, int PW>
+template <typename T, bool VEC, int GC, int BK, int PW, bool CAP>
 int launch_impl(const void* q, const void* k, const void* v,
                 const void* lengths, void* o, void* part_acc, void* part_ml,
                 void* sem, int B, int Tlen, int Hq, int Hkv, int Dk, int Dv,
-                float scale, int chunk, int n_split, cudaStream_t stream) {
+                float scale, float cap, int chunk, int n_split,
+                cudaStream_t stream) {
   const size_t smem = smem_bytes(Hq / Hkv, Dk, Dv, sizeof(T), VEC);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, VEC, GC, BK, PW>,
+      decode_kernel<T, VEC, GC, BK, PW, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B) * Hkv, n_split);
-  decode_kernel<T, VEC, GC, BK, PW><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<T, VEC, GC, BK, PW, CAP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<T*>(o), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), static_cast<int*>(sem), Tlen, Hq, Hkv, Dk,
-      Dv, scale, chunk);
+      Dv, scale, cap, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool CAP>
 int launch_vec(const void* q, const void* k, const void* v,
                const void* lengths, void* o, void* part_acc, void* part_ml,
                void* sem, int B, int Tlen, int Hq, int Hkv, int Dk, int Dv,
-               float scale, int chunk, int n_split, cudaStream_t stream) {
+               float scale, float cap, int chunk, int n_split,
+               cudaStream_t stream) {
 #define REPRO_DECODE_AT(GC, BK, PW)                                        \
-  launch_impl<T, VEC, GC, BK, PW>(q, k, v, lengths, o, part_acc, part_ml,  \
-                                  sem, B, Tlen, Hq, Hkv, Dk, Dv, scale,    \
-                                  chunk, n_split, stream)
+  launch_impl<T, VEC, GC, BK, PW, CAP>(q, k, v, lengths, o, part_acc,      \
+                                       part_ml, sem, B, Tlen, Hq, Hkv, Dk, \
+                                       Dv, scale, cap, chunk, n_split,     \
+                                       stream)
 #define REPRO_DECODE(GC) REPRO_DECODE_AT(GC, kBK, VEC ? 2 : 1)
-  if (wide_dims(Dk, Dv)) {  // f32: bf16's wide body is decode_mma_kernel
-    if constexpr (sizeof(T) == 4) {
+  if (wide_dims(Dk, Dv)) {  // f32: bf16's wide body is decode_mma_kernel;
+    if constexpr (sizeof(T) == 4 && !CAP) {  // capped, none (entry refuses)
       if (Dk == kD256) return REPRO_DECODE_AT(kG256, kBKWideF32, kPwWide);
       return REPRO_DECODE_AT(kGWide, kBKWideF32, kPwWide);
     }
@@ -871,15 +889,15 @@ int launch_vec(const void* q, const void* k, const void* v,
 #undef REPRO_DECODE_AT
 }
 
-template <typename T>
+template <typename T, bool CAP>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* o, void* part_acc, void* part_ml, void* sem, int B, int Tlen,
-           int Hq, int Hkv, int Dk, int Dv, float scale, int chunk,
+           int Hq, int Hkv, int Dk, int Dv, float scale, float cap, int chunk,
            int n_split, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = Dk % V == 0 && Dv % V == 0 && repro::aligned16(k) &&
                    repro::aligned16(v);
-  if constexpr (sizeof(T) == 2)
+  if constexpr (sizeof(T) == 2 && !CAP)
     if (wide_dims(Dk, Dv)) {  // dims_taken: (576, 512) at 16, (256, 256) at 10
       if (Dk == kD256)
         return launch_mma<kD256, kD256, kG256, kMmaBK>(
@@ -889,15 +907,52 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
           q, k, v, lengths, o, part_acc, part_ml, sem, B, Tlen, Hq, Hkv, scale,
           chunk, n_split, vec, stream);
     }
-  return vec ? launch_vec<T, true>(q, k, v, lengths, o, part_acc, part_ml, sem,
-                                   B, Tlen, Hq, Hkv, Dk, Dv, scale, chunk,
-                                   n_split, stream)
-             : launch_vec<T, false>(q, k, v, lengths, o, part_acc, part_ml,
-                                    sem, B, Tlen, Hq, Hkv, Dk, Dv, scale,
-                                    chunk, n_split, stream);
+  return vec ? launch_vec<T, true, CAP>(q, k, v, lengths, o, part_acc,
+                                        part_ml, sem, B, Tlen, Hq, Hkv, Dk,
+                                        Dv, scale, cap, chunk, n_split, stream)
+             : launch_vec<T, false, CAP>(q, k, v, lengths, o, part_acc,
+                                         part_ml, sem, B, Tlen, Hq, Hkv, Dk,
+                                         Dv, scale, cap, chunk, n_split,
+                                         stream);
+}
+
+// CAP: the capped instantiations, of the common body alone (both head dims
+// up to 128: no model caps MLA's absorbed decode or recurrentgemma's 256),
+// cap > 0
+template <bool CAP>
+int entry(const void* q, const void* k, const void* v, const void* lengths,
+          void* o, void* part_acc, void* part_ml, void* sem, int B, int Tlen,
+          int Hq, int Hkv, int Dk, int Dv, float scale, float cap, int chunk,
+          int n_split, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype != repro::kF32 && dtype != repro::kBF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = body_tile(Dk, Dv, dtype == repro::kBF16 ? 2 : 4);
+  const int max_split = dtype == repro::kBF16 && wide_dims(Dk, Dv) ? kMmaMaxSplits : 65535;
+  if (B <= 0 || Tlen < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
+      !dims_taken(Dk, Dv, Hq / Hkv) ||
+      n_split < 1 || n_split > max_split || chunk < tile || chunk % tile ||
+      static_cast<int64_t>(chunk) * n_split < Tlen ||
+      (n_split > 1 && (part_acc == nullptr || part_ml == nullptr || sem == nullptr)) ||
+      (CAP && (wide_dims(Dk, Dv) || !(cap > 0.f))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kF32)
+    return launch<float, CAP>(q, k, v, lengths, o, part_acc, part_ml, sem, B,
+                              Tlen, Hq, Hkv, Dk, Dv, scale, cap, chunk,
+                              n_split, s);
+  return launch<__nv_bfloat16, CAP>(q, k, v, lengths, o, part_acc, part_ml,
+                                    sem, B, Tlen, Hq, Hkv, Dk, Dv, scale, cap,
+                                    chunk, n_split, s);
 }
 
 }  // namespace
+
+// decode_softcap.cu builds this source again with REPRO_DECODE_SOFTCAP
+// defined: the capped entry (repro_decode_softcap, with a `cap` argument),
+// in a library of its own, so that nvcc compiles it in parallel
+#ifndef REPRO_DECODE_SOFTCAP
 
 // n_split splits of `chunk` keys each (a whole number of the tiles of the
 // body that runs: 64 keys, 32 for bf16's wide body, 16 for f32's; n_split
@@ -910,25 +965,25 @@ extern "C" int repro_decode(const void* q, const void* k, const void* v,
                             void* part_ml, void* sem, int B, int Tlen, int Hq,
                             int Hkv, int Dk, int Dv, float scale, int chunk,
                             int n_split, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype != repro::kF32 && dtype != repro::kBF16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tile = body_tile(Dk, Dv, dtype == repro::kBF16 ? 2 : 4);
-  const int max_split = dtype == repro::kBF16 && wide_dims(Dk, Dv) ? kMmaMaxSplits : 65535;
-  if (B <= 0 || Tlen < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
-      !dims_taken(Dk, Dv, Hq / Hkv) ||
-      n_split < 1 || n_split > max_split || chunk < tile || chunk % tile ||
-      static_cast<int64_t>(chunk) * n_split < Tlen ||
-      (n_split > 1 && (part_acc == nullptr || part_ml == nullptr || sem == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32)
-    return launch<float>(q, k, v, lengths, o, part_acc, part_ml, sem, B, Tlen,
-                         Hq, Hkv, Dk, Dv, scale, chunk, n_split, s);
-  if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, lengths, o, part_acc, part_ml, sem,
-                                 B, Tlen, Hq, Hkv, Dk, Dv, scale, chunk,
-                                 n_split, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return entry<false>(q, k, v, lengths, o, part_acc, part_ml, sem, B, Tlen,
+                      Hq, Hkv, Dk, Dv, scale, 0.f, chunk, n_split, dtype,
+                      device, stream);
 }
+
+#else
+
+// as repro_decode, the scores capped at `cap` (> 0) before the mask; the
+// common body alone (head dims up to 128)
+extern "C" int repro_decode_softcap(const void* q, const void* k,
+                                    const void* v, const void* lengths,
+                                    void* o, void* part_acc, void* part_ml,
+                                    void* sem, int B, int Tlen, int Hq,
+                                    int Hkv, int Dk, int Dv, float scale,
+                                    float cap, int chunk, int n_split,
+                                    int dtype, int device, void* stream) {
+  return entry<true>(q, k, v, lengths, o, part_acc, part_ml, sem, B, Tlen, Hq,
+                     Hkv, Dk, Dv, scale, cap, chunk, n_split, dtype, device,
+                     stream);
+}
+
+#endif

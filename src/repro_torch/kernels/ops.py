@@ -353,8 +353,18 @@ def _check_qkv(name: str, q, k, v) -> None:
                          f"multiple of Hkv {k.shape[2]}")
 
 
-def _check_kernel_dims(name: str, q, v) -> None:
+def _check_softcap(name: str, softcap: Optional[float]) -> None:
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{name}: softcap {softcap} must be > 0")
+
+
+def _check_kernel_dims(name: str, q, v, softcap: Optional[float] = None) -> None:
     dk, dv = q.shape[3], v.shape[3]
+    if softcap is not None and not _attn.softcap_taken(dk, dv):
+        raise ValueError(
+            f"{name}: softcap {softcap} at head dims ({dk}, {dv}): the capped "
+            f"instantiations take both up to {_attn.COMMON_MAX_DIM} alone (the "
+            "wide ones, MLA's and recurrentgemma's, take no cap)")
     if name == "decode_core":
         group = q.shape[2] // v.shape[2]
         if group > _attn.MAX_GQA_GROUP:
@@ -383,87 +393,98 @@ def _check_kernel_dims(name: str, q, v) -> None:
 
 @torch.library.custom_op("repro_torch::attention_core", mutates_args=())
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_offset: int = 0,
-                   scale: Optional[float] = None) -> torch.Tensor:
+                   q_offset: int = 0, scale: Optional[float] = None,
+                   softcap: Optional[float] = None) -> torch.Tensor:
     """Causal GQA attention: q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk),
-    v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); query row i sits at ``q_offset + i``."""
+    v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); query row i sits at ``q_offset + i``.
+    ``softcap``: the scores capped, ``tanh(s / cap) * cap``, before the
+    mask (head dims up to 128 on the card)."""
     on_card = _on_card("attention_core", q, k, v)
     _check_dtype("attention_core", q, k, v)
     _check_qkv("attention_core", q, k, v)
+    _check_softcap("attention_core", softcap)
     if q_offset < 0:
         raise ValueError(f"attention_core: q_offset {q_offset} < 0")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
-        return ref.attention(q, k, v, q_offset=q_offset, scale=scale)
-    _check_kernel_dims("attention_core", q, v)
+        return ref.attention(q, k, v, q_offset=q_offset, scale=scale,
+                             softcap=softcap)
+    _check_kernel_dims("attention_core", q, v, softcap)
     _count("attention_core")
-    return _attn.attention_core(q, k, v, q_offset, scale)
+    return _attn.attention_core(q, k, v, q_offset, scale, softcap)
 
 
 @attention_core.register_fake
-def _(q, k, v, q_offset=0, scale=None):
+def _(q, k, v, q_offset=0, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 
 @torch.library.custom_op("repro_torch::attention_window", mutates_args=())
 def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int, q_offset: int = 0,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """Sliding-window causal GQA attention: as :func:`attention_core`, and
     query row i (at position ``q_offset + i``) sees only the keys ``kpos``
     with ``q_offset + i - kpos < window``."""
     on_card = _on_card("attention_window", q, k, v)
     _check_dtype("attention_window", q, k, v)
     _check_qkv("attention_window", q, k, v)
+    _check_softcap("attention_window", softcap)
     if q_offset < 0 or window <= 0:
         raise ValueError(f"attention_window: q_offset {q_offset} < 0 or "
                          f"window {window} <= 0")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
         return ref.attention(q, k, v, q_offset=q_offset, scale=scale,
-                             window=window)
-    _check_kernel_dims("attention_window", q, v)
+                             window=window, softcap=softcap)
+    _check_kernel_dims("attention_window", q, v, softcap)
     _count("attention_window")
-    return _attn.attention_window(q, k, v, window, q_offset, scale)
+    return _attn.attention_window(q, k, v, window, q_offset, scale, softcap)
 
 
 @attention_window.register_fake
-def _(q, k, v, window, q_offset=0, scale=None):
+def _(q, k, v, window, q_offset=0, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 
 @torch.library.custom_op("repro_torch::attention_full", mutates_args=())
 def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: Optional[float] = None) -> torch.Tensor:
+                   scale: Optional[float] = None,
+                   softcap: Optional[float] = None) -> torch.Tensor:
     """Full-mask GQA attention (every key visible): q (B,Sq,Hq,Dk),
     k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); Sq != Skv allowed
     (cross-attention)."""
     on_card = _on_card("attention_full", q, k, v)
     _check_dtype("attention_full", q, k, v)
     _check_qkv("attention_full", q, k, v)
+    _check_softcap("attention_full", softcap)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
-        return ref.attention(q, k, v, scale=scale, causal=False)
-    _check_kernel_dims("attention_full", q, v)
+        return ref.attention(q, k, v, scale=scale, causal=False,
+                             softcap=softcap)
+    _check_kernel_dims("attention_full", q, v, softcap)
     _count("attention_full")
-    return _attn.attention_full(q, k, v, scale)
+    return _attn.attention_full(q, k, v, scale, softcap)
 
 
 @attention_full.register_fake
-def _(q, k, v, scale=None):
+def _(q, k, v, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 
 @torch.library.custom_op("repro_torch::decode_core", mutates_args=())
 def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                lengths: torch.Tensor,
-                scale: Optional[float] = None) -> torch.Tensor:
+                lengths: torch.Tensor, scale: Optional[float] = None,
+                softcap: Optional[float] = None) -> torch.Tensor:
     """One-query attention: q (B,1,Hq,Dk) over k/v (B,T,Hkv,D) restricted
     to each row's first ``lengths[b]`` positions -> (B,1,Hq,Dv) in v's
-    dtype. A row with ``lengths[b] == 0`` gives zeros."""
+    dtype. A row with ``lengths[b] == 0`` gives zeros. ``softcap``: the
+    scores capped before the mask (head dims up to 128 on the card)."""
     on_card = _on_card("decode_core", q, k, v, lengths)
     _check_dtype("decode_core", q, k, v)
     _check_qkv("decode_core", q, k, v)
+    _check_softcap("decode_core", softcap)
     b = q.shape[0]
     if q.shape[1] != 1:
         raise ValueError(f"decode_core: one query per row, got {q.shape[1]}")
@@ -472,14 +493,15 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lengths.dtype} {tuple(lengths.shape)}")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
-        return ref.decode_attention(q, k, v, lengths, scale=scale).to(v.dtype)
-    _check_kernel_dims("decode_core", q, v)
+        return ref.decode_attention(q, k, v, lengths, scale=scale,
+                                    softcap=softcap).to(v.dtype)
+    _check_kernel_dims("decode_core", q, v, softcap)
     _count("decode_core")
-    return _attn.decode_core(q, k, v, lengths, scale)
+    return _attn.decode_core(q, k, v, lengths, scale, softcap=softcap)
 
 
 @decode_core.register_fake
-def _(q, k, v, lengths, scale=None):
+def _(q, k, v, lengths, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 

@@ -97,9 +97,16 @@ def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return (F.gelu(gf, approximate="tanh") * up.float()).to(gate.dtype)
 
 
+def cap_scores(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``tanh(s / cap) * cap`` (scores as they are where ``cap`` is None):
+    the logit cap of ``repro.kernels.ref`` and ``_online_softmax_step``,
+    on natural-unit scores, after the scale and before the mask."""
+    return s if cap is None else torch.tanh(s / cap) * cap
+
+
 def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
-              causal: bool = True,
-              window: Optional[int] = None) -> torch.Tensor:
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None) -> torch.Tensor:
     """Naive full-matrix GQA attention (the causal, window and full
     fragments of ``repro.kernels.ref.attention``).
 
@@ -108,7 +115,8 @@ def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
     up to it; ``window`` further limits it to keys with
     ``qpos - kpos < window`` (the sliding window of the ``local`` layers).
     ``causal=False`` is the full mask (encoders, cross-attention with
-    ``Sq != Skv``): every key is visible and ``q_offset`` has no effect. A
+    ``Sq != Skv``): every key is visible and ``q_offset`` has no effect.
+    ``softcap``: the scores are capped (:func:`cap_scores`) before the mask. A
     query row with no visible key yields exact zeros.
     """
     b, sq, hq, d = q.shape
@@ -117,7 +125,8 @@ def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
     g = hq // hkv
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf = q.reshape(b, sq, hkv, g, d).float()
-    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) * scale
+    s = cap_scores(torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) * scale,
+             softcap)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(skv, device=q.device)
@@ -134,11 +143,13 @@ def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
 
 
 def decode_attention(q, k, v, lengths: torch.Tensor,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """One-query decode over a per-row valid KV prefix -> f32 (B,1,Hq,Dv).
 
     Mirrors the unfused decode chain of ``models.attention.attn_decode``
-    (grouped einsums, the max-shift softmax).
+    (grouped einsums, the cap where ``softcap`` is given, the max-shift
+    softmax).
     """
     b, _, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -146,7 +157,8 @@ def decode_attention(q, k, v, lengths: torch.Tensor,
     g = hq // hkv
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qh = q.reshape(b, hkv, g, d)
-    s = torch.einsum("bkgd,btkd->bkgt", qh.float(), k.float()) * scale
+    s = cap_scores(torch.einsum("bkgd,btkd->bkgt", qh.float(), k.float())
+                   * scale, softcap)
     lv = lengths.to(device=q.device, dtype=torch.int64).reshape(b)
     valid = torch.arange(t, device=q.device)[None, :] < lv[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)

@@ -14,7 +14,11 @@ the detector's cross-attention. Unfused decode on the kernel path is one
 untagged launch (classed ``fused``); on the plain path it is the tagged qk
 / mask / softmax / pv chain of the JAX reference, op for op. Under
 ``nn.fuse()`` decode is the one ``ng:fused:fused_attn_decode`` operator on
-both backends.
+both backends. ``cfg.attn_logit_softcap`` (Gemma 2's cap) caps the scores,
+``tanh(s / cap) * cap``, after the scale and before the mask, on every
+path: the kernels' capped instantiations on the card, untagged ops
+between ``attn_qk`` and ``attn_mask`` in the plain decode chain as in
+JAX's.
 
 MLA (``init_mla``, ``mla_forward``, ``init_mla_cache``, ``mla_prefill``,
 ``mla_decode``, ``mla_extend``) caches the RMS-normed latent ``c`` and the
@@ -103,21 +107,31 @@ def _qkv(params, x, cfg: ModelConfig, positions):
 
 
 def _attention_impl(q, k, v, q_offset: int = 0, causal: bool = True,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None):
     """Causal attention (the attention_core kernel), causal within
     ``window`` keys (attention_window) or full-mask attention
-    (attention_full), or their plain version."""
+    (attention_full), or their plain version; ``softcap`` caps the scores
+    before the mask.
+
+    The one ``flash_attention`` site with or without the cap. JAX's capped
+    prefill and extend run ``chunked_attention`` instead (``attn_qk`` /
+    ``attn_mask`` / ``online_softmax`` / ``attn_pv`` / ``softmax_norm``),
+    only because its flash VJP takes no cap (``flash_attention_jnp``); the
+    function is the same, the capture's sites differ."""
     with nn.scope(OpGroup.GEMM, "flash_attention"):
         if nn.use_kernels(q):
             from repro_torch.kernels import ops as kops
             if window is not None:
                 return kops.attention_window(q, k, v, window,
-                                             q_offset=q_offset)
+                                             q_offset=q_offset,
+                                             softcap=softcap)
             if causal:
-                return kops.attention_core(q, k, v, q_offset=q_offset)
-            return kops.attention_full(q, k, v)
+                return kops.attention_core(q, k, v, q_offset=q_offset,
+                                           softcap=softcap)
+            return kops.attention_full(q, k, v, softcap=softcap)
         return ref.attention(q, k, v, q_offset=q_offset, causal=causal,
-                             window=window)
+                             window=window, softcap=softcap)
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -129,7 +143,8 @@ def attn_forward(params, x, cfg: ModelConfig, kind: str, positions):
     ``cfg.window_size`` keys for a ``local`` layer. x: (B, S, D)."""
     q, k, v = _qkv(params, x, cfg, positions)
     out = _attention_impl(q, k, v, causal=cfg.causal,
-                          window=_window(cfg, kind))
+                          window=_window(cfg, kind),
+                          softcap=cfg.attn_logit_softcap)
     return nn.linear(nn.merge_heads(out), params["wo"].to(x.dtype))
 
 
@@ -163,7 +178,8 @@ def attn_prefill(params, x, cfg: ModelConfig, kind: str, positions,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg, positions)
-    out = _attention_impl(q, k, v, window=_window(cfg, kind))
+    out = _attention_impl(q, k, v, window=_window(cfg, kind),
+                          softcap=cfg.attn_logit_softcap)
     y = nn.linear(nn.merge_heads(out), params["wo"].to(x.dtype))
     cache = init_attn_cache(cfg, kind, b, max_len, device=x.device)
     if kind != "local":
@@ -214,13 +230,14 @@ def attn_decode(params, x, cfg: ModelConfig, kind: str, cache: dict,
         lengths = (pos + 1).to(torch.int32)
     wo = params["wo"].to(x.dtype)
 
+    cap = cfg.attn_logit_softcap
     if nn.fusion_enabled():
-        o = nn.fused_attn_decode(q, k, v, lengths)
+        o = nn.fused_attn_decode(q, k, v, lengths, softcap=cap)
         o = o.reshape(b, 1, hq * hd).to(x.dtype)
         return nn.linear(o, wo), cache
     if nn.use_kernels(q):
         from repro_torch.kernels import ops as kops
-        o = kops.decode_core(q, k, v, lengths)
+        o = kops.decode_core(q, k, v, lengths, softcap=cap)
         o = o.reshape(b, 1, hq * hd).to(x.dtype)
         return nn.linear(o, wo), cache
 
@@ -229,6 +246,7 @@ def attn_decode(params, x, cfg: ModelConfig, kind: str, cache: dict,
     qh = q.reshape(b, hkv, g, hd)
     with nn.scope(OpGroup.GEMM, "attn_qk"):
         s = torch.einsum("bkgd,btkd->bkgt", qh.float(), k.float()) * scale
+    s = ref.cap_scores(s, cap)          # untagged, as JAX's ``_softcap``
     with nn.scope(OpGroup.ELEMENTWISE, "attn_mask"):
         if kind == "local":     # the side-car, op for op as JAX's jnp path
             cpos, p = cache["pos"], pos[:, None]
@@ -282,7 +300,8 @@ def attn_extend(params, x, cfg: ModelConfig, kind: str, cache: dict,
     k, v = cache["k"], cache["v"]
     k[:, start:start + c_len] = k_new.to(k.dtype)
     v[:, start:start + c_len] = v_new.to(v.dtype)
-    out = _attention_impl(q, k, v, q_offset=start, causal=cfg.causal)
+    out = _attention_impl(q, k, v, q_offset=start, causal=cfg.causal,
+                          softcap=cfg.attn_logit_softcap)
     y = nn.linear(nn.merge_heads(out), params["wo"].to(x.dtype))
     return y, cache
 

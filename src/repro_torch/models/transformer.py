@@ -5,7 +5,8 @@ pre-norm blocks (RMSNorm or LayerNorm) of MHA/GQA attention or MLA
 (``cfg.mla``: DeepSeek-V2's compressed-latent attention) and a dense or
 mixture-of-experts FFN (``models/moe.py``: every layer of an MoE config
 past its ``first_dense_layers``), with RoPE (Llama-2, Gemma 3), learned
-positions (GPT-2, BERT, the ViT stub) or none (the vision backbone). Each layer's kind comes from
+positions (GPT-2, BERT, the ViT stub), sinusoidal ones (MusicGen) or none
+(the vision backbone). Each layer's kind comes from
 ``cfg.layer_kinds()``: ``"attn"`` (global), ``"local"`` (sliding-window
 attention over a ring cache, Gemma 3's 5:1 pattern) or ``"rec"`` (the
 RG-LRU recurrent mixer, ``models/recurrent.py``: RecurrentGemma's two
@@ -21,7 +22,10 @@ causally; encoders
 mask, through ``lm_forward`` only: the JAX package serves no encoder, so
 ``lm_prefill``, ``lm_decode``, ``init_lm_cache`` and the engine reject
 them. Inputs are token ids, or precomputed embeddings where
-``cfg.input_mode == "embeddings"`` (the stub's frontend). Layers are a
+``cfg.input_mode == "embeddings"`` (the ViT stub's frontend, MusicGen's
+EnCodec frames). Gemma 2's logit caps (``cfg.attn_logit_softcap``,
+``cfg.final_logit_softcap``) cap the attention scores
+(``models/attention.py``) and the final logits. Layers are a
 Python list: PyTorch runs eagerly, so the JAX package's ``lax.scan`` over
 stacked layers has no counterpart.
 
@@ -50,6 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch import nn
 from repro_torch.core.taxonomy import OpGroup
+from repro_torch.kernels.attn_template import softcap_taken
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
@@ -66,19 +71,35 @@ XLSTM_KINDS = ("mlstm", "slstm")
 BLOCK_KINDS = ATTN_KINDS + ("rec",) + XLSTM_KINDS
 
 
+#: the positional schemes the port runs (rope inside attention)
+POS_EMBS = ("rope", "learned", "sinusoidal", "none")
+
+
 def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
     """Raise for a config that uses a part of the JAX zoo not ported yet;
     with ``serving`` (prefill, decode, caches, the engine) also for an
-    encoder, which the JAX package does not serve either."""
+    encoder, which the JAX package does not serve either. An attention
+    logit cap is taken where every (Dk, Dv) the attention runs is one the
+    capped kernels take (``attn_template.softcap_taken``); on MLA or a
+    wider head (the wide instantiations, which take no cap) it raises."""
     kinds = set(cfg.layer_kinds())
+    if cfg.mla:     # prefill's (nope + rope, v) and the absorbed decode's
+        head = "MLA"
+        dims = [(cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim),
+                (cfg.kv_lora_rank + cfg.qk_rope_dim, cfg.kv_lora_rank)]
+    else:
+        head = f"head dim {cfg.resolved_head_dim}"
+        dims = [(cfg.resolved_head_dim, cfg.resolved_head_dim)]
+    capped_wide = (bool(cfg.attn_logit_softcap) and bool(kinds & set(ATTN_KINDS))
+                   and not all(softcap_taken(dk, dv) for dk, dv in dims))
     unported = {
         f"block kinds {sorted(kinds - set(BLOCK_KINDS))}":
             not kinds <= set(BLOCK_KINDS),
         f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
         f"ffn {cfg.ffn!r}": cfg.ffn not in M.FFN_KINDS,
-        f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in ("rope", "learned",
-                                                        "none"),
-        "softcaps": bool(cfg.attn_logit_softcap or cfg.final_logit_softcap),
+        f"pos_emb {cfg.pos_emb!r}": cfg.pos_emb not in POS_EMBS,
+        f"attn_logit_softcap {cfg.attn_logit_softcap} on {head} (the wide "
+        "attention instantiations take no cap)": capped_wide,
         f"input_mode {cfg.input_mode!r}": cfg.input_mode not in ("tokens",
                                                                  "embeddings"),
     }
@@ -252,29 +273,64 @@ def block_extend(params, x, cfg: ModelConfig, kind: str, cache, start: int):
     return _block_rest(params, a, x, cfg)[0], cache
 
 
+def sinusoidal_embedding(positions: torch.Tensor, d_model: int,
+                         base: float = 10000.0) -> torch.Tensor:
+    """(B, S) int positions -> (B, S, D) f32 sinusoidal table (MusicGen's):
+    ``[sin(p * f), cos(p * f)]`` at the frequencies ``f_i = base **
+    (-i / half)``, as ``repro.models.transformer.sinusoidal_embedding``.
+    The exponent is JAX's f32 quotient; the power is taken in float64 and
+    rounded once to f32, which gives every one of JAX's f32 frequencies
+    where ``torch.pow`` in f32 misses some by an ulp (a table up to 2e-3
+    apart at position 32768). The table goes straight into the residual."""
+    half = d_model // 2
+    expo = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    freq = torch.pow(base, expo.double()).float()
+    theta = positions[..., None].float() * freq
+    return torch.cat([torch.sin(theta), torch.cos(theta)], dim=-1)
+
+
+def _add_positional(x, positions, params, cfg: ModelConfig):
+    """The position rows the config adds to the embeddings (tagged
+    ``MEMORY`` as JAX's); rope is applied inside attention, "none" adds
+    nothing."""
+    if cfg.pos_emb == "sinusoidal":
+        with nn.scope(OpGroup.MEMORY, "pos_sinusoidal"):
+            return x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+    if cfg.pos_emb == "learned":
+        with nn.scope(OpGroup.MEMORY, "pos_learned"):
+            return x + F.embedding(positions, params["pos"]).to(x.dtype)
+    return x
+
+
 def embed_inputs(params, inputs, cfg: ModelConfig, positions):
     """Tokens (B, S) int -> (B, S, D), or precomputed embeddings (B, S, D)
     passed through, in the activation dtype; scaled by sqrt(d_model)
     (rounded to that dtype first, as JAX) where the config says so; plus
-    the learned position rows where the config has them."""
+    the learned or sinusoidal position rows where the config has them."""
     if cfg.input_mode == "tokens":
         x = nn.embedding_lookup(params["embed"], inputs)
         x = x.to(cfg.activation_dtype)
-    else:      # precomputed modality-frontend embeddings (the ViT stub)
+    else:      # precomputed frontend embeddings (the ViT stub, EnCodec frames)
         x = inputs.to(cfg.activation_dtype)
     if cfg.scale_embeddings:
         x = nn.scale(x, rounded(math.sqrt(cfg.d_model), x.dtype))
-    if cfg.pos_emb == "learned":
-        with nn.scope(OpGroup.MEMORY, "pos_learned"):
-            x = x + F.embedding(positions, params["pos"]).to(x.dtype)
-    return x
+    return _add_positional(x, positions, params, cfg)
 
 
 def logits_from_hidden(params, h, cfg: ModelConfig):
+    """The head (or the tied embedding), then Gemma 2's final logit cap
+    ``tanh(logits / c) * c`` where the config sets one (untagged, as
+    JAX's)."""
     if "head" in params:
-        return nn.linear(h, params["head"].to(h.dtype))
-    # tied head: contract against the embedding table directly
-    return nn.einsum("...d,vd->...v", h, params["embed"].to(h.dtype))
+        logits = nn.linear(h, params["head"].to(h.dtype))
+    else:
+        # tied head: contract against the embedding table directly
+        logits = nn.einsum("...d,vd->...v", h, params["embed"].to(h.dtype))
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
 
 
 def _default_positions(tokens):
@@ -356,7 +412,8 @@ def lm_prefill(params, tokens, cfg: ModelConfig, max_len: int,
 
 
 def lm_decode(params, token, pos, caches: List[dict], cfg: ModelConfig):
-    """One decode step. token: (B,) int; pos: scalar or (B,) absolute
+    """One decode step. token: (B,) int, or a (B, D) frame embedding for
+    ``input_mode == "embeddings"``; pos: scalar or (B,) absolute
     positions. Returns (logits (B, V), caches), the caches updated in
     place."""
     check_supported(cfg, serving=True)

@@ -642,17 +642,21 @@ def _fused_rope(x, positions, base: float = 10000.0, fraction: float = 1.0):
 
 
 @tagged(OpGroup.FUSED, "fused_attn_decode")
-def fused_attn_decode(q, k, v, lengths, scale: Optional[float] = None):
+def fused_attn_decode(q, k, v, lengths, scale: Optional[float] = None,
+                      softcap: Optional[float] = None):
     """One-query decode attention over a per-row valid KV prefix as ONE
     operator: the ``decode_core`` kernel on the card.
 
     q: (B, 1, Hq, Dk); k: (B, T, Hkv, Dk); v: (B, T, Hkv, Dv);
     lengths: (B,) int32 attendable prefix -> (B, 1, Hq, Dv), f32 from the
     plain twin and v's dtype from the kernel (the caller casts).
+    ``softcap``: the scores capped before the mask, as JAX's.
     """
     if use_kernels(q):
-        return _kernels().decode_core(q, k, v, lengths, scale=scale)
-    return ref.decode_attention(q, k, v, lengths, scale=scale)
+        return _kernels().decode_core(q, k, v, lengths, scale=scale,
+                                      softcap=softcap)
+    return ref.decode_attention(q, k, v, lengths, scale=scale,
+                                softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,9 @@ sequences shares ONE KV cache:
   a ``torch.Generator`` seeded by ``seed`` on the engine's device (torch
   cannot replay ``jax.random.categorical``'s stream: the same
   distribution, other draws);
-* the decode step is built once by :func:`make_serve_step`, the port of
-  JAX's jitted step, and on the card it runs as a CUDA graph
+* admission prefills through :func:`make_prefill_step` and the decode
+  step is built once by :func:`make_serve_step`, the ports of JAX's jitted
+  steps, and on the card it runs as a CUDA graph
   (``cuda_graph=``, ``serving/cuda_graph.py``): warmed up eagerly and
   captured at the first decode, replayed at every later one. Prefill,
   admission and chunked ``lm_extend`` stay eager: their shapes and the
@@ -52,6 +53,7 @@ import torch
 from repro_torch import nn
 from repro_torch.models import init_lm_cache, lm_decode, lm_prefill
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import check_supported
 from repro_torch.serving.cuda_graph import StepGraph
 
 
@@ -73,13 +75,35 @@ def _next_or_logits(logits: torch.Tensor, greedy: bool) -> torch.Tensor:
     return torch.argmax(logits.float(), dim=-1) if greedy else logits
 
 
+def make_prefill_step(cfg: ModelConfig, max_len: int,
+                      fused: bool = False) -> Callable:
+    """prefill_step(params, tokens, lengths=None) -> (last_logits, caches).
+
+    The port of ``repro.serving.make_prefill_step``: ``lm_prefill`` of a
+    batch under ``nn.fuse(fused)`` into fresh caches of depth ``max_len``.
+    ``tokens`` are (B, S) ids, or (B, S, d_model) frame embeddings for an
+    ``input_mode == "embeddings"`` config (musicgen-large's EnCodec
+    frames), right-padded with ``lengths`` (B,) the true lengths: the
+    logits are each row's at its last real position. ``params`` is the
+    working copy (``cast_params``), as for :func:`make_serve_step`; there
+    is no ``mesh``: the port serves on one device.
+    """
+    def prefill_step(params, tokens, lengths=None):
+        with nn.fuse(fused):
+            return lm_prefill(params, tokens, cfg, max_len=max_len,
+                              lengths=lengths)
+    return prefill_step
+
+
 def make_serve_step(cfg: ModelConfig, greedy: bool = True,
                     fused: bool = False) -> Callable:
     """serve_step(params, token, pos, caches) -> (token' or logits, caches).
 
     The port of ``repro.serving.make_serve_step``: one ``lm_decode`` of the
     slot table under ``nn.fuse(fused)``, ``pos`` a scalar or a per-slot
-    ``(B,)`` vector. The caches are updated in place
+    ``(B,)`` vector; ``token`` (B,) ids or, for an ``input_mode ==
+    "embeddings"`` config, (B, d_model) frames. The caches are updated in
+    place
     (``nn.kv_cache_update``), where the JAX engine donates them. With
     ``greedy`` the step ends in the argmax and returns (B,) int64 tokens;
     otherwise it returns the (B, V) logits and the caller draws from them
@@ -193,6 +217,11 @@ class Engine:
     of the JAX engine under ``jax.disable_jit()``, what the graph is held
     against); ``True`` on the CPU raises. A capture or replay that fails
     raises: nothing falls back to the eager step.
+
+    Prompts are token ids: a config that takes frame embeddings
+    (``input_mode == "embeddings"``, musicgen-large) raises, as JAX's
+    ``launch/serve.py`` does; such a model is served through
+    :func:`make_prefill_step` and :func:`make_serve_step`.
     """
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
@@ -202,6 +231,12 @@ class Engine:
                  fused: bool = False,
                  clock: Callable[[], float] = time.perf_counter,
                  cuda_graph: Optional[bool] = None):
+        check_supported(cfg, serving=True)      # an encoder raises first
+        if cfg.input_mode != "tokens":
+            raise ValueError(
+                f"{cfg.name} takes frame embeddings (input_mode="
+                f"{cfg.input_mode!r}); the engines serve token prompts: use "
+                "make_prefill_step and make_serve_step")
         self.cfg = cfg
         self.fused = fused
         self.device = params["final_norm"]["scale"].device
@@ -218,6 +253,7 @@ class Engine:
         self.pad_id = pad_id
         self.greedy = greedy
         self.min_prefill_bucket = min_prefill_bucket
+        self._prefill = make_prefill_step(cfg, max_len, fused=fused)
         self._gen = torch.Generator(self.device).manual_seed(seed)
         self._clock = clock
         self.queue: List[Request] = []
@@ -312,12 +348,9 @@ class Engine:
         toks = np.full((1, bucket), self.pad_id, np.int64)
         toks[0, :plen] = req.prompt          # right-padded
         t0 = self._timer()
-        with nn.fuse(self.fused):
-            logits, one = lm_prefill(
-                self.params, torch.from_numpy(toks).to(self.device), self.cfg,
-                max_len=self.max_len,
-                lengths=torch.tensor([plen], dtype=torch.int32,
-                                     device=self.device))
+        logits, one = self._prefill(
+            self.params, torch.from_numpy(toks).to(self.device),
+            torch.tensor([plen], dtype=torch.int32, device=self.device))
         first = self._first_token(logits)
         live = self._live(req, first)
         if live:
@@ -450,8 +483,10 @@ class Engine:
 
 
 from repro_torch.serving.paged import (BlockAllocator, PagedEngine,  # noqa: E402
-                                       PrefixCache, make_paged_decode_step)
+                                       PrefixCache, make_paged_decode_step,
+                                       make_paged_extend_step)
 
 __all__ = ["Engine", "EngineStats", "Request", "cast_params",
-           "make_serve_step", "BlockAllocator", "PagedEngine", "PrefixCache",
-           "make_paged_decode_step"]
+           "make_prefill_step", "make_serve_step", "BlockAllocator",
+           "PagedEngine", "PrefixCache", "make_paged_decode_step",
+           "make_paged_extend_step"]

@@ -65,8 +65,11 @@ def _trace_switches() -> tuple:
 class StepGraph:
     """``step(*inputs) -> out`` on the card, captured at the first call.
 
-    ``inputs`` are host arrays of the step's per-call inputs; a call takes
-    arrays of the same shapes and dtypes. The first call copies them to the
+    ``inputs`` are host arrays of the step's per-call inputs, of any dtype
+    numpy and torch share: int token ids, int32 positions and block
+    tables, or float frames (B, d_model) for a model that takes frame
+    embeddings (musicgen-large's decode step); a call takes arrays of the
+    same shapes and dtypes. The first call copies them to the
     static device buffers, runs ``step`` eagerly on the capture stream (the
     warm-up: it builds the kernels, makes their counters, and its result is
     returned), then captures ``step`` on the same buffers. Every later call

@@ -27,8 +27,9 @@ Three mechanisms ride on the block tables:
   blocks are protected by refcounts and by the scatter guard (``lo``) that
   diverts any overlapping write to the scratch block;
 * **chunked prefill**: long prompts (and prefix hits) admit as a sequence
-  of decode-interleaved ``lm_extend`` chunks, one chunk per engine step,
-  each attending the full cached depth at its absolute offset (the causal
+  of decode-interleaved ``lm_extend`` chunks, one chunk per engine step
+  (:func:`make_paged_extend_step`: gather, ``lm_extend``, scatter), each
+  attending the full cached depth at its absolute offset (the causal
   ``attention_core`` at ``q_offset = start`` on the card).
 
 Block 0 is reserved as a scratch block: unallocated table entries point at
@@ -74,6 +75,17 @@ def _writeback_tree(pools: List[dict], caches: List[dict],
             nn.paged_kv_write(p, c[n][rows, at][:, None], tables, pos)
 
 
+def _scatter_tree(pools: List[dict], caches: List[dict], row: torch.Tensor,
+                  start: int, width: int, lo: int, hi: int) -> None:
+    """Rows [start, start + width) of a B=1 cache view into one sequence's
+    blocks (``row``: its block table); positions outside [lo, hi) go to
+    the scratch block."""
+    for pool, c in zip(pools, caches):
+        for n, p in pool.items():
+            nn.paged_kv_scatter(p, c[n][0, start:start + width], row, start,
+                                lo, hi)
+
+
 def make_paged_decode_step(cfg: ModelConfig, max_len: int,
                            greedy: bool = True, fused: bool = False):
     """paged_step(params, token, pos, pools, tables) -> (token' or logits,
@@ -93,6 +105,33 @@ def make_paged_decode_step(cfg: ModelConfig, max_len: int,
             _writeback_tree(pools, caches, tables, pos)
         return _next_or_logits(logits, greedy), pools
     return paged_step
+
+
+def make_paged_extend_step(cfg: ModelConfig, max_len: int,
+                           fused: bool = False):
+    """extend_step(params, tokens (1, C), start, pools, table_row, lo, hi)
+    -> (logits (1, C, V), pools).
+
+    The port of ``repro.serving.paged.make_paged_extend_step`` on one
+    device: one chunked-prefill step of a single sequence. It gathers the
+    sequence's full-depth view of the pools (``table_row``: its (blocks
+    per sequence,) int32 block table on the pools' device), runs
+    ``lm_extend`` at the absolute offset ``start``, and scatters the
+    chunk's KV rows into its blocks, in place; positions outside [lo, hi)
+    (the reused prefix on the left, bucket padding on the right) go to the
+    scratch block. ``start``, ``lo`` and ``hi`` are host ints (the kernel
+    takes ``start`` as its ``q_offset``), where JAX traces them. ``params``
+    is the working copy (``cast_params``), as for ``make_serve_step``.
+    """
+    def extend_step(params, tokens, start: int, pools, table_row, lo: int,
+                    hi: int):
+        with nn.fuse(fused):
+            caches = _gather_tree(pools, table_row[None], max_len)
+            logits, caches = lm_extend(params, tokens, start, caches, cfg)
+            _scatter_tree(pools, caches, table_row, start, tokens.shape[1],
+                          lo, hi)
+        return logits, pools
+    return extend_step
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +323,7 @@ class PagedEngine(Engine):
         self._prefilling: Dict[int, dict] = {}
         self.cold_prefills = 0
         self.extend_chunks = 0
+        self._extend = make_paged_extend_step(cfg, max_len, fused=self.fused)
 
     def _new_caches(self):
         return None             # the pools below take the contiguous cache's place
@@ -300,15 +340,6 @@ class PagedEngine(Engine):
         """Tokens, positions and the block tables, as they stand after
         ``_ensure_block``: blocks allocated between replays are seen."""
         return [self._cur.astype(np.int64), self._pos, self._tables]
-
-    def _scatter(self, caches: List[dict], row: torch.Tensor, start: int,
-                 width: int, lo: int, hi: int) -> None:
-        """Rows [start, start + width) of a B=1 cache view into one
-        sequence's blocks; positions outside [lo, hi) go to scratch."""
-        for pool, c in zip(self._pools, caches):
-            for n, p in pool.items():
-                nn.paged_kv_scatter(p, c[n][0, start:start + width], row,
-                                    start, lo, hi)
 
     # -- bookkeeping -------------------------------------------------------
     def _allocate(self, n: int) -> List[int]:
@@ -373,7 +404,7 @@ class PagedEngine(Engine):
         self._tables[slot, :] = 0
         self._tables[slot, :len(blocks)] = blocks
         row = torch.from_numpy(self._tables[slot]).to(self.device)
-        self._scatter(one, row, 0, bucket, 0, plen)
+        _scatter_tree(self._pools, one, row, 0, bucket, 0, plen)
         if self.prefix_cache is not None:
             self.prefix_cache.insert(req.prompt, blocks)
 
@@ -431,12 +462,9 @@ class PagedEngine(Engine):
         real = req.prompt[start:min(start + w, plen)]
         toks[0, :len(real)] = real
         t0 = self._timer()
-        with nn.fuse(self.fused):
-            caches = _gather_tree(self._pools, st["row"][None], self.max_len)
-            logits, caches = lm_extend(
-                self.params, torch.from_numpy(toks).to(self.device), start,
-                caches, self.cfg)
-            self._scatter(caches, st["row"], start, w, st["cached"], plen)
+        logits, _ = self._extend(self.params,
+                                 torch.from_numpy(toks).to(self.device), start,
+                                 self._pools, st["row"], st["cached"], plen)
         self.extend_chunks += 1
         st["next"] += 1
         if st["next"] < len(st["chunks"]):
@@ -506,4 +534,4 @@ class PagedEngine(Engine):
 
 
 __all__ = ["BlockAllocator", "PagedEngine", "PrefixCache",
-           "make_paged_decode_step"]
+           "make_paged_decode_step", "make_paged_extend_step"]

@@ -46,11 +46,15 @@ def _pair(rng, shape, dt):
 
 
 def emulate_mma_attention(q, k, v, *, q_offset=0, causal=True, window=None,
-                          scale=None, tile=64, p_terms=2):
+                          scale=None, tile=64, p_terms=2, softcap=None,
+                          cap_after_mask=False):
     """The bf16 body of ``csrc/attention.cu`` in plain torch, in f32 (its
     output before the last rounding): 64-key tiles; S = Q K^T in f32 from
     the bf16 operands (their products are exact in f32), scaled into log2
-    units and masked to the finite NEG_INF; the online max and rescale;
+    units (with ``softcap``: scaled in natural units, capped, then times
+    log2(e); ``cap_after_mask``: the attn_softcap_after_mask mutant, the
+    cap after the mask) and masked to the finite NEG_INF; the online max
+    and rescale;
     P = 2^(S - m) fed to the f32-accumulated P V as ``p_terms`` bf16 terms
     (2: the kernel's head plus the bf16 of the remainder; 1: P rounded to
     bf16), and l the sum of the values the terms hold; a row that saw no
@@ -58,7 +62,8 @@ def emulate_mma_attention(q, k, v, *, q_offset=0, causal=True, window=None,
     b, sq, hq, dk = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
-    c = (1.0 / math.sqrt(dk) if scale is None else scale) * LOG2E
+    scale = 1.0 / math.sqrt(dk) if scale is None else scale
+    c = scale * LOG2E
     qf = q.float().permute(0, 2, 1, 3)
     kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
     vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
@@ -68,7 +73,13 @@ def emulate_mma_attention(q, k, v, *, q_offset=0, causal=True, window=None,
     qpos = q_offset + torch.arange(sq)[:, None]
     for k0 in range(0, skv, tile):
         kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
-        s = (qf @ kt.transpose(-1, -2)) * c
+        s = qf @ kt.transpose(-1, -2)
+        if softcap is None:
+            s = s * c
+        elif not cap_after_mask:
+            s = torch.tanh(s * scale / softcap) * softcap * LOG2E
+        else:
+            s = s * scale
         kpos = k0 + torch.arange(kt.shape[2])[None, :]
         vis = torch.ones((sq, kt.shape[2]), dtype=torch.bool)
         if causal:
@@ -76,6 +87,8 @@ def emulate_mma_attention(q, k, v, *, q_offset=0, causal=True, window=None,
         if window is not None:
             vis &= qpos - kpos < window
         s = torch.where(vis, s, torch.tensor(NEG_INF))
+        if softcap is not None and cap_after_mask:
+            s = torch.tanh(s / softcap) * softcap * LOG2E
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
@@ -193,13 +206,17 @@ def test_row_that_sees_no_key_is_zero():
 
 
 def emulate_split_decode(q, k, v, lengths, n_split, chunk, scale=None,
-                         tile=64, rescale=True):
+                         tile=64, rescale=True, softcap=None,
+                         cap_log2_units=False):
     """``csrc/decode.cu`` in plain torch, in f32: split s of row b runs the
     online softmax over 64-key tiles of keys [s*C, min((s+1)*C, len)) into a
     partial (m, l, acc); a split past len runs nothing. The combine takes
     m = max m_s, l = sum l_s e^(m_s - m), o = sum acc_s e^(m_s - m) / l, and
     zeros where no split saw a key. ``rescale=False`` is the
-    decode_combine_no_rescale mutant: acc_s added without e^(m_s - m)."""
+    decode_combine_no_rescale mutant: acc_s added without e^(m_s - m).
+    ``softcap``: each score capped in natural units (the body has no log2
+    fold); ``cap_log2_units`` is the decode_softcap_log2_units mutant: tanh
+    of the log2-unit score, taken back to natural units."""
     b, _, hq, dk = q.shape
     t, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
@@ -221,6 +238,10 @@ def emulate_split_decode(q, k, v, lengths, n_split, chunk, scale=None,
                 kt = kf[bi, k0:min(k0 + tile, end)]
                 vt = vf[bi, k0:min(k0 + tile, end)]
                 sc = torch.einsum("hgd,nhd->hgn", qf[bi], kt) * scale
+                if softcap is not None and cap_log2_units:
+                    sc = torch.tanh(sc * LOG2E / softcap) * softcap / LOG2E
+                elif softcap is not None:
+                    sc = torch.tanh(sc / softcap) * softcap
                 m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
                 p = torch.exp(sc - m_new)
                 corr = torch.exp(m - m_new)
@@ -290,6 +311,115 @@ def test_combine_without_rescale_is_caught(case):
     bad = emulate_split_decode(q, k, v, lengths, n_split, chunk, rescale=False)
     plain = ref.decode_attention(q, k, v, torch.from_numpy(lengths))
     assert float((bad - plain).abs().max()) > 1e-3
+
+
+# (case, cap): the softcap fragment at caps 50, 20 and 5 over the three
+# masks: a q_offset, a window whose rows run past the keys (rows 47-63 of
+# 64 over 40 keys see none), Dv != Dk
+SOFTCAP_MMA_CASES = [
+    ((1, 100, 300, 4, 2, 80, 80, 200, "causal", None), 50.0),
+    ((1, 64, 40, 4, 2, 64, 64, 0, "window", 8), 5.0),
+    ((1, 30, 45, 4, 2, 64, 32, 0, "full", None), 20.0),
+]
+
+
+def _jax_capped(qj, kj, vj, mask, q_offset, window, cap):
+    """JAX's template kernel with the cap, in interpret mode."""
+    return T.attention_core(qj, kj, vj, causal=mask != "full", window=window,
+                            q_offset=q_offset, softcap=cap, block_q=32,
+                            block_k=32, interpret=True)
+
+
+@pytest.mark.parametrize("case,cap", SOFTCAP_MMA_CASES,
+                         ids=lambda c: "-".join(map(str, c))
+                         if isinstance(c, tuple) else str(c))
+def test_mma_body_with_softcap_keeps_the_rule(case, cap):
+    """The bf16 body's softcap fragment: the scores capped in natural units
+    before the log2 fold and the mask, against the capped plain version
+    and JAX's capped kernel in f32 on the same bf16 values, four times
+    inside chip_smoke's rule; rows that see no key are exact zeros."""
+    b, sq, skv, hq, hkv, dk, dv, off, mask, window = case
+    (qj, kj, vj), (qt, kt, vt), _, atol = _case_inputs(case)
+    plain = ref.attention(qt.float(), kt.float(), vt.float(), q_offset=off,
+                          causal=mask != "full", window=window, softcap=cap)
+    emu = emulate_mma_attention(qt, kt, vt, q_offset=off,
+                                causal=mask != "full", window=window,
+                                softcap=cap)
+    jax32 = _jax_capped(qj.astype(jnp.float32), kj.astype(jnp.float32),
+                        vj.astype(jnp.float32), mask, off, window, cap)
+    for name, want in (("plain", plain.numpy()), ("jax f32", jax32)):
+        worst = _within_rule(emu.numpy(), want, atol, MARGIN)
+        assert worst <= 1.0, f"{name}: {worst:.3f} of the rule / {MARGIN}"
+    dead = plain.abs().amax(-1) == 0
+    assert not emu[dead].any()
+
+
+def test_softcap_after_mask_is_caught():
+    """The attn_softcap_after_mask mutant, emulated: a masked score becomes
+    -cap, so the rows that see no key leave as a mean of the values, not
+    zeros, and chip_smoke's zero-row check fails."""
+    case = (1, 64, 40, 4, 2, 64, 64, 0, "window", 8)
+    _, (qt, kt, vt), _, _ = _case_inputs(case)
+    plain = ref.attention(qt.float(), kt.float(), vt.float(), window=8,
+                          softcap=5.0)
+    bad = emulate_mma_attention(qt, kt, vt, window=8, softcap=5.0,
+                                cap_after_mask=True)
+    dead = plain.abs().amax(-1) == 0
+    assert int(dead.sum()) == 17 * 4 and bad[dead].abs().amax() > 1e-2
+
+
+# (B, T, Hq, Hkv, D, SMs, cap): split several ways, caps 50 and 5
+SOFTCAP_DECODE_CASES = [(5, 200, 4, 2, 32, 132, 50.0), (4, 256, 8, 2, 32, 8, 5.0)]
+
+
+@pytest.mark.parametrize("case", SOFTCAP_DECODE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_split_decode_with_softcap_matches_jax(case, dt):
+    """decode's capped split and merge against JAX's capped decode kernel
+    in interpret mode and the capped plain version; lengths 0 give zeros.
+    Queries scaled by 3 push the scores into the cap's bend."""
+    b, t, hq, hkv, d, sms, cap = case
+    n_split = attn.decode_splits(b, hkv, t, sms)
+    chunk = attn.decode_chunk(t, n_split)
+    rng = np.random.default_rng(21)
+    qj, qt = _pair(rng, (b, 1, hq, d), dt)
+    qj, qt = qj * 3, qt * 3
+    kj, kt = _pair(rng, (b, t, hkv, d), dt)
+    vj, vt = _pair(rng, (b, t, hkv, d), dt)
+    lengths = _lengths(t, chunk, b)
+    emu = emulate_split_decode(qt, kt, vt, lengths, n_split, chunk,
+                               softcap=cap)
+    want = jops.attn_decode_template(qj, kj, vj, jnp.asarray(lengths),
+                                     softcap=cap, interpret=True)
+    plain = ref.decode_attention(qt, kt, vt, torch.from_numpy(lengths),
+                                 softcap=cap)
+    if dt == "float32":
+        for w in (np.asarray(want), plain.numpy()):
+            np.testing.assert_allclose(emu.numpy(), w, rtol=0, atol=2e-6)
+    else:
+        got = emu.to(torch.bfloat16).float().numpy()
+        for w in (np.asarray(want, np.float32), plain.float().numpy()):
+            np.testing.assert_allclose(got, w, rtol=0, atol=ATOL[dt])
+    assert not emu[0].any(), "lengths 0 must give exact zeros"
+
+
+def test_softcap_in_log2_units_is_caught():
+    """The decode_softcap_log2_units mutant, emulated: tanh of the log2-unit
+    score moves every score past a few units (by 0.25 at 3 with a cap of
+    5), far outside f32's limit."""
+    b, t, hq, hkv, d, sms, cap = SOFTCAP_DECODE_CASES[1]
+    n_split = attn.decode_splits(b, hkv, t, sms)
+    chunk = attn.decode_chunk(t, n_split)
+    rng = np.random.default_rng(22)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((b, 1, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    lengths = _lengths(t, chunk, b)
+    bad = emulate_split_decode(q * 3, k, v, lengths, n_split, chunk,
+                               softcap=cap, cap_log2_units=True)
+    plain = ref.decode_attention(q * 3, k, v, torch.from_numpy(lengths),
+                                 softcap=cap)
+    assert float((bad - plain).abs().max()) > 1e-2
 
 
 @pytest.mark.parametrize("b,hkv", [(1, 1), (1, 8), (4, 16), (4, 32), (8, 16),

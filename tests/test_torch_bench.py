@@ -671,7 +671,8 @@ def test_full_tier_names_the_unported_archs():
     assert [c.arch for c in tcases.tier_cases("full")
             if not tcases.is_ported(c.arch)] == []
     assert tcases.is_ported("xlstm-350m")
-    assert not tcases.is_ported("musicgen-large")
+    assert tcases.is_ported("musicgen-large")
+    assert not tcases.is_ported("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "gpt2-xl"])

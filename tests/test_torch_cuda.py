@@ -1591,3 +1591,52 @@ def test_bench_section_timeout_drains_the_card_on_card(card):
                       ctx)
     assert nxt.status == "ok" and nxt.wall_s < 0.5
     assert nxt.rows[0]["sum"] == float(y.sum() * 2)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("cap", [50.0, 5.0])
+def test_softcap_kernels_match_plain(card, dt, cap):
+    """The capped instantiations of the three masks and decode against
+    their capped plain versions, one launch each; a window row past the
+    keys and a decode length of 0 leave exact zeros."""
+    q = _randn(card, (1, 64, 4, 64), dt, 4.0)
+    k, v = _randn(card, (1, 40, 2, 64), dt), _randn(card, (1, 40, 2, 64), dt)
+    for name, got, want in (
+            ("attention_core", lambda: ops.attention_core(q, k, v, softcap=cap),
+             ref.attention(q, k, v, softcap=cap)),
+            ("attention_window",
+             lambda: ops.attention_window(q, k, v, 8, softcap=cap),
+             ref.attention(q, k, v, window=8, softcap=cap)),
+            ("attention_full", lambda: ops.attention_full(q, k, v, softcap=cap),
+             ref.attention(q, k, v, causal=False, softcap=cap))):
+        out = _launched(name, got)
+        _assert_close(out, want, dt)
+        dead = want.float().abs().amax(-1) == 0
+        assert not out[dead].float().any()
+    q1 = _randn(card, (3, 1, 8, 80), dt, 4.0)
+    k1, v1 = _randn(card, (3, 512, 2, 80), dt), _randn(card, (3, 512, 2, 80), dt)
+    n = torch.tensor([512, 0, 77], dtype=torch.int32, device="cuda")
+    out = _launched("decode_core", lambda: ops.decode_core(q1, k1, v1, n,
+                                                           softcap=cap))
+    _assert_close(out, ref.decode_attention(q1, k1, v1, n, softcap=cap).to(dt),
+                  dt)
+    assert not out[1].float().any()
+
+
+def test_softcap_wide_instantiations_refuse(card):
+    """MLA's and recurrentgemma's wide instantiations take no cap: the
+    wrappers raise naming it, and the capped C entries refuse the dims."""
+    from repro_torch.kernels import attn_template as at
+    q, v = _randn(card, (1, 4, 2, 192), torch.bfloat16), \
+        _randn(card, (1, 4, 2, 128), torch.bfloat16)
+    with pytest.raises(ValueError, match="softcap"):
+        ops.attention_core(q, q, v, softcap=50.0)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        at.attention_core(q, q, v, 0, 1.0, softcap=50.0)
+    q = _randn(card, (4, 1, 10, 256), torch.bfloat16)
+    kv = _randn(card, (4, 64, 1, 256), torch.bfloat16)
+    n = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="softcap"):
+        ops.decode_core(q, kv, kv, n, softcap=50.0)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        at.decode_core(q, kv, kv, n, 1.0, softcap=50.0)

@@ -1,10 +1,12 @@
 """The port's serving steps against the JAX package's, and the bookkeeping
 that lets them run as CUDA graphs.
 
-``make_serve_step`` and ``make_paged_decode_step`` on bridged
+``make_prefill_step``, ``make_serve_step``, ``make_paged_decode_step``
+and ``make_paged_extend_step`` on bridged
 ``reduced(granite-3-8b)`` (2 layers) and ``reduced(stablelm-3b)`` params,
-f32 on the CPU, unfused and fused: the same next tokens and the same
-written caches / pools as JAX's steps on the same inputs (tolerance 1e-5:
+f32 on the CPU, unfused and fused: the same next tokens (or logits) and
+the same written caches / pools as JAX's steps on the same inputs
+(tolerance 1e-5:
 both sides compute in f32, in other summation orders). The engines decode
 through these steps on both devices; on the card as a graph, whose
 capture and replay the card tests hold against the eager step.
@@ -30,9 +32,12 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
 from repro.models import init_lm  # noqa: E402
 from repro.models import init_lm_cache as jinit_lm_cache  # noqa: E402
+from repro.serving import make_prefill_step as jmake_prefill_step  # noqa: E402
 from repro.serving import make_serve_step as jmake_serve_step  # noqa: E402
 from repro.serving.paged import \
     make_paged_decode_step as jmake_paged_decode_step  # noqa: E402
+from repro.serving.paged import \
+    make_paged_extend_step as jmake_paged_extend_step  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch import nn as tnn  # noqa: E402
@@ -40,7 +45,9 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.models import lm_decode  # noqa: E402
 from repro_torch.serving import (Engine, PagedEngine,  # noqa: E402
-                                 make_paged_decode_step, make_serve_step)
+                                 make_paged_decode_step,
+                                 make_paged_extend_step, make_prefill_step,
+                                 make_serve_step)
 
 MODELS = list(itertools.product(["granite-3-8b", "stablelm-3b"], [False, True]))
 IDS = [f"{a}-{'fused' if f else 'unfused'}" for a, f in MODELS]
@@ -138,6 +145,93 @@ def test_paged_decode_step_equals_jax(arch, fused):
     # the dead row (table all 0) wrote scratch block 0, as JAX's did
     _assert_tree_close(got_pools, bridge.caches_from_jax(
         jax.tree_util.tree_map(np.asarray, want_pools), cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_prefill_step_equals_jax(fused):
+    """A right-padded batch of two prompts: the same last-token logits and
+    caches as JAX's prefill step (which casts its params inside; the
+    port's takes the working copy, f32 here)."""
+    jcfg, cfg, jparams, params = _setup("granite-3-8b")
+    toks = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 16))
+    lengths = np.array([16, 9], np.int32)
+    toks[1, 9:] = 0
+    with jnn.backend("jnp"):
+        want, jc = jmake_prefill_step(jcfg, 32, fused=fused)(
+            jparams, jnp.asarray(toks, jnp.int32), jnp.asarray(lengths))
+    got, caches = make_prefill_step(cfg, 32, fused=fused)(
+        params, torch.from_numpy(toks), torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+    _assert_tree_close(caches, bridge.caches_from_jax(
+        jax.tree_util.tree_map(np.asarray, jc), cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_paged_extend_step_equals_jax(fused):
+    """One 12-token chunk of a sequence at ``start`` 8 over random pools:
+    rows 8-9 (a reused prefix, below ``lo``) and 17-19 (bucket padding,
+    from ``hi``) divert to scratch block 0; the same logits as JAX's
+    extend step and the same pools but the scratch block, which no
+    unmasked read consumes (two diverted rows land on one of its slots,
+    and which one stays is the scatter's choice on either side)."""
+    jcfg, cfg, jparams, params = _setup("stablelm-3b")
+    rng = np.random.default_rng(4)
+    bs, max_len = 8, 32
+    jpools = _random_tree(jinit_lm_cache(jcfg, 9, bs), rng)
+    row = np.array([3, 5, 7, 0], np.int32)
+    start, lo, hi = 8, 10, 17
+    toks = rng.integers(1, cfg.vocab_size, (1, 12)).astype(np.int32)
+    with jnn.backend("jnp"):
+        want, want_pools = jmake_paged_extend_step(jcfg, max_len, fused=fused)(
+            jparams, jnp.asarray(toks), jnp.int32(start),
+            jax.tree_util.tree_map(jnp.asarray, jpools), jnp.asarray(row),
+            jnp.int32(lo), jnp.int32(hi))
+    pools = bridge.caches_from_jax(jpools, cfg, device="cpu")
+    got, got_pools = make_paged_extend_step(cfg, max_len, fused=fused)(
+        params, torch.from_numpy(toks).long(), start, pools,
+        torch.from_numpy(row), lo, hi)
+    assert got_pools is pools and got.shape == (1, 12, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+    want_pools = bridge.caches_from_jax(
+        jax.tree_util.tree_map(np.asarray, want_pools), cfg, device="cpu")
+    _assert_tree_close([{n: t[1:] for n, t in p.items()} for p in got_pools],
+                       [{n: t[1:] for n, t in p.items()} for p in want_pools])
+
+
+def test_engines_admit_through_the_step_builders(monkeypatch):
+    """The Engine's and the cold PagedEngine's prefills run the step
+    ``make_prefill_step`` built, the PagedEngine's chunks the one
+    ``make_paged_extend_step`` built, each built once an engine."""
+    _, cfg, _, params = _setup("granite-3-8b")
+    import repro_torch.serving as serving
+    import repro_torch.serving.paged as paged
+    calls = []
+
+    def spy(factory):
+        def make(*a, **kw):
+            step = factory(*a, **kw)
+            calls.append(factory.__name__)
+
+            def run(*args):
+                calls.append(factory.__name__ + " call")
+                return step(*args)
+            return run
+        return make
+    monkeypatch.setattr(serving, "make_prefill_step", spy(make_prefill_step))
+    monkeypatch.setattr(paged, "make_paged_extend_step",
+                        spy(make_paged_extend_step))
+    prompts = [[5, 6, 7], list(range(1, 21))]
+    eng = PagedEngine(cfg, params, max_batch=2, max_len=32, block_size=8,
+                      chunk_size=8)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=3)
+    eng.run()
+    assert calls.count("make_prefill_step") == 1
+    assert calls.count("make_paged_extend_step") == 1
+    assert calls.count("make_prefill_step call") == eng.cold_prefills == 1
+    assert calls.count("make_paged_extend_step call") == eng.extend_chunks == 3
 
 
 def test_engines_decode_through_the_steps(monkeypatch):
