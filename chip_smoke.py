@@ -124,7 +124,8 @@ Phases, each printing JSON lines:
              the measured split of one eager b1 forward at s16 and s512
              (8 layers) with the shares of the xLSTM sites;
    musicgen - musicgen-large at full size in bf16 (48 layers, 2.42 B
-             parameters, the config's count) on frame embeddings from
+             parameters, the config's count; served and split at its
+             first 24, ``MG_LAYERS``) on frame embeddings from
              seeded generators (its EnCodec frontend is a stub):
              ``make_prefill_step`` on 4 rows of 1500, 750, 250 and 37
              frames, right-padded with ``lengths``, then 16 steps of
@@ -219,7 +220,8 @@ Phases, each printing JSON lines:
              against the plain path's and the fused path's against the
              unfused, and a measured profile of each (batch 1);
    vision  - vit-b16-cls (224 px) and detector-vit-s (256 px) through
-             ``vision_forward``, same conditions: images/s at batch 1 and
+             ``vision_forward`` at full width and their first 6 of 12
+             layers (``VISION_LAYERS``), bf16: images/s at batch 1 and
              batch 8, the classifier's logits and the detector's backbone
              features and sorted top-K scores against the plain path, the
              NMS kernel against the plain NMS on the kernel path's own
@@ -240,7 +242,12 @@ Phases, each printing JSON lines:
              results/bench_h100.json`` in a process of its own (the paper's
              tables at bench widths: the four quick LM cases at full width,
              two layers, f32, measured on the card beside the modeled eager
-             A100; the QDQ and fusion 2x2, vision, the platform sweep with
+             A100 and beside their ``torch.compile``'d forwards, measured
+             kernel by kernel (the compiled view: each case's row printed
+             beside its measured one with its busy share, the kernels no
+             origin gave a group, and the hand-written kernels it launched
+             from inside the compiled program); the QDQ and fusion 2x2,
+             vision, the platform sweep with
              ``calibrated:h100``, Table 2 and its harvested rows, the
              kernel sites, stablelm-3b at its published size served in bf16
              and under traffic in f32): rc 0, the artifact validates, every
@@ -343,12 +350,15 @@ EXTEND_PROMPT, EXTEND_FIRST = 300, 128
 #: (at 16 they took 37 and 42 s of a 506 s run, at 8 20 and 19 s of a
 #: 643 s one) and gpt2-xl a quarter of its 48 (22 s at 48, 12 at 24), and
 #: with phases softcap and musicgen added gemma3-27b one repeat (17.3 s at
-#: 12 layers of a 581 s run; PERF.md §4). The
+#: 12 layers of a 581 s run; PERF.md §4), and with the bench's compiled
+#: view added (four Inductor compiles, 52.4 s) llama2-7b and stablelm-3b
+#: at 2 and gpt2-xl at 6 (at 2, 2 and 6 they took 10.35, 10.25 and 5.89 s
+#: of a 522 s run on an H100 80GB HBM3 at 700 W). The
 #: MoE models stay whole: at half depth qwen2-moe-a2.7b's kernel path read
 #: 0.308 from its plain path against a limit of 0.272 (its routing flips
 #: between the paths, and the limit shrinks with the depth)
-SERVE_LAYERS = {"gemma3-27b": 6, "llama2-7b": 4, "stablelm-3b": 4,
-                "gpt2-xl": 12}
+SERVE_LAYERS = {"gemma3-27b": 6, "llama2-7b": 2, "stablelm-3b": 2,
+                "gpt2-xl": 6}
 #: (batch, seq) of the measured profiles of each served model
 PROFILES = {"gemma3-27b": ((16, False), (16, True), (2048, False), (2048, True))}
 #: the depth gemma3-27b's profiles run at: the first layers of the served
@@ -368,11 +378,12 @@ MEM_SLACK = 64 << 20
 KV_BYTES = 2
 #: phase traffic: the JAX traffic case's model (repro/bench/cases.py:44-46)
 #: at full width and TRAFFIC_LAYERS deep (at its 32 layers the phase took
-#: 73 s of the script's time; phase bench serves the model whole under
+#: 73 s of the script's time, at 4 13.79 s of a 522 s run on an H100 80GB
+#: HBM3 at 700 W; phase bench serves the model whole under
 #: JAX's traffic section), through the PagedEngine with these blocks and
 #: chunks
 TRAFFIC_ARCH = "stablelm-3b"
-TRAFFIC_LAYERS = 8
+TRAFFIC_LAYERS = 2
 TRAFFIC_ENGINE = dict(max_batch=4, max_len=512, block_size=16)
 TRAFFIC_CHUNK = 64
 #: the op sites of the paged bookkeeping in a decode step's profile
@@ -460,8 +471,9 @@ SOURCES = {
 QDQ_ARCHS = ("llama2-7b", "gpt2-xl")
 #: the depth phase qdq runs them at: the first layers of the served
 #: params, so that the script keeps its time with phase bench (the 2x2's
-#: per-op profiles grow with depth; the bench's cases are cut alike)
-QDQ_LAYERS = 4
+#: per-op profiles grow with depth; the bench's cases are cut alike): at
+#: most the served depth of each
+QDQ_LAYERS = 2
 #: JAX's variant labels (core/workload.py ``Workload.variant``) of the 2x2:
 #: (label, fake-quant mode, fused)
 QDQ_VARIANTS = (("bf16", None, False), ("fused", None, True),
@@ -481,6 +493,11 @@ Y_BITS_DIFFER_MAX = 0.01
 ENCODERS = (("bert-base", ((1, 128), (8, 128))), ("vit-b16", ((1, 197),)))
 VISION = ("vit-b16-cls", "detector-vit-s")
 VISION_BATCH, VISION_FORWARDS = 8, 8
+#: the depth phase vision and its QDQ 2x2 run both models at: the first 6
+#: of their 12 layers, full width and resolution (at 12 the phase took
+#: 20.26–22.40 s of 478–522 s runs on an H100 80GB HBM3 at 700 W, which the
+#: bench's compiled view needed)
+VISION_LAYERS = 6
 #: phase bench: the quick tier of ``python -m repro_torch.bench`` in a
 #: process of its own, its artifact here (under the checkout's results/)
 BENCH_OUT = "results/bench_h100.json"
@@ -523,6 +540,13 @@ MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
 #: prompts, so three more runs of both models, unfused and fused, cost
 #: ~50 s of the script's time, which musicgen and softcap needed
 MOE_EAGER_REPEATS = 1
+#: the depth of phase moe's measured split: the first layers of the served
+#: params (deepseek-v2-lite-16b's dense first layer among them); the split
+#: times each of its ops four times behind a 0.5 ms pad, ~25 s for the two
+#: whole models (4567 and 5895 ops) on an H100 80GB HBM3 at 700 W, which
+#: the bench's compiled view needed; the serves and the logit rule keep the
+#: whole models
+MOE_PROFILE_LAYERS = 3
 #: phase recurrent: recurrentgemma-2b at full size in bf16 (2.895 B
 #: parameters, 5.79 GB), its Engine at RG_MAX_LEN; prompt lengths that are
 #: no powers of two (the engine prefills a recurrent model at the exact
@@ -531,11 +555,11 @@ MOE_EAGER_REPEATS = 1
 RG_ARCH = "recurrentgemma-2b"
 RG_MAX_LEN = 4096
 RG_PROMPTS = (2100, 2040, 333, 37, 700, 90)
-#: the depth phase recurrent serves it at: its first three (rec, rec,
-#: local) repeats of eight, full width, three local layers to run its
-#: window and rings (at 26 layers phase recurrent took 29.6–47.1 s of
-#: 459–594 s runs, PERF.md §4)
-RG_LAYERS = 9
+#: the depth phase recurrent serves it at: its first (rec, rec, local)
+#: repeat of eight, full width, its local layer to run the window and the
+#: rings (at 26 layers phase recurrent took 29.6–47.1 s of 459–594 s runs,
+#: PERF.md §4; at 6, 11.73 s of a 522 s run on an H100 80GB HBM3 at 700 W)
+RG_LAYERS = 3
 #: the sequence lengths of its measured b1 splits, each with the times its
 #: ops are timed past the first (the measured backend's ``repeats``) and the
 #: layers it runs (None: the served depth; s2048 one (rec, rec, local)
@@ -585,12 +609,23 @@ SC_CAPS = dict(attn_logit_softcap=50.0, final_logit_softcap=30.0)
 #: and 0.74 s of audio at EnCodec's 50 Hz), right-padded, into caches of
 #: MG_MAX_LEN, then NEW_TOKENS decode steps over the 4 slots
 MG_ARCH, MG_MAX_LEN = "musicgen-large", 2048
+#: the depth it is served and split at: its first 24 of 48 layers, the
+#: full model made and counted (at 48 the phase took 12.25–13.02 s of
+#: 478–522 s runs on an H100 80GB HBM3 at 700 W, which the bench's
+#: compiled view needed)
+MG_LAYERS = 24
 MG_FRAMES = (1500, 750, 250, 37)
 #: its measured b1 splits (seq, repeats) and the sites they print: the
 #: NonGEMM sites of its blocks, then the GEMMs and attention
 MG_PROFILE_SEQS = ((16, 3), (1500, 0))
 MG_SITES = (("pos_sinusoidal", "layer_norm", "gelu"),
             ("linear", "flash_attention"))
+#: the hand-written kernels each quick LM case's compiled forward calls
+#: (f32, unfused: the bench's own forwards), as opaque ops of the program
+BENCH_COMPILED_KERNELS = {
+    "llama2-7b": ("rms_norm", "swiglu", "attention_core"),
+    "gpt2-xl": ("layer_norm", "attention_core"),
+    "bert-base": ("layer_norm", "attention_full")}
 BENCH_KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
                  "fused_add_layer_norm", "rope", "swiglu", "attention_core",
                  "decode_core", "attention_full", "nms",
@@ -2475,7 +2510,8 @@ def routing_swaps(torch, nn, params, cfg, prompts, fused: bool,
 
 
 def moe_split(torch, nn, ops, params, cfg, rng) -> None:
-    """The measured split of one eager b1 s16 ``lm_forward`` (the kernel
+    """The measured split of one eager b1 s16 ``lm_forward`` of ``cfg``'s
+    layers (the first MOE_PROFILE_LAYERS of the served params; the kernel
     path, unfused) through ``Workload.profile("measured")``, with the
     shares of the MoE sites, beside the ``eager-modeled:h100`` view of its
     capture."""
@@ -2567,7 +2603,8 @@ def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
             routing_swaps(torch, nn, params, cfg, prompts[:4], fused, max_len)
             compare_paths(torch, nn, params, cfg, prompts[:4], fused, max_len)
         if not paths_only:
-            moe_split(torch, nn, ops, params, cfg, rng)
+            moe_split(torch, nn, ops, params,
+                      cfg.replace(n_layers=MOE_PROFILE_LAYERS), rng)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2794,6 +2831,9 @@ def musicgen_phase(torch, nn, ops, _build, init_lm, get_config,
     if n_params != cfg.n_params():
         fail(f"musicgen: {n_params} parameters, the config counts "
              f"{cfg.n_params()}")
+    # the served depth: its first MG_LAYERS layers, full width
+    params = {**params, "layers": params["layers"][:MG_LAYERS]}
+    cfg = cfg.replace(n_layers=MG_LAYERS)
     b, s, d = len(MG_FRAMES), max(MG_FRAMES), cfg.d_model
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
     frames = torch.randn((b, s, d), generator=gen, device="cuda")
@@ -3332,9 +3372,10 @@ def encode(torch, nn, ops, init_lm, lm_forward, arch, cases, launches,
 
 
 def vision(torch, nn, ops, arch, launches, paths_only: bool = False):
-    """Phase ``vision``: the classifier or the detector at full width and
-    depth in bf16, unfused and fused, through ``vision_forward`` (with
-    ``paths_only``, only the comparisons of the paths). Returns the
+    """Phase ``vision``: the classifier or the detector at full width, its
+    first VISION_LAYERS layers, in bf16, unfused and fused, through
+    ``vision_forward`` (with ``paths_only``, only the comparisons of the
+    paths). Returns the
     detector kernel path's first image: its score-sorted top-K boxes, their
     validity and the IoU threshold (phase 5 times the NMS kernel on them)."""
     from repro_torch.configs import get_config
@@ -3342,7 +3383,8 @@ def vision(torch, nn, ops, arch, launches, paths_only: bool = False):
     from repro_torch.models.vision import (init_vision, vision_backbone,
                                            vision_forward)
 
-    cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+    cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16",
+                                   n_layers=VISION_LAYERS)
     gen = torch.Generator("cuda").manual_seed(SEED)
     params = init_vision(gen, cfg)
     size = cfg.image_size
@@ -3483,7 +3525,8 @@ def qdq_vision(torch, nn, ops, launches, kept: list,
     from repro_torch.models.vision import init_vision, vision_forward
 
     cfg = get_config("vit-b16-cls").replace(dtype="bfloat16",
-                                            param_dtype="bfloat16")
+                                            param_dtype="bfloat16",
+                                            n_layers=VISION_LAYERS)
     gen = torch.Generator("cuda").manual_seed(SEED)
     params = init_vision(gen, cfg)
     imgs = torch.randn((1, cfg.n_channels, cfg.image_size, cfg.image_size),
@@ -3503,7 +3546,8 @@ def bench(launched: dict) -> float:
     own, as a user runs it: rc 0, the artifact validates, every section
     ``ok`` but the two BENCH_SKIPS (skipped, with their reasons), every
     kernel site allclose, the traffic parity rows true, the breakdown's
-    measured rows the card's own device times, the harvested micro rows
+    measured rows the card's own device times and its compiled rows
+    (:func:`compiled_rows`), the harvested micro rows
     those of BENCH_HARVESTED; the sections' status and
     wall, and the breakdown and top-table rows printed. The process's
     kernel launches (its last line) are added to ``launched``; each of
@@ -3548,6 +3592,7 @@ def bench(launched: dict) -> float:
             {r["mode"] for r in measured} != {"measured_cuda"}:
         fail(f"bench: the breakdown's measured rows are not the card's: "
              f"{[(r['case'], r['mode']) for r in measured]}")
+    compiled_rows(art, {r["case"]: r for r in measured})
     harvested = [(r["operator"], r["shape"], r["device"])
                  for r in art.section("micro_harvested").rows]
     if harvested != BENCH_HARVESTED:
@@ -3577,6 +3622,44 @@ def bench(launched: dict) -> float:
     for k, n in counts.items():
         launched[k] += n
     return wall
+
+
+def compiled_rows(art, measured: dict) -> None:
+    """The breakdown's compiled view: one ``compiled_cuda`` row per quick
+    case (its output passed the guard in the bench, or the section would
+    have failed), printed beside the case's ``measured_cuda`` row with its
+    busy share, compile seconds, kernels left ``OTHER`` and the
+    hand-written kernels it launched from inside the compiled program, which
+    must hold BENCH_COMPILED_KERNELS of its arch."""
+    rows = [r for r in art.section("breakdown").rows
+            if r["mode"].startswith("compiled")]
+    if sorted((r["case"], r["mode"]) for r in rows) != sorted(
+            (c.alias, "compiled_cuda") for c in art.cases):
+        fail(f"bench: the breakdown's compiled rows: "
+             f"{[(r['case'], r['mode']) for r in rows]}")
+    by_case = {r["case"]: r for r in rows}
+    for case in art.cases:
+        r, m = by_case[case.alias], measured[case.alias]
+        kernels = {k.split("::", 1)[1]: n for k, n in r["launches"].items()
+                   if k.startswith("repro_torch::")}
+        emit(phase="bench", view="compiled beside measured", case=case.alias,
+             measured_ms=round(m["total_s"] * 1e3, 4),
+             measured_gemm_pct=round(100 * m["gemm_frac"], 2),
+             measured_nongemm_pct=round(100 * m["nongemm_frac"], 2),
+             compiled_ms=round(r["total_s"] * 1e3, 4),
+             compiled_gemm_pct=round(100 * r["gemm_frac"], 2),
+             compiled_nongemm_pct=round(100 * r["nongemm_frac"], 2),
+             compiled_wall_ms=round(r["wall_s"] * 1e3, 4),
+             compiled_busy_pct=round(100 * r["busy_frac"], 2),
+             compile_s=round(r["compile_s"], 2), kernels_launched=r["n_ops"],
+             other_kernels=len(r["other_kernels"]),
+             other=r["other_kernels"], hand_written=kernels,
+             guard=r["guard"])
+        missing = [k for k in BENCH_COMPILED_KERNELS[case.arch]
+                   if not kernels.get(k)]
+        if missing:
+            fail(f"bench: {case.alias}'s compiled forward launched none of "
+                 f"{missing}: {r['launches']}")
 
 
 # ---------------------------------------------------------------------------

@@ -119,6 +119,10 @@ mut moe_combine_ignores_keep models/moe.py \
 mut topk_ties_high models/moe.py \
   's/vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)/vals, idx = (t.flip(-1) for t in torch.sort(probs, dim=-1, stable=True))/' \
   cpu tests/test_torch_moe.py -k ties
+# the compiled view's vote weighing a tagged origin as an untagged one
+mut compiled_vote_ignores_tags core/compiled.py \
+  's/w = 2 if tagged else 1/w = 1/' \
+  cpu tests/test_torch_compiled.py -k fusion_group_equals_jax
 # decode's merge adding the splits' accumulators without e^(m_s - m)
 mut decode_combine_no_rescale decode.cu \
   's/a += w \* __ldcg(pa + s \* GD + oi);/a += __ldcg(pa + s * GD + oi);/'

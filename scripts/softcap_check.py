@@ -16,7 +16,10 @@ call that computes the same function (:func:`flex_capped`, compiled
 of the fragment, before ``chip_smoke.py``'s phase 2 holds the same cases
 (it imports :func:`softcap_cases`) and phase 5 times the capped kernels.
 Prints JSON lines and ``bad N`` last (N the comparisons and refusals that
-failed); needs a GPU.
+failed); needs a GPU. Before it, one JSON line times PERF.md §6's row
+9b-cap (:func:`full_row`: the capped full-mask kernel, its bound, the
+plain version and compiled ``flex_attention``) with the card's name and
+power limit.
 
     python3 scripts/softcap_check.py [--ptxas-dir DIR]
 """
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -142,11 +146,11 @@ def flex_capped(torch, cap, q, k, v, mask_mod, batch=None):
     the scaled score, before the mask, where the kernels cap) and
     ``mask_mod(b, h, q_idx, kv_idx)`` as its block mask (``batch``: the
     mask's batch size where it reads the row, None where every row has the
-    same; a mask function of its own for each mask), GQA's groups by
-    ``enable_gqa``. Returns the call, on
+    same; a mask function of its own for each mask; None: no mask, every
+    key visible), GQA's groups by ``enable_gqa``. Returns the call, on
     (B, H, S, D) copies made here, and its output in (B, S, H, D). A
-    library time only: the port runs no compiled code. Inductor's and
-    Triton's caches go under the repo's build/."""
+    library time only: the port's attention runs its own kernels.
+    Inductor's and Triton's caches go under the repo's build/."""
     import os
 
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -158,8 +162,8 @@ def flex_capped(torch, cap, q, k, v, mask_mod, batch=None):
     def score_mod(score, b, h, q_idx, kv_idx):
         return torch.tanh(score / cap) * cap
 
-    block = create_block_mask(mask_mod, batch, None, q.shape[1], k.shape[1],
-                              device=str(q.device))
+    block = None if mask_mod is None else create_block_mask(
+        mask_mod, batch, None, q.shape[1], k.shape[1], device=str(q.device))
     flex = torch.compile(flex_attention, dynamic=False)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
 
@@ -201,6 +205,61 @@ def flex_cases(torch, ref, randn) -> list:
                   lambda: ref.decode_attention(q, k, v, n, softcap=5.0),
                   lambda: ref.decode_attention(q, k, v, n)))
     return cases
+
+
+#: row 9b-cap of PERF.md §6: the full mask with the softcap fragment, at
+#: the full-mask kernel's timed shape (vit-b16's 196 tokens, 12 heads of
+#: 64) and Gemma 2's attention cap
+FULL_ROW = dict(b=1, s=196, h=12, d=64, cap=50.0)
+#: the H100's peaks the capped bound reads (chip_smoke.py's PEAK_FLOPS)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def full_row(torch, ops, ref, randn) -> dict:
+    """Row 9b-cap: the capped full-mask kernel at q,k,v[1,196,12,64] bf16,
+    cap 50, timed on ``graph.Timer`` (device median of 20 launches, the L2
+    flushed before each) beside the uncapped kernel, the plain version,
+    uncapped SDPA (a reference only) and its library call, compiled
+    ``flex_attention`` with the cap as its score modification and no mask
+    (:func:`flex_capped`), with its distance from the plain version. The
+    bound is the largest of the bytes' time (q, k, v read once, the output
+    written once), the products' at the bf16 rate and the cap's three f32
+    operations a score (division, tanh, product) at the f32 rate, as
+    chip_smoke.py's capped rows give theirs."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.graph import Timer
+    from repro_torch.core.hardware import H100
+
+    b, s, h, d, cap = (FULL_ROW[k] for k in ("b", "s", "h", "d", "cap"))
+    q, k, v = (randn((b, s, h, d), torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    flex, flex_out = flex_capped(torch, cap, q, k, v, None)
+    plain = ref.attention(q, k, v, causal=False, softcap=cap).float()
+    got = ops.attention_full(q, k, v, softcap=cap).float()
+    timer = Timer()
+    nbytes = 2 * 4 * b * s * h * d
+    flops = 2 * b * h * s * s * 2 * d
+    t_bytes = nbytes / H100.hbm_bw
+    t_ops = max(flops / PEAK_FLOPS["bfloat16"],
+                3 * b * h * s * s / PEAK_FLOPS["float32"])
+    row = dict(row="9b-cap", shape=f"q,k,v[{b},{s},{h},{d}] bf16 full "
+               f"softcap={cap}",
+               ms=timer(lambda: ops.attention_full(q, k, v, softcap=cap)),
+               uncapped_ms=timer(lambda: ops.attention_full(q, k, v)),
+               plain_ms=timer(lambda: ref.attention(q, k, v, causal=False,
+                                                    softcap=cap)),
+               library_ms=timer(flex),
+               sdpa_uncapped_ms=timer(
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               eager_ms=timer.eager(
+                   lambda: ops.attention_full(q, k, v, softcap=cap)),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=float((got - plain).abs().max()),
+               library_max_abs_err=float(
+                   (flex_out().float() - plain).abs().max()))
+    return row
 
 
 def refusals(torch, ops) -> list:
@@ -300,6 +359,11 @@ def main(argv=None) -> int:
             refused = str(e)
         bad += refused is None
         print(json.dumps({"refusal": what, "refused": refused}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps(dict(full_row(torch, ops, ref, randn), nvidia_smi=smi)),
+          flush=True)
     print(f"bad {bad}", flush=True)
     return 1 if bad else 0
 

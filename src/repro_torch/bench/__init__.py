@@ -25,15 +25,16 @@ Runs go to the card unless the CPU is asked for (``--device cpu``)::
 from .schema import (SCHEMA_VERSION, BenchCase, BenchResult, SectionResult,
                      SchemaError, validate_artifact)
 from .cases import (CASES, bench_config, build, case_workload, profile_case,
-                    profile_case_quantized, quick_cases, tier_cases,
-                    workload_for_case)
+                    profile_case_compiled, profile_case_quantized,
+                    quick_cases, tier_cases, workload_for_case)
 from .runner import (SECTIONS, BenchContext, register_section, run_bench,
                      run_section)
 
 __all__ = [
     "SCHEMA_VERSION", "BenchCase", "BenchResult", "SectionResult",
     "SchemaError", "validate_artifact", "CASES", "bench_config", "build",
-    "case_workload", "profile_case", "profile_case_quantized",
+    "case_workload", "profile_case", "profile_case_compiled",
+    "profile_case_quantized",
     "quick_cases", "tier_cases", "workload_for_case", "SECTIONS",
     "BenchContext", "register_section", "run_bench", "run_section",
 ]

@@ -8,12 +8,16 @@ width and vocabulary (halved only past the f32 budget), depth cut to one
 block-pattern repeat, since latency *shares* are depth-invariant for
 homogeneous stacks. The quick LM cases stay at full width.
 
-Two views per case (JAX's third, the compiled XLA roofline, reads HLO and
-has no twin in the port):
+Three views per case, as JAX's:
 
     measured         per-op device time on the card (``measured``), or
                      per-op wall time on the CPU (``eager-cpu``)
     eager A100 model per-op roofline + 5us launch (the paper's GPU columns)
+    compiled         the ``torch.compile``'d forward, measured: each kernel
+                     Inductor emits or calls, its time on the card (host
+                     time on the CPU) and its group (beyond-paper: the gap
+                     fusion closes, §4.5; JAX's is an XLA-fused TPU
+                     roofline)
 
 Everything builds on ``device``: the card unless the caller asks for the
 CPU. Params come from a ``torch.Generator(device)`` seeded 0, inputs from
@@ -289,6 +293,17 @@ def profile_case(alias: str, arch: str, batch: int, seq: int,
 
 
 @functools.lru_cache(maxsize=None)
+def profile_case_compiled(alias: str, arch: str, batch: int, seq: int,
+                          device: str = "cuda") -> ModelProfile:
+    """Beyond-paper column: the case's forward compiled by Inductor and
+    measured kernel by kernel (``compiled``, mode ``compiled_cuda`` on the
+    card, ``compiled_cpu`` on the CPU), the hand-written kernels inside it
+    as opaque calls."""
+    return case_workload(arch, batch, seq, alias=alias).profile(
+        "compiled", device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def profile_case_quantized(alias: str, arch: str, batch: int, seq: int,
                            device: str = "cuda"
                            ) -> Tuple[ModelProfile, ModelProfile]:
@@ -425,6 +440,7 @@ def clear_caches() -> None:
     blocks; the runner calls this after each bench run, and tests/REPLs
     may call it directly."""
     profile_case.cache_clear()
+    profile_case_compiled.cache_clear()
     profile_case_quantized.cache_clear()
     profile_case_fused.cache_clear()
     profile_case_vision.cache_clear()

@@ -9,9 +9,11 @@ runs on ``ctx.device``, the card unless the caller asks for the CPU.
 
 Where the port's columns differ from JAX's:
 
-* ``breakdown`` has two columns, not three: the card's own per-op device
-  time (``measured``; ``eager-cpu`` on the CPU) and the modeled eager
-  A100; JAX's compiled-TPU column reads XLA's HLO.
+* ``breakdown``'s columns: the card's own per-op device time
+  (``measured``; ``eager-cpu`` on the CPU), the modeled eager A100, and
+  the compiled forward measured kernel by kernel on the card
+  (``compiled``), where JAX's third column models XLA's fusions on a TPU.
+  ``opgroups`` and ``top_table`` keep the first two, as JAX's do.
 * ``platforms``' measured and calibrated rows carry ``platform="h100"``
   on the card, their ``drift`` against the ``h100`` model of the same
   capture (``"cpu"`` and the analytic ``cpu`` spec on the CPU, as JAX's).
@@ -47,7 +49,8 @@ from repro_torch.models.attention import _attention_impl
 
 from .cases import (SERVING_CASES, TRAFFIC_CASES, VISION_CASES, build,
                     build_serving, profile_case, profile_case_calibrated,
-                    profile_case_fused, profile_case_measured,
+                    profile_case_compiled, profile_case_fused,
+                    profile_case_measured,
                     profile_case_modeled_on, profile_case_platforms,
                     profile_case_quantized, profile_case_vision, tier_cases)
 from .runner import BenchContext, SkipSection, register_section
@@ -76,33 +79,37 @@ RESULTS_DRYRUN_OPT = os.path.join(_results_root(), "dryrun_opt")
 DRIFT_SPEC = {"cuda": "h100", "cpu": "cpu"}
 
 
-def _case_profiles(cases: Sequence[BenchCase], device: str):
-    measured, acc = [], []
+def _case_profiles(cases: Sequence[BenchCase], device: str,
+                   compiled: bool = False):
+    measured, acc, comp = [], [], []
     for c in cases:
         m, a = profile_case(c.alias, c.arch, c.batch, c.seq, device)
         measured.append(m)
         acc.append(a)
-    return measured, acc
+        if compiled:
+            comp.append(profile_case_compiled(c.alias, c.arch, c.batch,
+                                              c.seq, device))
+    return measured, acc, comp
 
 
 # ---------------------------------------------------------------------------
 # Fig 1/5/8/10 — GEMM vs NonGEMM breakdown
 # ---------------------------------------------------------------------------
 
-def breakdown_rows(cases: Sequence[BenchCase],
-                   device: str = "cuda") -> List[dict]:
-    measured, acc = _case_profiles(cases, device)
-    return [profile_row(p) for p in measured + acc]
+def breakdown_rows(cases: Sequence[BenchCase], device: str = "cuda",
+                   compiled: bool = True) -> List[dict]:
+    measured, acc, comp = _case_profiles(cases, device, compiled=compiled)
+    return [profile_row(p) for p in measured + acc + comp]
 
 
 @register_section(
     "breakdown",
     title="Fig 1/5/8/10 — GEMM vs NonGEMM breakdown "
-          "(eager measured on the card, or eager CPU / eager A100 modeled; "
-          "no compiled column)",
+          "(eager measured on the card, or eager CPU / eager A100 modeled / "
+          "torch.compile-fused measured)",
     timeout_s=360.0)
 def section_breakdown(ctx: BenchContext) -> List[dict]:
-    return breakdown_rows(ctx.cases, ctx.device)
+    return breakdown_rows(ctx.cases, ctx.device, compiled=True)
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +121,7 @@ def section_breakdown(ctx: BenchContext) -> List[dict]:
     title="Fig 9/11/12 — per-operator-group shares",
     timeout_s=240.0)
 def section_opgroups(ctx: BenchContext) -> List[dict]:
-    measured, acc = _case_profiles(ctx.cases, ctx.device)
+    measured, acc, _ = _case_profiles(ctx.cases, ctx.device)
     rows = []
     for m, a in zip(measured, acc):
         rows += [profile_row(m), profile_row(a)]
@@ -131,7 +138,7 @@ def section_opgroups(ctx: BenchContext) -> List[dict]:
           "(measured on the card, and accelerated modeled)",
     timeout_s=240.0)
 def section_top_table(ctx: BenchContext) -> List[dict]:
-    measured, acc = _case_profiles(ctx.cases, ctx.device)
+    measured, acc, _ = _case_profiles(ctx.cases, ctx.device)
     profiles = acc if ctx.device == "cpu" else measured + acc
     rows = []
     for p in profiles:

@@ -4,11 +4,12 @@ Pipeline (paper Fig. 4): capture -> classify -> profile -> post-process:
 the dispatch-mode capture and per-op timing (``graph``), the OpGroup
 taxonomy, the measured and modeled profiles (``profiler``) over the
 hardware specs (``hardware``, ``calibrate``), the fusion pass, the
-``Workload`` x backend x transform API (``workload``) and the report
-renderers (``report``). The port of ``repro.core`` less what reads XLA's
-HLO (``hlo``, ``interpreter``, ``roofline_from_hlo``,
-``group_latency_model``, the ``compiled`` backend) and the deprecated
-``profile_*`` shims.
+``Workload`` x backend x transform API (``workload``), the compiled view
+(``compiled``: a ``torch.compile``'d forward measured kernel by kernel,
+each fused kernel given its group by JAX's vote) and the report renderers
+(``report``). The port of ``repro.core`` less what reads XLA's HLO
+(``hlo``, ``interpreter``, ``roofline_from_hlo``,
+``group_latency_model``) and the deprecated ``profile_*`` shims.
 """
 
 from .taxonomy import (OpGroup, NONGEMM_GROUPS, scope_tag, parse_scope,
@@ -24,8 +25,10 @@ from .calibrate import (CalibratedHardwareSpec, CalibrationError,
                         fit_factors, load_calibration, max_abs_log2_drift,
                         save_calibration)
 from .workload import (Workload, ProfilerBackend, Transform,
-                       QuantizeDequantTransform, register_backend,
-                       get_backend, list_backends)
+                       QuantizeDequantTransform, CompiledBackend,
+                       register_backend, get_backend, list_backends)
+from .compiled import (CompiledForward, compile_forward, fusion_group,
+                       profile_compiled)
 from .fusion import (FusionPattern, FusionReport, FusionTransform,
                      FUSION_PATTERNS, find_fusable_chains, fuse_records,
                      fusion_report)
@@ -43,6 +46,8 @@ __all__ = [
     "calibrate_from_microbench", "drift_by_group", "fit_factors",
     "load_calibration", "max_abs_log2_drift", "save_calibration",
     "Workload", "ProfilerBackend", "Transform", "QuantizeDequantTransform",
+    "CompiledBackend", "CompiledForward", "compile_forward", "fusion_group",
+    "profile_compiled",
     "FusionPattern", "FusionReport", "FusionTransform", "FUSION_PATTERNS",
     "find_fusable_chains", "fuse_records", "fusion_report",
     "register_backend", "get_backend", "list_backends",

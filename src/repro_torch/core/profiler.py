@@ -41,6 +41,11 @@ class ModelProfile:
     op_seconds: dict                       # (group, op_site) -> seconds
     n_ops: int
     timed_ops: Optional[List[TimedOp]] = None
+    #: the compiled view's readings (``core/compiled.measure``): ``wall_s``
+    #: (the un-instrumented call), ``compile_s``, ``launches`` per kernel
+    #: of the profiled call, ``profiles`` (taken to find every counted
+    #: kernel), ``guard`` (the output against the eager one)
+    compiled: Optional[dict] = None
 
     @property
     def split(self) -> dict:

@@ -37,7 +37,7 @@ def profile_row(p: ModelProfile) -> dict:
     every breakdown/opgroups renderer (and the bench artifact) consumes."""
     total = p.total_seconds or 1.0
     split = p.split
-    return {
+    row = {
         "case": p.name,
         "mode": p.mode,
         "total_s": p.total_seconds,
@@ -47,6 +47,14 @@ def profile_row(p: ModelProfile) -> dict:
                         for g in GROUP_ORDER},
         "n_ops": p.n_ops,
     }
+    if p.compiled is not None:
+        # the compiled view: how busy the device was over the call, and
+        # the kernels no origin gave a group
+        row.update(p.compiled,
+                   busy_frac=p.total_seconds / p.compiled["wall_s"],
+                   other_kernels=sorted(k for g, k in p.op_seconds
+                                        if g == OpGroup.OTHER.value))
+    return row
 
 
 def breakdown_table(profiles: Sequence[ModelProfile]) -> str:
@@ -133,6 +141,20 @@ def render_breakdown_rows(rows: Iterable[dict]) -> str:
         buf.write(f"beyond-paper: XLA-fused TPU roofline pulls the average "
                   f"NonGEMM share back to {100*comp:.1f}% "
                   f"(from {100*acc:.1f}% eager-accelerated)\n")
+    # the port's compiled view: measured, beside the eager measured rows of
+    # the same device
+    for dev, eager_mode in (("cuda", "measured_cuda"), ("cpu", "eager_cpu")):
+        torch_comp, eager = avg(f"compiled_{dev}"), avg(eager_mode)
+        if torch_comp is None:
+            continue
+        busy = [r["busy_frac"] for r in rows
+                if r["mode"] == f"compiled_{dev}" and "busy_frac" in r]
+        buf.write(f"beyond-paper: torch.compile-fused, measured on {dev}: "
+                  f"average NonGEMM share {100*torch_comp:.1f}%"
+                  + (f" (from {100*eager:.1f}% eager measured)"
+                     if eager is not None else "")
+                  + (f", device busy {100*sum(busy)/len(busy):.1f}% of the "
+                     f"compiled call" if busy else "") + "\n")
     return buf.getvalue()
 
 

@@ -20,10 +20,14 @@ modeled, quantized vs. full-precision, fused vs. not. This module turns
       ``measured``            per-op device time on the card (CUDA events)
       ``calibrated:<hw>``     eager-modeled with measured/modeled per-group
                               correction factors (``core/calibrate.py``)
+      ``compiled``            the ``torch.compile``'d forward, measured: each
+                              kernel's time, attributed to its group
+                              (``core/compiled.py``)
 
   ``<hw>`` is a :mod:`repro_torch.core.hardware` spec name (``h100``,
   ``a100``, ``tpu_v5e``, ``cpu``, ``npu_ryzen``, ``membound_dimm``).
-  JAX's ``compiled:<hw>`` reads XLA's HLO and has no twin here.
+  JAX's ``compiled:<hw>`` prices XLA's fusions on a spec; the port's
+  ``compiled`` measures Inductor's on the device, and takes no ``<hw>``.
 
 * :class:`Transform` — composable workload rewrites applied by
   ``Workload.with_transform(...)`` at build time:
@@ -379,6 +383,27 @@ class CalibratedBackend(ProfilerBackend):
             record_rewrite=_compose_record_rewrites(workload), **opts)
 
 
+class CompiledBackend(ProfilerBackend):
+    """The compiled view, measured: the workload's callable through
+    ``torch.compile`` (Inductor, ``fullgraph=True``, ``dynamic=False``),
+    held to its eager output, then each kernel of one profiled call timed
+    and given its group (``core/compiled.profile_compiled``); mode
+    ``compiled_cuda`` on the card, ``compiled_cpu`` on the CPU. A
+    transform changes the function that is compiled (the QDQ wrapper's
+    ``nn.fake_quant`` is traced into the graph), as JAX's jit traces it.
+    """
+
+    name = "compiled"
+
+    def profile(self, workload: Workload, repeats: int = 5, device="cuda",
+                **opts) -> ModelProfile:
+        from .compiled import profile_compiled
+
+        fn, args = workload.build(device)
+        return profile_compiled(fn, *args, name=workload.name, device=device,
+                                repeats=repeats, **opts)
+
+
 #: base key -> factory(param_or_None) -> ProfilerBackend
 _BACKENDS: Dict[str, Callable[[Optional[str]], ProfilerBackend]] = {}
 
@@ -441,6 +466,9 @@ def _register_builtins() -> None:
     register_backend(
         "measured",
         lambda p: (_no_param("measured", p), MeasuredBackend())[1])
+    register_backend(
+        "compiled",
+        lambda p: (_no_param("compiled", p), CompiledBackend())[1])
 
     def _calibrated(p):
         # the default fit runs the micro suite on the card once per spec

@@ -7,15 +7,18 @@ Every wrapper
 * takes the plain PyTorch version (``kernels/ref.py``) for CPU tensors —
   only because the tensor lies on the CPU — and for CUDA tensors launches
   its kernel on ``torch.cuda.current_stream()`` or raises: there is no
-  fallback;
+  fallback; either way its outputs are contiguous, as its fake says
+  (Inductor plans a compiled program's buffers from the fakes);
 * adds one to :data:`launches` ``[name]`` where it launches, and nowhere
   else; under CUDA graph capture, where nothing launches, to the graph's
   record instead (:func:`recording`), which every replay adds
   (:func:`add_launches`);
 * is a ``torch.library.custom_op`` (``repro_torch::<name>``) with a fake
   implementation, so a ``TorchDispatchMode`` (the capture and the timed
-  profile of ``core/graph.py``) sees the kernel as one op. A ctypes launch
-  is invisible to dispatch modes; without the op its time would be lost.
+  profile of ``core/graph.py``) sees the kernel as one op, and
+  ``torch.compile`` keeps it as one opaque call whose body, and count,
+  run when the compiled program runs. A ctypes launch is invisible to
+  dispatch modes; without the op its time would be lost.
 """
 
 from __future__ import annotations
@@ -408,7 +411,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
         return ref.attention(q, k, v, q_offset=q_offset, scale=scale,
-                             softcap=softcap)
+                             softcap=softcap).contiguous()
     _check_kernel_dims("attention_core", q, v, softcap)
     _count("attention_core")
     return _attn.attention_core(q, k, v, q_offset, scale, softcap)
@@ -437,7 +440,7 @@ def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
         return ref.attention(q, k, v, q_offset=q_offset, scale=scale,
-                             window=window, softcap=softcap)
+                             window=window, softcap=softcap).contiguous()
     _check_kernel_dims("attention_window", q, v, softcap)
     _count("attention_window")
     return _attn.attention_window(q, k, v, window, q_offset, scale, softcap)
@@ -462,7 +465,7 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
         return ref.attention(q, k, v, scale=scale, causal=False,
-                             softcap=softcap)
+                             softcap=softcap).contiguous()
     _check_kernel_dims("attention_full", q, v, softcap)
     _count("attention_full")
     return _attn.attention_full(q, k, v, scale, softcap)
@@ -494,7 +497,7 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if not on_card:
         return ref.decode_attention(q, k, v, lengths, scale=scale,
-                                    softcap=softcap).to(v.dtype)
+                                    softcap=softcap).to(v.dtype).contiguous()
     _check_kernel_dims("decode_core", q, v, softcap)
     _count("decode_core")
     return _attn.decode_core(q, k, v, lengths, scale, softcap=softcap)

@@ -5,7 +5,11 @@ Every semantic operator runs under a tag ``ng:<group>:<name>`` pushed on a
 tag stack, with an inner per-invocation ``c<N>`` marker, as
 ``repro.nn.tagged`` does with ``jax.named_scope``. The capture and the
 timed profile (``repro_torch.core.graph``) read the stack to attribute each
-aten op to the paper's operator groups.
+aten op to the paper's operator groups. While ``torch.compile`` traces,
+the stack is written into the meta of each FX node traced under it
+(``node.meta["custom"][COMPILED_SCOPE_KEY]``, no ``c<N>`` marker), so that
+the compiled view (``repro_torch.core.compiled``) reads each fused
+kernel's origins' sites; eager code only pushes and pops the tags.
 
 A backend switch selects the implementation of the kernel-backed ops
 (the norms, ``swiglu``, the fused ops, prefill and decode attention,
@@ -47,6 +51,7 @@ import itertools
 from typing import List, Optional, Tuple
 
 import torch
+import torch.fx.traceback as fx_traceback
 import torch.nn.functional as F
 
 from repro_torch.core.taxonomy import OpGroup, scope_tag
@@ -189,9 +194,23 @@ _TAGS: List[str] = []
 _CALLS = itertools.count()
 
 
+#: the key under ``node.meta["custom"]`` that carries the tag stack into
+#: the FX nodes of a ``torch.compile``'d graph (``core/compiled.py``)
+COMPILED_SCOPE_KEY = "ng_scope"
+
+
 def scope_path() -> str:
     """The current tag stack as a ``/``-joined scope path."""
     return "/".join(_TAGS)
+
+
+def _carried():
+    """While Dynamo traces, the tag stack as an annotation of every FX node
+    traced inside it (``torch.fx.traceback.annotate``), so that Inductor's
+    kernels keep their origins' sites. Dynamo runs the tag stack's Python
+    at trace time only: without the annotation no node would carry a tag.
+    Eager code never calls this."""
+    return fx_traceback.annotate({COMPILED_SCOPE_KEY: scope_path()})
 
 
 @contextlib.contextmanager
@@ -200,7 +219,11 @@ def scope(group: OpGroup, name: str):
     models' inline ``jax.named_scope(nn.scope_tag(...))`` blocks do."""
     _TAGS.append(scope_tag(group, name))
     try:
-        yield
+        if torch.compiler.is_compiling():
+            with _carried():
+                yield
+        else:
+            yield
     finally:
         _TAGS.pop()
 
@@ -218,6 +241,15 @@ def tagged(group: OpGroup, name: str):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
+            if torch.compiler.is_compiling():
+                # no c<N> marker: Dynamo would guard the compiled program
+                # on the counter, and every call would compile anew
+                _TAGS.append(tag)
+                try:
+                    with _carried():
+                        return fn(*args, **kwargs)
+                finally:
+                    _TAGS.pop()
             _TAGS.append(tag)
             _TAGS.append(f"c{next(_CALLS)}")
             try:

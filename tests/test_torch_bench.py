@@ -806,7 +806,32 @@ def test_quick_run_breakdown_columns(quick_run):
     rows = quick_run[0].section("breakdown").rows
     cases = [c.alias for c in tcases.quick_cases()]
     assert [(r["case"], r["mode"]) for r in rows] == \
-        [(c, "eager_cpu") for c in cases] + [(c, "eager_a100") for c in cases]
+        [(c, "eager_cpu") for c in cases] + \
+        [(c, "eager_a100") for c in cases] + \
+        [(c, "compiled_cpu") for c in cases]
+
+
+def test_quick_run_breakdown_has_three_rows_per_case(quick_run):
+    """JAX's three views per case, the third the port's own: the compiled
+    forward measured on the CPU, every kernel given a group, the busy
+    share beside it; the breakdown's text says what the line measures."""
+    rows = quick_run[0].section("breakdown").rows
+    by_case = {}
+    for r in rows:
+        by_case.setdefault(r["case"], []).append(r["mode"])
+    assert by_case == {c.alias: ["eager_cpu", "eager_a100", "compiled_cpu"]
+                       for c in tcases.quick_cases()}
+    for r in rows:
+        if r["mode"] != "compiled_cpu":
+            assert "busy_frac" not in r
+            continue
+        assert r["gemm_frac"] + r["nongemm_frac"] == pytest.approx(1.0)
+        assert r["other_kernels"] == [] and r["n_ops"] > 0
+        assert 0 < r["busy_frac"] and r["wall_s"] > 0
+        assert sum(r["launches"].values()) == r["n_ops"]
+    text = treport.render_breakdown_rows(rows)
+    assert "torch.compile-fused, measured on cpu" in text
+    assert "XLA-fused" not in text
 
 
 def test_harvested_rows_equal_jax(monkeypatch, clean_caches):
@@ -927,10 +952,9 @@ def test_list_names_every_case(capsys, monkeypatch, unported):
             if r["builder"] == "not ported yet"] == list(unported)
 
 
-def test_package_exports_jax_names_but_the_compiled_view():
+def test_package_exports_jax_names():
     import repro.bench as jbench
 
     import repro_torch.bench as tbench
-    assert set(tbench.__all__) == set(jbench.__all__) - {
-        "profile_case_compiled"}
+    assert tbench.__all__ == jbench.__all__
     assert all(hasattr(tbench, n) for n in tbench.__all__)

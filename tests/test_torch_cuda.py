@@ -1640,3 +1640,50 @@ def test_softcap_wide_instantiations_refuse(card):
         ops.decode_core(q, kv, kv, n, softcap=50.0)
     with pytest.raises(RuntimeError, match="cudaError_t"):
         at.decode_core(q, kv, kv, n, 1.0, softcap=50.0)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_compiled_reduced_llama_on_card(card, fused):
+    """The compiled view's forward on the card (``core/compiled.py``): a
+    reduced llama2-7b through ``torch.compile``, its hand-written kernels
+    opaque calls inside the program, gives the eager kernel path's logits
+    (f32), and the launch counters count once per call: the compiling call
+    (tracing launches nothing, then the program runs once) counts the eager
+    forward's launches, and each later call as many again."""
+    from repro_torch.core import compiled as C
+
+    cfg = reduced(get_config("llama2-7b")).replace(n_layers=2)
+    params = init_lm(card, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=card,
+                         device="cuda")
+
+    def fwd(p, t):
+        return lm_forward(p, t, cfg)
+
+    with nn.fuse(fused):
+        ops.reset_launches()
+        want = fwd(params, toks)
+        torch.cuda.synchronize()
+        eager = {k: n for k, n in ops.launches.items() if n}
+        ops.reset_launches()
+        cf = C.compile_forward(fwd, params, toks)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in ops.launches.items() if n} == eager
+        ops.reset_launches()
+        with torch._dynamo.config.patch(error_on_recompile=True):
+            for _ in range(3):
+                got = cf(params, toks)
+        torch.cuda.synchronize()
+    assert {k: n for k, n in ops.launches.items() if n} == \
+        {k: 3 * n for k, n in eager.items()}
+    assert set(eager) >= {"rms_norm", "swiglu", "attention_core"}
+    _assert_close(got, want, torch.float32)
+    _assert_close(cf.output, want, torch.float32)
+    # the profiled call holds each hand-written kernel once a launch
+    with nn.fuse(fused):
+        p = C.measure(cf, fwd, (params, toks), name="llama", device="cuda",
+                      repeats=2)
+    assert p.mode == "compiled_cuda" and p.total_seconds > 0
+    assert {k.split("::", 1)[1]: n for k, n in p.compiled["launches"].items()
+            if k.startswith("repro_torch::")} == eager
+    assert not [k for g, k in p.op_seconds if g == "other"]

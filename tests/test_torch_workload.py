@@ -7,8 +7,8 @@ phases, and the whole models against JAX: the tagged ``(group, op_site)``
 sets of ``Workload.build()``'s capture, and int8 QDQ raising the modeled
 NonGEMM share.
 
-Left out, with no twin in the port: the ``compiled`` backend and the
-``hlo_profile=`` ingestion (XLA HLO), the deprecated ``profile_*`` shims,
+Left out, with no twin in the port: the ``hlo_profile=`` ingestion (XLA
+HLO), the deprecated ``profile_*`` shims,
 and the bench CLI / schema / compare cases (the bench is not ported yet).
 The modeled GEMM share of the two captures differs by design (the port
 records aten view ops, JAX its ``broadcast_in_dim``s):
@@ -65,7 +65,8 @@ def tiny():
 
 def test_builtin_backends_listed():
     assert [b for b in list_backends() if not b.startswith("_test")] == \
-        ["calibrated", "eager-cpu", "eager-modeled", "measured", "wallclock"]
+        ["calibrated", "compiled", "eager-cpu", "eager-modeled", "measured",
+         "wallclock"]
 
 
 def test_unknown_backend_raises_keyerror_with_listing():
@@ -74,6 +75,9 @@ def test_unknown_backend_raises_keyerror_with_listing():
     msg = str(ei.value)
     assert "does-not-exist" in msg and "eager-cpu" in msg
     with pytest.raises(KeyError, match="unknown profiler backend"):
+        get_backend("does-not-exist:h100")
+    # the port's compiled view measures, and prices on no spec
+    with pytest.raises(ValueError, match="no ':<param>'"):
         get_backend("compiled:h100")
 
 
