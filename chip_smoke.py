@@ -229,7 +229,16 @@ Phases, each printing JSON lines:
              detector must show RoI, Interpolation and Reduction time;
              then vit-b16-cls at b1 through phase ``qdq``'s 2x2
              (``conv2d``'s QDQ), checked and profiled the same way;
-   micro   - the Table-2 NonGEMM micro-benchmark (``core/microbench``,
+   nglint  - the port's nglint (``repro_torch.analysis``, NG001–NG009):
+             (a) over the reduced zoo, every id and variant of ``python -m
+             repro_torch.analyze --all``, captured on the card and gated
+             against the committed baseline (a new finding fails); (b) the
+             graph rules over phase ``qdq``'s eight full-width bf16
+             captures of llama2-7b and gpt2-xl, raw and rewritten (an
+             ``error`` finding fails; warnings printed by rule and site);
+             (c) one reduced cell's card capture against the CPU's under
+             ``nn.backend("cuda")``, record field by field, printed;
+  micro   - the Table-2 NonGEMM micro-benchmark (``core/microbench``,
              f32): one line per operator, the fused dequant row through its
              kernel; then ``h100`` calibrated from these rows
              (``core/calibrate.py``) and the ``calibrated:h100`` view of
@@ -478,6 +487,15 @@ QDQ_LAYERS = 2
 #: (label, fake-quant mode, fused)
 QDQ_VARIANTS = (("bf16", None, False), ("fused", None, True),
                 ("int8-qdq", "int8", False), ("int8-qdq+fused", "int8", True))
+#: phase nglint: the reduced configs ``repro_torch.analysis`` sweeps on the
+#: card (None: every id, ``python -m repro_torch.analyze --all``), and the
+#: cell whose card capture is held against the CPU's under
+#: ``nn.backend("cuda")`` (what lets the CPU tests hold the committed
+#: baseline), field by field
+NGLINT_IDS = None
+NGLINT_CPU_CELL = ("llama2-7b", "fused")
+NGLINT_FIELDS = ("prim", "group", "op_site", "in_shapes", "out_shapes",
+                 "in_dtypes", "out_dtypes", "bytes_accessed")
 #: the qdq phase's eager wall: the median of this many forwards after one
 #: warm-up (which warms cuBLAS), through the ``wallclock`` backend
 WALL_REPEATS = 5
@@ -3128,7 +3146,7 @@ def qdq(torch, nn, ops, fwd, args32, args, per_forward, name, launches,
     path against the plain path, fused against unfused, under the anchored
     logit rule; then (not with ``paths_only``) the measured 2x2 of
     QDQ_VARIANTS through the profiling API (:func:`qdq_2x2`), whose
-    (name, variant, profile, records) go to ``kept``.
+    (name, variant, profile, records, raw capture) go to ``kept``.
     ``per_forward(fused)``: the kernel launches of one forward, which QDQ
     does not change."""
     out = {}
@@ -3168,7 +3186,8 @@ def qdq_2x2(ops, fwd, args, per_forward, name) -> list:
     ``a100`` (``model_records``, the ``eager-modeled`` view), the drift of
     the measured profile against each, and the fusion report of the
     capture. Returns [(variant, measured profile, the records the modeled
-    views priced)] for the calibrated view after phase ``micro``."""
+    views priced, the raw capture)] for the calibrated view after phase
+    ``micro`` and the graph rules of phase ``nglint``."""
     from repro_torch.core import GPU_A100, H100, capture, fuse_records, model_records
 
     kept = []
@@ -3193,7 +3212,7 @@ def qdq_2x2(ops, fwd, args, per_forward, name) -> list:
         report = fuse_records(raw)[1]
         emit(phase="qdq", model=w.name, variant=label,
              fusion_report=report.to_dict(), records_fused=report.records_fused)
-        kept.append((label, prof, records))
+        kept.append((label, prof, records, raw))
     return kept
 
 
@@ -3206,7 +3225,7 @@ def calibrated(kept, rows) -> None:
 
     cal = calibrate_from_microbench(H100, rows=rows)
     emit(phase="qdq", calibration=cal.to_dict())
-    for name, label, prof, records in kept:
+    for name, label, prof, records, _ in kept:
         emit_modeled("calibrated:h100",
                      model_records(records, prof.name, cal,
                                    mode=f"calibrated_{H100.name}"),
@@ -3538,6 +3557,91 @@ def qdq_vision(torch, nn, ops, launches, kept: list,
 
 
 # ---------------------------------------------------------------------------
+# phase nglint: repro_torch.analysis on the card
+# ---------------------------------------------------------------------------
+
+def nglint(nn, kept: list) -> None:
+    """Phase ``nglint``: (a) the rules NG001–NG009 over the reduced zoo,
+    each capture on the card, gated against the committed baseline
+    (``repro_torch/analysis/analysis_baseline.json``): a new finding fails;
+    (b) the graph rules over the full-width bf16 captures phase ``qdq``
+    kept for QDQ_ARCHS (raw and rewritten, captured once there): an
+    ``error`` finding fails, warnings are printed by rule and site; (c)
+    NGLINT_CPU_CELL's card capture against the CPU's under
+    ``nn.backend("cuda")``, NGLINT_FIELDS record by record: printed."""
+    from collections import Counter
+
+    from repro_torch.analysis import (AnalysisContext, analyze, build_context,
+                                      gate_findings, load_baseline, run_rules)
+    from repro_torch.analysis.baseline import DEFAULT_BASELINE
+    from repro_torch.analysis.cli import zoo_ids
+    from repro_torch.core import Workload
+
+    t0 = time.perf_counter()
+    baseline = load_baseline(DEFAULT_BASELINE)
+    ids = list(NGLINT_IDS or zoo_ids())
+    ctxs, findings = analyze(ids, baseline=baseline, device="cuda")
+    new = gate_findings(findings, baseline)
+    emit(phase="nglint", part="zoo", ids=len(ids), cells=len(ctxs),
+         findings=len(findings),
+         by_rule=dict(Counter(f.rule for f in findings)),
+         accepted=len(findings) - len(new),
+         new_findings=[f.to_dict() for f in new],
+         records=sum(len(c.records) for c in ctxs),
+         wall_s=round(time.perf_counter() - t0, 3))
+    if new:
+        fail(f"nglint: {len(new)} new finding(s) against {DEFAULT_BASELINE}: "
+             + "; ".join(f"{f.rule} {f.workload} {f.where}" for f in new))
+
+    t0 = time.perf_counter()
+    errors = []
+    for name, label, _, records, raw in kept:
+        arch = name.split()[0]
+        if arch not in QDQ_ARCHS:
+            continue
+        ctx = AnalysisContext(workload=Workload(name=name, arch=arch,
+                                                dtype="bfloat16"),
+                              variant=label, records=raw, rewritten=records,
+                              fused=label.endswith("fused"))
+        fs = run_rules(ctx)
+        errors += [f for f in fs if f.severity == "error"]
+        emit(phase="nglint", part="full_width", model=name, variant=label,
+             records=len(raw), rewritten=len(records),
+             by_rule=dict(Counter(f.rule for f in fs)),
+             warnings=sorted(Counter(f"{f.rule} {f.where}" for f in fs
+                                     if f.severity != "error").items()),
+             errors=[f.to_dict() for f in fs if f.severity == "error"])
+    emit(phase="nglint", part="full_width", captures=sum(
+        1 for k in kept if k[0].split()[0] in QDQ_ARCHS),
+        wall_s=round(time.perf_counter() - t0, 3))
+    if errors:
+        fail(f"nglint: {len(errors)} error finding(s) on the full-width "
+             "captures: " + "; ".join(f"{f.rule} {f.workload} {f.where}"
+                                      for f in errors))
+
+    t0 = time.perf_counter()
+    arch, variant = NGLINT_CPU_CELL
+    card = next(c for c in ctxs if c.key == f"{arch}/{variant}")
+    with nn.backend("cuda"):
+        cpu = build_context(arch, variant, device="cpu")
+
+    def row(r):
+        return tuple(getattr(r, f) for f in NGLINT_FIELDS)
+    differ = [(i, row(a), row(b)) for i, (a, b) in
+              enumerate(zip(card.records, cpu.records)) if row(a) != row(b)]
+    shares = {g: card.group_shares.get(g, 0.0) - cpu.group_shares.get(g, 0.0)
+              for g in set(card.group_shares) | set(cpu.group_shares)}
+    emit(phase="nglint", part="card_vs_cpu", cell=card.key,
+         fields=list(NGLINT_FIELDS), card_records=len(card.records),
+         cpu_records=len(cpu.records), records_differ=len(differ),
+         agree=not differ and len(card.records) == len(cpu.records),
+         first_differences=[[i, str(a), str(b)] for i, a, b in differ[:5]],
+         max_abs_share_diff=max((abs(d) for d in shares.values()),
+                                default=0.0),
+         wall_s=round(time.perf_counter() - t0, 3))
+
+
+# ---------------------------------------------------------------------------
 # phase bench: python -m repro_torch.bench run --quick
 # ---------------------------------------------------------------------------
 
@@ -3757,7 +3861,7 @@ def main(argv=None) -> int:
     lap("musicgen")
     sc_launches = {}
     # -- phases 3 and 4, one model at a time -------------------------------
-    qdq_kept = []           # (model, variant, measured profile, records)
+    qdq_kept = []   # (model, variant, measured profile, records, raw capture)
     nms_inputs = None
     for arch in ARCHS:
         cfg = get_config(arch)
@@ -3890,6 +3994,12 @@ def main(argv=None) -> int:
         return 0
 
     lap("vision")
+    # -- phase nglint: the port's nglint on the card -------------------------
+    nglint(nn, qdq_kept)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("nglint")
     # -- phase micro: the Table-2 suite, f32 ----------------------------------
     from repro_torch.core.microbench import run_suite
     ops.reset_launches()

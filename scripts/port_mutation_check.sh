@@ -123,6 +123,20 @@ mut topk_ties_high models/moe.py \
 mut compiled_vote_ignores_tags core/compiled.py \
   's/w = 2 if tagged else 1/w = 1/' \
   cpu tests/test_torch_compiled.py -k fusion_group_equals_jax
+# recurrentgemma-2b's softplus (aten.logaddexp) left out of the aten table:
+# it falls to OTHER and NG001 flags the reduced capture
+mut aten_table_drops_logaddexp core/taxonomy.py \
+  's/"logaddexp", "rsub",/"rsub",/' \
+  cpu tests/test_torch_analysis.py -k "rules_clean_on_every_reduced_config and recurrentgemma"
+# NG003 comparing the records' raw dtype strings ("torch.bfloat16" is no
+# JAX name): the rule goes silent
+mut ng003_raw_dtypes analysis/builtin.py \
+  's/if not any(dtype_name(d) in LOW_PRECISION_DTYPES/if not any(d in LOW_PRECISION_DTYPES/; s/if dtype_name(dtype) != "float32":/if dtype != "float32":/' \
+  cpu tests/test_torch_analysis.py -k ng003_flags
+# a FUSION_PATTERNS kernel name that KERNEL_SPECS lacks: NG005 flags it
+mut pattern_kernel_unknown core/fusion.py \
+  's/kernel="fused_add_rms_norm"),/kernel="add_rms_norm"),/' \
+  cpu tests/test_torch_analysis.py -k static_rules_clean
 # decode's merge adding the splits' accumulators without e^(m_s - m)
 mut decode_combine_no_rescale decode.cu \
   's/a += w \* __ldcg(pa + s \* GD + oi);/a += __ldcg(pa + s * GD + oi);/'

@@ -57,7 +57,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from .profiler import ModelProfile
-from .taxonomy import KERNEL_NAMESPACE, OpGroup, classify, classify_op
+from .taxonomy import KERNEL_NAMESPACE, OpGroup, lookup_primitive, parse_scope
 
 #: the repo's build directory (``.gitignore`` lists it)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
@@ -112,7 +112,11 @@ def origin_vote(node) -> Vote:
     from repro_torch.nn import COMPILED_SCOPE_KEY
 
     scope = (node.meta.get("custom") or {}).get(COMPILED_SCOPE_KEY, "")
-    return classify(_prim(node), scope)[0], "ng:" in scope
+    tagged = parse_scope(scope)
+    # a graph's nodes are no captured ops: no miss is counted as unknown
+    group = tagged[0] if tagged is not None else (
+        lookup_primitive(_prim(node)) or OpGroup.OTHER)
+    return group, "ng:" in scope
 
 
 @dataclasses.dataclass
@@ -266,7 +270,7 @@ def kernel_group(name: str, compiled: CompiledForward,
                                f"{len(groups)} in the compiled graph")
         return groups[i]
     if name.startswith("aten::"):
-        return classify_op("aten." + name[len("aten::"):])
+        return lookup_primitive("aten." + name[len("aten::"):]) or OpGroup.OTHER
     return None
 
 

@@ -38,7 +38,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .taxonomy import OpGroup, classify
+from .taxonomy import OpGroup, classify, lookup_primitive
 
 _DTYPE_BYTES = {
     "float32": 4, "float64": 8, "float16": 2, "bfloat16": 2,
@@ -110,20 +110,41 @@ _GEMM_FLOPS = {
 }
 
 
+#: transcendentals cost a handful of flops each (JAX's ``estimate_flops``)
+_TRANSCENDENTALS = frozenset(f"aten.{n}" for n in (
+    "tanh", "sigmoid", "erf", "exp", "log", "rsqrt", "sqrt", "pow"))
+
+
 def estimate_flops(prim: str, group: OpGroup, in_shapes, out_shapes) -> float:
-    """Analytic per-op FLOP estimate (GEMMs and attention by their shapes,
-    arithmetic by output elements, data movement zero)."""
+    """Analytic per-op FLOP estimate, by the op itself as JAX's is by its
+    primitive: GEMMs, convolutions and attention by their shapes,
+    transcendentals 8 a element, sorts n log n, other arithmetic one a
+    output element (reductions one a input element), data movement zero.
+    The site's tag does not change an op's arithmetic (a ``mul`` in a rope
+    or QDQ site costs what it costs anywhere); ``group`` prices only ops
+    the aten table lacks."""
     if prim in _GEMM_FLOPS:
         return _GEMM_FLOPS[prim](in_shapes)
+    if prim == "aten.convolution":
+        # 2 * out elements * (in channels / groups) * kernel taps: the
+        # weight is (O, I / groups, *kernel)
+        return 2.0 * _numel(out_shapes[0]) * _numel(in_shapes[1][1:])
     if prim in ("repro_torch.attention_core", "repro_torch.attention_full",
                 "repro_torch.attention_window", "repro_torch.decode_core"):
         # every (q, k) pair of the shapes: the masks are not read
         (b, sq, hq, dk), (_, skv, _, _), (_, _, _, dv) = in_shapes[:3]
         return 2.0 * b * hq * sq * skv * (dk + dv)
-    if group in (OpGroup.ELEMENTWISE, OpGroup.NORMALIZATION,
-                 OpGroup.ACTIVATION, OpGroup.LOGIT, OpGroup.FUSED):
+    if prim in ("aten.sort", "aten.topk"):
+        n = _numel(in_shapes[0]) if in_shapes else 0
+        return float(n) * max(1.0, math.log2(max(n, 2)))
+    if prim in _TRANSCENDENTALS:
+        return 8.0 * _numel(out_shapes[0]) if out_shapes else 0.0
+    structural = lookup_primitive(prim)
+    g = group if structural is None else structural
+    if g in (OpGroup.ELEMENTWISE, OpGroup.NORMALIZATION,
+             OpGroup.ACTIVATION, OpGroup.LOGIT, OpGroup.FUSED):
         return float(_numel(out_shapes[0])) if out_shapes else 0.0
-    if group == OpGroup.REDUCTION:
+    if g == OpGroup.REDUCTION:
         return float(_numel(in_shapes[0])) if in_shapes else 0.0
     return 0.0
 

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import enum
 import re
-from typing import Optional, Tuple
+import warnings
+from typing import Dict, Optional, Tuple
 
 
 class OpGroup(str, enum.Enum):
@@ -122,6 +123,8 @@ _reg(
     "masked_fill", "_assert_async", "lerp",
     # the ring cache's slot arithmetic (floor mod, as jnp.mod)
     "remainder",
+    # the RG-LRU's softplus and its 1 - a**2 (JAX: elementwise primitives)
+    "logaddexp", "rsub",
 )
 _reg(
     OpGroup.REDUCTION,
@@ -136,6 +139,28 @@ _reg(OpGroup.OTHER, "_local_scalar_dense", "item")
 #: namespace of this package's hand-written kernels (torch.library ops)
 KERNEL_NAMESPACE = "repro_torch"
 
+#: ops that fell through to ``OpGroup.OTHER`` because no ``_reg`` entry
+#: covers them, with the number of times each was classified: the fallback
+#: is not silent (nglint NG001 flags the records, the first miss warns)
+UNKNOWN_PRIMS: Dict[str, int] = {}
+
+_WARNED_UNKNOWN: set = set()
+
+
+def lookup_primitive(op_name: str) -> Optional[OpGroup]:
+    """The op's structural group by its name alone, None for an op the
+    table lacks; unlike :func:`classify_op` it neither counts the miss in
+    :data:`UNKNOWN_PRIMS` nor warns (introspection: nglint)."""
+    if op_name.startswith(KERNEL_NAMESPACE + "."):
+        return OpGroup.FUSED
+    return _ATEN_GROUPS.get(op_name)
+
+
+def is_known_primitive(op_name: str) -> bool:
+    """True if the op has an ``_ATEN_GROUPS`` entry or is a kernel of this
+    package."""
+    return lookup_primitive(op_name) is not None
+
 
 def classify_op(op_name: str) -> OpGroup:
     """Group of an op captured outside every ``ng:`` scope.
@@ -143,9 +168,18 @@ def classify_op(op_name: str) -> OpGroup:
     ``op_name`` is the overload packet's dotted name (``aten.mm``,
     ``repro_torch.decode_core``).
     """
-    if op_name.startswith(KERNEL_NAMESPACE + "."):
-        return OpGroup.FUSED
-    return _ATEN_GROUPS.get(op_name, OpGroup.OTHER)
+    group = lookup_primitive(op_name)
+    if group is None:
+        UNKNOWN_PRIMS[op_name] = UNKNOWN_PRIMS.get(op_name, 0) + 1
+        if op_name not in _WARNED_UNKNOWN:
+            _WARNED_UNKNOWN.add(op_name)
+            warnings.warn(
+                f"op {op_name!r} is not registered in the operator taxonomy "
+                "and was binned to OpGroup.OTHER; add it with _reg(...) in "
+                "repro_torch/core/taxonomy.py (nglint NG001 flags these "
+                "records)", stacklevel=2)
+        return OpGroup.OTHER
+    return group
 
 
 def classify(op_name: str, scope_path: str = "") -> Tuple[OpGroup, str]:

@@ -67,6 +67,10 @@ DECODE_WIDE_DIMS = {DECODE_MAX_DIMS: DECODE_WIDE_GROUP, (256, 256): 10}
 COMMON_MAX_DIM = 128
 #: the largest GQA group decode takes (csrc kGMax)
 MAX_GQA_GROUP = 32
+#: the launch entries below, one a mask and decode: each has a spec of its
+#: own in ``ops.KERNEL_SPECS`` (nglint NG005)
+ENTRIES = ("attention_core", "attention_window", "attention_full",
+           "decode_core")
 
 
 def prefill_dims_taken(dk: int, dv: int, causal: bool = True,

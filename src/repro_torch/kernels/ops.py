@@ -24,8 +24,9 @@ Every wrapper
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -551,3 +552,66 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
     # out of place, as JAX's ``.at[order].set``: the scatter is then no
     # in-place op, which a timed run could time only once
     return torch.zeros_like(keep_sorted).scatter(0, order, keep_sorted)
+
+
+# ---------------------------------------------------------------------------
+# Static kernel metadata (nglint NG005)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """Static description of one hand-written kernel (the counterpart of
+    ``repro.kernels.ops.KernelSpec``).
+
+    ``op`` is its ``torch.ops.repro_torch`` op, whose fake lets the capture
+    and ``torch.compile`` see the launch as one call; ``plain`` its plain
+    version in ``kernels/ref.py``, which the wrapper takes for CPU tensors;
+    ``sources`` the ``csrc/`` files ``_build`` compiles it from.
+    ``handles_remainder`` says how a partial last tile is made legal, where
+    JAX's kernels pad operands (``"pad"``) or clamp their blocks
+    (``"clamp"``): every kernel here masks (``"mask"``), no operand is
+    padded, and the kernel bounds its loads and stores by the operand's
+    dims (the K tail of a row, the last key tile, the last split of a
+    cache, the last 64-box word).
+    """
+
+    name: str
+    op: str
+    plain: Callable
+    sources: Tuple[str, ...]
+    handles_remainder: Optional[str] = "mask"
+
+    @property
+    def qualname(self) -> str:
+        return f"repro_torch::{self.op}"
+
+
+def _spec(name: str, plain: Callable, *sources: str,
+          op: Optional[str] = None) -> Tuple[str, KernelSpec]:
+    return name, KernelSpec(name=name, op=op or name, plain=plain,
+                            sources=sources)
+
+
+#: every kernel of :data:`KERNELS`, keyed by its launch-count name, which
+#: is the name ``core/fusion.FUSION_PATTERNS`` entries use in ``kernel=``
+#: (nglint NG005 cross-checks the two tables)
+KERNEL_SPECS: Dict[str, KernelSpec] = dict((
+    _spec("rms_norm", ref.rms_norm, "norms.cu"),
+    _spec("fused_add_rms_norm", ref.fused_add_rms_norm, "norms.cu"),
+    _spec("dequant_add_rms_norm", ref.dequant_add_rms_norm, "norms.cu"),
+    _spec("layer_norm", ref.layer_norm, "norms.cu"),
+    _spec("fused_add_layer_norm", ref.fused_add_layer_norm, "norms.cu"),
+    _spec("rope", ref.rope, "rope.cu"),
+    _spec("swiglu", ref.swiglu, "swiglu.cu"),
+    _spec("geglu", ref.geglu, "swiglu.cu"),
+    _spec("attention_core", ref.attention, "attention.cu",
+          "attention_softcap.cu"),
+    _spec("attention_window", ref.attention, "attention.cu",
+          "attention_softcap.cu"),
+    _spec("attention_full", ref.attention, "attention.cu",
+          "attention_softcap.cu"),
+    _spec("decode_core", ref.decode_attention, "decode.cu",
+          "decode_softcap.cu"),
+    _spec("softmax_xent", ref.softmax_xent, "softmax_xent.cu"),
+    _spec("nms", ref.nms_sorted, "nms.cu", op="nms_sorted"),
+))
