@@ -11,7 +11,7 @@ Phases, each printing JSON lines:
              builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
              and prints the ``h100`` spec the modeled views price on
              (``core/hardware.H100``) beside the card's total memory and SMs;
-2. kernels - holds each of the fourteen kernels against its plain PyTorch
+2. kernels - holds each of the sixteen kernels against its plain PyTorch
              version on the card, in bf16 and f32, at the main paths' shapes
              (llama2-7b; stablelm-3b's LayerNorm at 2560, SwiGLU at 6912,
              rope on a quarter of 80 (half 10, scalar), attention at head
@@ -74,7 +74,25 @@ Phases, each printing JSON lines:
              exact zeros, decode in many splits over 4096 keys;
              musicgen-large's shapes (mg_kernel_cases): the LayerNorms at
              2048, causal attention at 32 heads of 64 over its prefill,
-             decode at group 1 over a 2048-deep cache;
+             decode at group 1 over a 2048-deep cache; the training pair
+             (train_kernel_cases): the lse forward (out and lse) and
+             attention_bwd (dq, dk, dv, two launches bit-identical) on
+             the causal, window and full masks, GQA groups 1, 4 and 8,
+             head dims 64, 80 and 128, lengths 97 and 1000, a q_offset,
+             granite-3-8b's training shape and rows that see no key
+             (zeros, NEG_INF, zero gradients);
+   train   - granite-3-8b at full width, its first 2 layers, f32 masters
+             with a bf16 working copy, b2 x s2048, loss_chunk 512, remat
+             ``proj`` (``scripts/train_check.py``): (a) one loss and
+             gradient on the kernel path, the plain path in bf16 and in
+             f32 (the anchor): the loss and every gradient leaf under the
+             anchored rule, the worst leaf printed; (b) the ``Trainer``
+             for 6 steps, a fresh one resumed from its step-3 checkpoint
+             against the uninterrupted run (equal, max |delta|); (c) the
+             step ms and tokens/s after the first step, the peak memory,
+             the launches a step against their analytic count, and one
+             ``Workload(phase="train")`` measured split at s512 with its
+             backward share;
    moe     - qwen2-moe-a2.7b and deepseek-v2-lite-16b (MLA, a dense first
              layer) at full width and depth in bf16 (random weights from
              a seeded generator on the card), one after the other, each
@@ -83,7 +101,7 @@ Phases, each printing JSON lines:
              ``models/moe.py``, at the config's capacity and at 0.5 (choices
              dropped); unfused and fused, the ``Engine`` serves 6 requests
              of 16 new tokens, eager then graphed, tokens identical, with
-             ``serve``'s repeats (one eager, MOE_EAGER_REPEATS), launch and
+             one repeat (MOE_REPEATS), launch and
              counter checks and its graph
              vs eager line (the step's byte bound reads every expert's
              weights); the ``PagedEngine`` graphed, cold with the
@@ -317,7 +335,11 @@ Phases, each printing JSON lines:
              the cap as its score modification, the same kernels uncapped
              and SDPA uncapped (under each kernel's ``softcap``) and
              musicgen-large's prefill attention and decode beside SDPA
-             (under ``musicgen``).
+             (under ``musicgen``); the training pair at granite-3-8b's
+             shape: the lse forward beside the entry without the lse and
+             flash SDPA's forward, attention_bwd beside SDPA's flash
+             backward, each beside its plain twin
+             (``scripts/train_check.py``).
 
 The line before the last is the per-kernel JSON record, the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -492,6 +514,12 @@ SOURCES = {
                              "src/repro/kernels/norms.py:125"),
     "softmax_xent": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
                      "src/repro/kernels/softmax_xent.py:26"),
+    # the training pair: the forward's lse fragment and the flash backward,
+    # counterparts of JAX's flash VJP (no Pallas kernel: the jnp twin)
+    "attention_lse": ("src/repro_torch/kernels/csrc/attention_lse.cu",
+                      "src/repro/models/attention.py:172"),
+    "attention_bwd": ("src/repro_torch/kernels/csrc/attention_bwd.cu",
+                      "src/repro/models/attention.py:243"),
 }
 #: the served models the qdq phase measures (gemma3-27b is left out: weight
 #: QDQ makes f32 temporaries of its 262144 x 5376 tied embedding, 5.6 GB
@@ -595,11 +623,13 @@ MOE_KERNEL_BATCHES = ((1, 256), (4, 1), (1, CHUNK))
 #: the op sites whose share phase moe's measured split prints
 MOE_SITES = ("moe_dispatch", "moe_combine", "router_gate", "router_aux",
              "expert_ffn")
-#: the repeats of phase moe's eager serve (its graphed serve keeps
-#: REPEATS): the eager MoE step is host-bound, ~4.5 s a run of the
-#: prompts, so three more runs of both models, unfused and fused, cost
-#: ~50 s of the script's time, which musicgen and softcap needed
-MOE_EAGER_REPEATS = 1
+#: the repeats of phase moe's serves, eager and graphed: the eager MoE
+#: step is host-bound, ~4.5 s a run of the prompts, so three more runs of
+#: both models, unfused and fused, cost ~50 s of the script's time, which
+#: musicgen and softcap needed; the graphed serve's tok/s read within
+#: 1.0 % over three repeats on an H100, and its two more went to phase
+#: train
+MOE_REPEATS = 1
 #: the depth of phase moe's measured split: the first layers of the served
 #: params (deepseek-v2-lite-16b's dense first layer among them); the split
 #: times each of its ops four times behind a 0.5 ms pad, ~25 s for the two
@@ -1186,6 +1216,21 @@ def check_kernels(torch, ops, ref, gen):
         for name, fn, plain, case, kw in mg_kernel_cases(torch, ops, ref,
                                                           randn, dt):
             compare(name, fn(), plain(), dtname, case, mg=True, **kw)
+        # the training pair (phase train): the lse forward and the flash
+        # backward, two launches bit-identical (train_kernel_cases); every
+        # case is held, then the sweep fails naming each that disagreed
+        missed = []
+        for name, fn, plain, case, kw in train_kernel_cases(torch, ops, ref,
+                                                             randn, dt):
+            try:
+                if not kw.get("bit_identical", True):
+                    fail(f"{name} {case} {dtname}: two launches on the same "
+                         "inputs differ")
+                compare(name, fn(), plain(), dtname, case, **kw)
+            except RuntimeError as e:
+                missed.append(str(e))
+        if missed:
+            fail(f"{len(missed)} training-pair cases: " + " | ".join(missed))
         # full mask: (B, Sq, Skv, Hq, Hkv, Dk, Dv); 196 and 197 are not
         # multiples of the 64-key tile, 128 / 256 / 1024 are
         for b, sq, skv, hq, hkv, dk, dv in [
@@ -1343,6 +1388,75 @@ def mg_kernel_cases(torch, ops, ref, randn, dt):
                       f"lengths={lens} (musicgen decode, group 1)",
                       dict(rms_scaled=True,
                            body=attn_template.decode_body(dh, dh, dt))))
+    return cases
+
+
+#: phase 2's cases of the training pair, (B, Sq, Skv, Hq, Hkv, D, mask,
+#: window, q_offset): GQA groups 1, 4 and 8, head dims 64, 80 and 128 (the
+#: bf16 tensor-core body) and 40 (no whole k16 steps: bf16 on the FMA
+#: body), odd lengths, a q_offset, the three masks, granite-3-8b's training
+#: shape; the last case's rows all see no key (window 8 from position 107
+#: over 100 keys): zeros, NEG_INF and zero gradients
+TRAIN_KERNEL_CASES = [
+    (2, 97, 97, 8, 1, 64, "causal", 1, 0),
+    (1, 97, 97, 4, 2, 40, "causal", 1, 0),
+    (2, 97, 97, 4, 4, 80, "causal", 1, 0),
+    (1, 1000, 1000, 32, 8, 128, "causal", 1, 0),
+    (1, 64, 200, 8, 2, 128, "causal", 1, 136),
+    (2, 2048, 2048, 32, 8, 128, "causal", 1, 0),
+    (1, 300, 300, 8, 1, 128, "window", 50, 0),
+    (1, 1000, 1000, 4, 4, 64, "window", 256, 0),
+    (1, 40, 100, 4, 2, 80, "window", 8, 100),
+    (2, 77, 130, 4, 4, 80, "full", 1, 0),
+    (1, 97, 97, 8, 1, 128, "full", 1, 0),
+    (1, 40, 100, 4, 2, 64, "window", 8, 107),
+]
+
+
+def train_kernel_cases(torch, ops, ref, randn, dt):
+    """The training pair against its plain twins, as (kernel, launch,
+    plain version, case, compare's keywords): the lse forward's output
+    (atol scaled by its RMS where below 1, as the other attention cases)
+    and its lse; attention_bwd's dq, dk and dv from the kernel's own out
+    and lse, each launched twice and held bit-identical (no atomics), at
+    atol times the plain gradient's RMS (uncapped) and rtol: dK and dV sum
+    up to Sq x G rows, dQ up to Skv keys, so a gradient's scale is its
+    sums', and the RMS of a causal dK / dV is set by its late keys (a few
+    hundred rows each), which a fault in the later query steps moves by
+    about their size; the largest entries (the first keys', up to ~10 at
+    2048 rows) lie under rtol, an ulp of bf16."""
+    cases = []
+    for b, sq, skv, hq, hkv, d, mask, w, off in TRAIN_KERNEL_CASES:
+        q, do = randn((b, sq, hq, d), dt), randn((b, sq, hq, d), dt)
+        k, v = randn((b, skv, hkv, d), dt), randn((b, skv, hkv, d), dt)
+        kw = dict(causal=mask != "full", window=w if mask == "window" else None,
+                  q_offset=off)
+        out, lse = ops.attention_with_lse(q, k, v, mask, w, off)
+        p_out, p_lse = ref.attention_fwd_lse(q, k, v, **kw)
+        blind = off >= skv + w - 1 and mask == "window"
+        shape = f"q{[b, sq, hq, d]} kv{[b, skv, hkv, d]} {mask}" + (
+            f" w={w}" if mask == "window" else "") + f" q_offset={off}" + (
+            " (no row sees a key)" if blind else "")
+        zero = dict(zero_rows=b * sq * hq) if blind else {}
+        cases.append(("attention_lse", lambda o=out: o, lambda o=p_out: o,
+                      f"out {shape}", dict(rms_scaled=True, **zero)))
+        cases.append(("attention_lse", lambda t=lse: t, lambda t=p_lse: t,
+                      f"lse {shape}", {}))
+        grads = ops.attention_bwd(q, k, v, out, lse, do, mask, w, off)
+        again = ops.attention_bwd(q, k, v, out, lse, do, mask, w, off)
+        same = all(torch.equal(a, c) for a, c in zip(grads, again))
+        want = ref.attention_bwd(q, k, v, out, lse, do, **kw)
+        for what, got, plain in zip(("dq", "dk", "dv"), grads, want):
+            rms = float(plain.float().square().mean().sqrt())
+            err = float((got.float() - plain.float()).abs().max())
+            tol = {k_: (a * rms, r) for k_, (a, r) in TOL.items()}
+            cases.append(("attention_bwd", lambda g=got: g,
+                          lambda p_=plain: p_, f"{what} {shape}",
+                          dict(tol=tol, bit_identical=same, plain_rms=rms,
+                               max_abs_err_over_rms=err / rms if rms else None,
+                               plain_max=float(plain.float().abs().max()),
+                               **({"zero_rows": got.numel() // d}
+                                  if blind else {}))))
     return cases
 
 
@@ -1593,9 +1707,13 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
     def entry(shape, kernel, plain, library, nbytes, flops, peak="float32",
-              body=None):
+              body=None, plain_runs=None):
+        """``plain_runs``: the plain version timed over that many runs
+        without a warm-up, not the timer's 20 (NMS's greedy loop)."""
+        plain_timer = timer if plain_runs is None else graph.Timer(
+            iters=plain_runs, warmup=0)
         row = dict(shape=shape, ms=timer(kernel), eager_ms=timer.eager(kernel),
-                   plain_ms=None if plain is None else timer(plain),
+                   plain_ms=None if plain is None else plain_timer(plain),
                    library_ms=None if library is None else timer(library),
                    bound=bound_ms(nbytes, flops, peak))
         if body is not None:
@@ -1910,6 +2028,11 @@ def time_kernels(torch, ops, ref, gen, decode_lengths, graph, nms_inputs):
                 emit(phase="timing", kernel=f"{name} xlstm prefill",
                      **{k: v for k, v in row.items() if k != "bound"},
                      bound_ms=row["bound"][0], bound_by=row["bound"][1])
+    # the training pair at granite-3-8b's shape (phase train): the lse
+    # forward beside the entry without it and flash SDPA's forward, the
+    # flash backward beside SDPA's (scripts/train_check.py)
+    out.update(_script("train_check").time_train_pair(torch, ops, ref, entry,
+                                                      randn))
     return out
 
 
@@ -2656,10 +2779,11 @@ def moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
             if not paths_only:
                 eager = serve(torch, ops, _build, Engine, params, cfg, prompts,
                               fused, max_len, "engine", cuda_graph=False,
-                              repeats=MOE_EAGER_REPEATS)
+                              repeats=MOE_REPEATS)
                 graphed = serve(torch, ops, _build, Engine, params, cfg,
                                 prompts, fused, max_len, "engine",
-                                same_as=eager["tokens"], repeats=REPEATS)
+                                same_as=eager["tokens"],
+                                repeats=MOE_REPEATS)
                 emit_graph_vs_eager("moe", cfg, fused, "engine", graphed, eager)
                 # the PagedEngine as it serves by default, its step graphed:
                 # cold, the Engine's tokens exactly; chunked with prefix
@@ -4021,6 +4145,12 @@ def main(argv=None) -> int:
 
     lap("kernels")
     launches = dict.fromkeys(SOURCES, 0)
+    # -- phase train: granite-3-8b trained at full width, 2 layers --------
+    if not args.paths_only:
+        for k, n in _script("train_check").train_phase(torch, emit,
+                                                       fail).items():
+            launches[k] += n
+    lap("train")
     decode_lengths = {}
     # -- phase moe: qwen2-moe-a2.7b and deepseek-v2-lite-16b, full size -----
     moe(torch, nn, ops, _build, Engine, PagedEngine, init_lm, get_config,
@@ -4244,7 +4374,8 @@ def main(argv=None) -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": tm["library_ms"], "eager_ms": tm["eager_ms"],
             "shape": tm["shape"], **{k: tm[k] for k in ("body", "plan", "mul_ms",
-                                                         "amax_ms")
+                                                         "amax_ms", "no_lse_ms",
+                                                         "library")
                                      if k in tm}})
         for key, errs in (("mla", worst_mla), ("recurrentgemma", worst_rg),
                           ("xlstm", worst_xl), ("softcap", worst_sc),

@@ -187,3 +187,21 @@ mut xent_span_drops_last_tile softmax_xent.cu \
 # the label logit read as logits[i, label] without the bounds check
 mut xent_label_unchecked softmax_xent.cu \
   's/if (tid == 0 \&\& lab >= 0 \&\& lab < vocab \&\& lab \/ span == split)/if (tid == 0 \&\& lab \/ span == split)/'
+# the training pair: the flash backward without the delta term (ds = p *
+# dp * scale), in the dK/dV and the dQ kernels of both bodies
+mut bwd_no_delta attention_bwd.cu \
+  's/(dp\[i\]\[j\] - delta_s\[r\])/dp[i][j]/g; s/(dp\[j\]\[e\] - delta_s\[r\])/dp[j][e]/; s/(dp\[j\]\[e\] - delta_r\[e >> 1\])/dp[j][e]/'
+# dK and dV summed over the first query head of the KV head's group only
+mut bwd_one_head_of_group attention_bwd.cu \
+  's/for (int h = hk \* group; h < (hk + 1) \* group; ++h) {/for (int h = hk * group; h < hk * group + 1; ++h) {/g'
+# the backward's causal limit one key too far (key qpos + 1 visible)
+mut bwd_causal_off_by_one attention_bwd.cu \
+  's/if constexpr (MASK != kFull) vis = qpos >= kpos;/if constexpr (MASK != kFull) vis = qpos + 1 >= kpos;/'
+# the forward's lse stored without the row max m (log l alone), both bodies
+mut lse_without_m attention.cu \
+  's/seen ? m_i\[i\] + logf(l) : repro::kNegInf;/seen ? logf(l) : repro::kNegInf;/; s/seen ? (m_r\[r\] + log2f(l)) \* kLn2 : repro::kNegInf;/seen ? log2f(l) * kLn2 : repro::kNegInf;/'
+# the dK/dV kernels' walk over the query steps cut after 8 steps (512 rows
+# of the FMA body, 256 of the mma body): a key's gradient loses the later
+# rows' share, a few hundredths of a typical entry
+mut bwd_dkdv_query_steps_cut attention_bwd.cu \
+  's/q0 < q_hi; q0 += kB) {/q0 < min(q_hi, q_lo \/ kB * kB + 8 * kB); q0 += kB) {/; s/q0 < q_hi; q0 += kMStep) {/q0 < min(q_hi, q_lo \/ kMStep * kMStep + 8 * kMStep); q0 += kMStep) {/'

@@ -7,7 +7,7 @@ score-sorted candidates of detector-vit-s at 256 px, made here as
 ``chip_smoke.py`` makes them), on the Table-2 RoI row (4663 boxes as
 ``core/microbench.py`` makes them, score threshold 0) and at the wrapper's
 8192 boxes, with ``core/graph.Timer`` (device time, L2 flushed, median of
-20), beside the plain version, the bound of the bytes or operations and an
+20), beside the plain version (NMS's over NMS_PLAIN_RUNS runs), the bound of the bytes or operations and an
 empty kernel on the same timer (the launch floor). Each rope row names the
 launch plan (``rope.rope_plan``, where the tree has one); each NMS row the
 boxes kept and the IoUs the kernel's mask phase computes.
@@ -44,6 +44,9 @@ SEED = 0
 #: the decode step's positions of chip_smoke.py's llama2-7b slots
 DECODE_POSITIONS = [[186], [144], [120], [72]]
 NMS_SIZES = (4663, 8192)
+#: the plain NMS's runs (no warm-up), not the timer's 20: its greedy loop
+#: takes ~0.3 s a run on an H100, a yardstick of arithmetic, not of speed
+NMS_PLAIN_RUNS = 3
 
 
 def _norm_timing():
@@ -89,7 +92,8 @@ def table2_nms_inputs(torch, n: int):
 def time_rope_nms(torch, ops, ref, entry, gen, rope=None, nms_inputs=None,
                   decode_positions=None, floor=True) -> dict:
     """{key: entry(...)} for every case; ``entry(shape, kernel, plain,
-    library, nbytes, flops)`` times one (chip_smoke.py's, or :func:`main`'s).
+    library, nbytes, flops, plain_runs=None)`` times one (chip_smoke.py's,
+    or :func:`main`'s), the plain version over ``plain_runs`` runs if given.
     The keys ``rope`` and ``nms`` are the kernels line's rows; the others
     print on lines of their own. ``rope``: the tree's ``kernels.rope``
     (each rope row then names its plan); ``nms_inputs``: the detector's
@@ -130,7 +134,8 @@ def time_rope_nms(torch, ops, ref, entry, gen, rope=None, nms_inputs=None,
             f"boxes[{n},4] f32, {len(live)} valid, {len(kept)} kept ({what})",
             lambda: ops.nms_sorted(boxes, valid, thr),
             (lambda: ref.nms_sorted(boxes, valid, thr)) if plain else None, None,
-            16 * n + 2 * n, 13 * sum(n - 1 - i for i in kept))
+            16 * n + 2 * n, 13 * sum(n - 1 - i for i in kept),
+            plain_runs=NMS_PLAIN_RUNS)
         # the IoU rows the kept boxes need (the bound) and the IoUs the mask
         # phase computes: every valid row against every later box
         out[key].update(n=n, valid=len(live), kept=len(kept),
@@ -262,9 +267,11 @@ def main(argv=None) -> int:
     _build.build()
     timer = graph.Timer()
 
-    def entry(shape, kernel, plain, library, nbytes, flops):
+    def entry(shape, kernel, plain, library, nbytes, flops, plain_runs=None):
+        plain_timer = timer if plain_runs is None else graph.Timer(
+            iters=plain_runs, warmup=0)
         return dict(shape=shape, ms=timer(kernel), eager_ms=timer.eager(kernel),
-                    plain_ms=None if plain is None else timer(plain),
+                    plain_ms=None if plain is None else plain_timer(plain),
                     library_ms=None if library is None else timer(library),
                     bound=nt.bound_ms(nbytes, flops))
 

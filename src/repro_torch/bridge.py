@@ -127,6 +127,21 @@ def vision_params_from_jax(tree: dict, cfg: ModelConfig,
     return {k: tensors_from_jax(v, device) for k, v in tree.items()}
 
 
+def opt_state_from_jax(state, cfg: ModelConfig, device="cuda"):
+    """The port's ``optim.OptState`` from ``repro.optim.OptState`` (numpy
+    leaves): ``step`` as it is, ``mu``, ``nu`` and ``err`` (where
+    compressing) through :func:`params_from_jax`, since they have the
+    params' tree. JAX's gradients cross the same way, by
+    :func:`params_from_jax`."""
+    from repro_torch.optim import OptState
+    return OptState(
+        step=_tensor(state.step, device),
+        mu=params_from_jax(state.mu, cfg, device),
+        nu=params_from_jax(state.nu, cfg, device),
+        err=None if state.err is None else params_from_jax(state.err, cfg,
+                                                           device))
+
+
 def caches_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
     """The port's per-layer caches from ``init_lm_cache`` / ``lm_prefill``'s
     cache tree (numpy)."""

@@ -18,6 +18,16 @@ in-place cache write) runs once only: running it again would change the
 state the rest of the function reads; so does a collective (every rank of
 its group must run it as often).
 
+A backward op (a training capture: ``torch.autograd`` running the
+gradient inside the captured function) carries its forward op's site, as
+JAX's transposed equations carry their scope: the capture writes each
+forward op's scope path into the metadata of the autograd node made for
+it (:data:`BWD_SCOPE_KEY`), and an op dispatched while the tag stack is
+empty takes ``transpose(<that path>)`` from the node autograd is running
+(``torch._C._current_autograd_node``), so it classifies to the forward
+op's (group, site) with JAX's vocabulary. A checkpointed region's
+recompute runs under its own tags: a forward op.
+
 Each record carries the dataflow identities the fusion pass reads
 (``core/fusion.py``): a serial per live tensor, given the first time the
 capture sees the tensor and anew to every output, as a jaxpr gives every
@@ -131,10 +141,16 @@ def estimate_flops(prim: str, group: OpGroup, in_shapes, out_shapes) -> float:
         # weight is (O, I / groups, *kernel)
         return 2.0 * _numel(out_shapes[0]) * _numel(in_shapes[1][1:])
     if prim in ("repro_torch.attention_core", "repro_torch.attention_full",
-                "repro_torch.attention_window", "repro_torch.decode_core"):
+                "repro_torch.attention_window", "repro_torch.decode_core",
+                "repro_torch.attention_lse"):
         # every (q, k) pair of the shapes: the masks are not read
         (b, sq, hq, dk), (_, skv, _, _), (_, _, _, dv) = in_shapes[:3]
         return 2.0 * b * hq * sq * skv * (dk + dv)
+    if prim == "repro_torch.attention_bwd":
+        # the five products of JAX's flash backward, every (q, k) pair:
+        # the scores and dQ, dK over Dk, dP and dV over Dv
+        (b, sq, hq, dk), (_, skv, _, _), (_, _, _, dv) = in_shapes[:3]
+        return 2.0 * b * hq * sq * skv * (3 * dk + 2 * dv)
     if prim in ("aten.sort", "aten.topk"):
         n = _numel(in_shapes[0]) if in_shapes else 0
         return float(n) * max(1.0, math.log2(max(n, 2)))
@@ -269,6 +285,19 @@ class Timer:
         return (time.perf_counter() - t0) / n * 1e3
 
 
+#: the key under an autograd node's ``metadata`` that holds the scope
+#: path of the forward op it differentiates
+BWD_SCOPE_KEY = "ng_scope"
+
+
+def backward_scope() -> str:
+    """``transpose(<forward scope>)`` of the autograd node now running, or
+    "" outside a backward (or for a node the capture did not see made)."""
+    node = torch._C._current_autograd_node()
+    fwd = node.metadata.get(BWD_SCOPE_KEY) if node is not None else None
+    return f"transpose({fwd})" if fwd else ""
+
+
 class _OpMode(TorchDispatchMode):
     """Records every dispatched op; times each when ``repeats`` is set."""
 
@@ -280,6 +309,18 @@ class _OpMode(TorchDispatchMode):
         self._floor: Optional[float] = None     # measured at the first card op
         self._serials = WeakIdKeyDictionary()
         self._next_serial = 0
+        #: (output, scope) of the last op: autograd gives an output its
+        #: node after the op's dispatch returns, before the next op runs
+        self._pending: list = []
+
+    def _tag_nodes(self) -> None:
+        """Write the last op's scope into its outputs' autograd nodes (an
+        inner op's first: the innermost tag wins, as in classification)."""
+        for t, scope in self._pending:
+            node = t.grad_fn
+            if node is not None and BWD_SCOPE_KEY not in node.metadata:
+                node.metadata[BWD_SCOPE_KEY] = scope
+        self._pending.clear()
 
     def _serial(self, t: torch.Tensor, fresh: bool) -> int:
         if fresh or t not in self._serials:
@@ -291,7 +332,8 @@ class _OpMode(TorchDispatchMode):
         from repro_torch import nn
 
         kwargs = kwargs or {}
-        scope = nn.scope_path()
+        self._tag_nodes()
+        scope = nn.scope_path() or backward_scope()
         best = 0.0
         if self.repeats is None or func.is_view:
             # a view launches no kernel: no device time to take
@@ -312,6 +354,8 @@ class _OpMode(TorchDispatchMode):
         rec = _record(len(self.records), func, scope, args, kwargs, out,
                       self._serial)
         self.records.append(rec)
+        if scope:
+            self._pending = [(t, scope) for t in _tensors(out)]
         if self.repeats is not None:
             self.timed.append(TimedOp(rec, best))
         return out

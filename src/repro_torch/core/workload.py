@@ -158,12 +158,8 @@ def default_builder(w: "Workload", device="cuda"):
             return vision_forward(params, images, cfg)
         return vfn, (images,), params
 
-    if w.phase == "train":
-        raise NotImplementedError(
-            "phase='train' needs lm_loss, which the port has not ported yet "
-            "(ROADMAP queue 1 item 9)")
-
-    from repro_torch.models import init_lm, init_lm_cache, lm_decode, lm_forward
+    from repro_torch.models import (init_lm, init_lm_cache, lm_decode,
+                                    lm_forward, lm_loss)
 
     params = init_lm(torch.Generator(dev).manual_seed(0), cfg)
     if cfg.input_mode == "tokens":
@@ -177,6 +173,20 @@ def default_builder(w: "Workload", device="cuda"):
         def fn(params, inputs):
             return lm_forward(params, inputs, cfg)
         return fn, (inputs,), params
+
+    if w.phase == "train":
+        # forward and backward of the LM loss: its gradient with respect
+        # to every param (JAX's jax.grad of lm_loss), labels the inputs
+        from repro_torch.runtime import value_and_grad
+
+        labels = inputs if cfg.input_mode == "tokens" else torch.randint(
+            0, cfg.vocab_size, (w.batch, w.seq), generator=gen, device=dev)
+        batch = {"inputs": inputs, "labels": labels}
+        grad = value_and_grad(lambda p, b: lm_loss(p, b, cfg))
+
+        def tfn(params, batch):
+            return grad(params, batch)[1]
+        return tfn, (batch,), params
 
     max_len = max(w.seq, 8)
     caches = init_lm_cache(cfg, w.batch, max_len, device=dev)

@@ -70,7 +70,7 @@ MAX_GQA_GROUP = 32
 #: the launch entries below, one a mask and decode: each has a spec of its
 #: own in ``ops.KERNEL_SPECS`` (nglint NG005)
 ENTRIES = ("attention_core", "attention_window", "attention_full",
-           "decode_core")
+           "decode_core", "attention_lse", "attention_bwd")
 
 
 def prefill_dims_taken(dk: int, dv: int, causal: bool = True,
@@ -250,6 +250,62 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Full-mask launch on validated, contiguous CUDA tensors."""
     return _prefill("attention_full", "repro_attention_full", _FULL_ARGS,
                     q, k, v, (), scale, softcap)
+
+
+#: the training forward's entries of ``csrc/attention_lse.cu`` and their
+#: arguments after (q, k, v, o, lse): each mask's as the plain entry's
+_LSE_ARGS = {
+    "causal": [_I] * 8 + [ctypes.c_float, _I, _I, _P],
+    "window": [_I] * 9 + [ctypes.c_float, _I, _I, _P],
+    "full": [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+}
+#: csrc/attention_bwd.cu's mask codes
+MASK_CODE = {"causal": 0, "window": 1, "full": 2}
+_BWD_ARGS = [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: str, window: int, q_offset: int, scale: float):
+    """The training forward on validated, contiguous CUDA tensors:
+    ``(o, lse)``, lse f32 (B, Hq, Sq), by ``csrc/attention_lse.cu``'s
+    entry of ``mask``."""
+    b, sq, hq, dk = q.shape
+    _, skv, hkv, dv = v.shape
+    o = torch.empty((b, sq, hq, dv), dtype=v.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    dev, stream = _build.stream_and_device(q)
+    fn = _build.entry("attention_lse", f"repro_attention_{mask}_lse",
+                      [_P] * 5 + _LSE_ARGS[mask])
+    # after the head dims: the causal entry's q_offset, the window entry's
+    # q_offset and window, nothing for the full one
+    mask_args = {"causal": (q_offset,), "window": (q_offset, window),
+                 "full": ()}[mask]
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), b, sq, skv, hq, hkv, dk, dv, *mask_args,
+                    scale, _build.DTYPE_CODE[q.dtype], dev, stream),
+                 "attention_lse")
+    return o, lse
+
+
+def attention_bwd(q, k, v, o, lse, dout, mask: str, window: int,
+                  q_offset: int, scale: float):
+    """The flash backward on validated, contiguous CUDA tensors: ``(dq,
+    dk, dv)`` by ``csrc/attention_bwd.cu``, with delta = rowsum(dO * O) in
+    f32 scratch from ``torch.empty``, held until the launches are
+    enqueued."""
+    b, sq, hq, dk = q.shape
+    _, skv, hkv, dv = v.shape
+    dq, dkk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    dev, stream = _build.stream_and_device(q)
+    fn = _build.entry("attention_bwd", "repro_attention_bwd", _BWD_ARGS)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                    dkk.data_ptr(), dvv.data_ptr(), delta.data_ptr(),
+                    b, sq, skv, hq, hkv, dk, dv, MASK_CODE[mask], q_offset,
+                    window, scale, _build.DTYPE_CODE[q.dtype], dev, stream),
+                 "attention_bwd")
+    return dq, dkk, dvv
 
 
 def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -123,6 +123,16 @@
 // as a library of their own; an uncapped instantiation compiles to the
 // code it had without the cap.
 //
+// The lse fragment (the training forward, JAX's `_flash_fwd_impl`, whose
+// backward attention_bwd.cu reads it): every body takes a compile-time LSE;
+// where it is set the epilogue also stores each row's log-sum-exp in
+// natural units, f32 (B, Hq, Sq), from the registers it already holds (the
+// FMA body's m + log(l), the bf16 body's (m + log2(l)) * ln(2) of its
+// log2-unit m and l), and NEG_INF, finite, for a row that saw no key. The
+// lse instantiations are the common ones alone, uncapped (JAX's flash VJP
+// takes no cap); attention_lse.cu builds them as a library of their own, and
+// an instantiation without the flag compiles to the code it had without it.
+//
 // What it still leaves, for later work: wgmma (the only way to the full
 // tensor-core rate) fed by a warp-specialised TMA producer over a deeper
 // ring of stages, and a split over KV for the shapes that fill few SMs
@@ -177,11 +187,15 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // DKMAX / DVMAX: the largest Dk / Dv the instantiation takes (the staging
 // copies' trip counts and the output columns a thread owns); CAP: the
-// scores capped at `cap` (repro::softcap) before the mask
-template <typename T, bool VEC, int MASK, int DKMAX, int DVMAX, bool CAP>
+// scores capped at `cap` (repro::softcap) before the mask; LSE: each row's
+// log-sum-exp m + log(l) also stored, f32 (B, Hq, Sq), NEG_INF for a row
+// that saw no key
+template <typename T, bool VEC, int MASK, int DKMAX, int DVMAX, bool CAP,
+          bool LSE>
 __global__ void __launch_bounds__(kThreads)
     attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int Sq,
                        int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
                        int window, float scale, float cap) {
   constexpr int kOCols = DVMAX / kGroup;  // output columns per thread
@@ -304,6 +318,10 @@ __global__ void __launch_bounds__(kThreads)
     // a row that never saw a key keeps m at NEG_INF: emit zeros, not mean(v)
     const bool seen = m_i[i] > repro::kNegInf * 0.5f;
     const float l = fmaxf(l_i[i], 1e-30f);
+    if constexpr (LSE)
+      if (cg == 0)
+        lse[(static_cast<int64_t>(b) * Hq + h) * Sq + s_out] =
+            seen ? m_i[i] + logf(l) : repro::kNegInf;
     T* orow = o + ((static_cast<int64_t>(b) * Sq + s_out) * Hq + h) * Dv;
 #pragma unroll
     for (int j = 0; j < kOCols; ++j) {
@@ -320,6 +338,7 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kTK = 64;        // keys per staged tile
 constexpr int kPadE = 8;       // row padding of a bf16 tile: 16 bytes
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ __forceinline__ int pad16(int d) {
   return (d + 15) / 16 * 16;
@@ -385,14 +404,19 @@ __host__ __device__ constexpr int chunks_pow2(int dmax) {
 // computes the columns [z * Dv / gridDim.z, (z + 1) * Dv / gridDim.z) of
 // the output (all of them where gridDim.z is 1). CAP: the scores capped at
 // `cap` in natural units (s * scale, repro::softcap), then folded into log2
-// units and masked; otherwise scaled by scale_log2 = scale * log2(e) alone
-template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, bool CAP>
+// units and masked; otherwise scaled by scale_log2 = scale * log2(e) alone.
+// LSE: each row's log-sum-exp also stored in natural units, (m + log2(l))
+// * ln(2) of the log2-unit running max and sum, NEG_INF for a row that saw
+// no key
+template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, bool CAP,
+          bool LSE>
 __global__ void __launch_bounds__(WARPS * 32,
                                   EXACT ? (DKMAX > 128 ? 8 : 12) / WARPS : 1)
     attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int Sq, int Skv, int Hq,
                     int Hkv, int Dk, int Dv, int q_offset, int window,
                     float scale_log2, float scale, float cap, bool vec) {
   constexpr int NT = WARPS * 32, BQ = WARPS * 16;
@@ -595,6 +619,10 @@ __global__ void __launch_bounds__(WARPS * 32,
     // a row that never saw a key keeps m at NEG_INF: emit zeros, not mean(v)
     const bool seen = m_r[r] > repro::kNegInf * 0.5f;
     l = fmaxf(l, 1e-30f);
+    if constexpr (LSE)
+      if ((lane & 3) == 0)
+        lse[(static_cast<int64_t>(b) * Hq + h) * Sq + row] =
+            seen ? (m_r[r] + log2f(l)) * kLn2 : repro::kNegInf;
     __nv_bfloat16* orow =
         o + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * Dv + dv0;
 #pragma unroll
@@ -607,19 +635,22 @@ __global__ void __launch_bounds__(WARPS * 32,
   }
 }
 
-template <typename T, bool VEC, int MASK, bool CAP>
-int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
+template <typename T, bool VEC, int MASK, bool CAP, bool LSE>
+int launch_impl(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B,
                 int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
                 int q_offset, int window, float scale, float cap,
                 cudaStream_t stream) {
   // Dk past 128 (MLA's causal prefill, recurrentgemma's window) stages
   // wider rows: instantiations of their own, so the common one keeps its
-  // trip counts; capped, none (the entry refuses them)
-  auto kernel = attn_kernel<T, VEC, MASK, kDMax, kDMax, CAP>;
-  if constexpr (MASK == kCausal && !CAP)
-    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kDkWide, kDMax, false>;
-  if constexpr (MASK == kWindow && !CAP)
-    if (Dk > kDMax) kernel = attn_kernel<T, VEC, MASK, kD256, kD256, false>;
+  // trip counts; capped or with the lse, none (the entry refuses them)
+  auto kernel = attn_kernel<T, VEC, MASK, kDMax, kDMax, CAP, LSE>;
+  if constexpr (MASK == kCausal && !CAP && !LSE)
+    if (Dk > kDMax)
+      kernel = attn_kernel<T, VEC, MASK, kDkWide, kDMax, false, false>;
+  if constexpr (MASK == kWindow && !CAP && !LSE)
+    if (Dk > kDMax)
+      kernel = attn_kernel<T, VEC, MASK, kD256, kD256, false, false>;
   const size_t smem = smem_bytes(Dk, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -628,46 +659,49 @@ int launch_impl(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, Dk, Dv,
-      q_offset, window, scale, cap);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, Hq, Hkv, Dk,
+      Dv, q_offset, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int MASK, bool CAP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
-           int window, float scale, float cap, cudaStream_t stream) {
+template <typename T, int MASK, bool CAP, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
+           int q_offset, int window, float scale, float cap,
+           cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = Dk % V == 0 && Dv % V == 0 && repro::aligned16(q) &&
                    repro::aligned16(k) && repro::aligned16(v);
-  return vec ? launch_impl<T, true, MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
-                                               Dk, Dv, q_offset, window, scale,
-                                               cap, stream)
-             : launch_impl<T, false, MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
-                                                Dk, Dv, q_offset, window, scale,
-                                                cap, stream);
+  return vec ? launch_impl<T, true, MASK, CAP, LSE>(
+                   q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
+                   window, scale, cap, stream)
+             : launch_impl<T, false, MASK, CAP, LSE>(
+                   q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
+                   window, scale, cap, stream);
 }
 
 // DV_SPLIT: the CTAs (grid z) that share a row tile's output columns
 template <int MASK, int DKMAX, int DVMAX, int WARPS, bool EXACT, bool CAP,
-          int DV_SPLIT = 1>
+          bool LSE, int DV_SPLIT = 1>
 int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
-                    int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
+                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                    int Dk, int Dv,
                     int q_offset, int window, float scale, float cap, bool vec,
                     cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(pad16(Dk), pad16(Dv / DV_SPLIT));
   cudaError_t err = cudaFuncSetAttribute(
-      attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT, CAP>,
+      attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT, CAP, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = 16 * WARPS;
   dim3 grid(static_cast<unsigned>(B) * Hq, (Sq + rows - 1) / rows, DV_SPLIT);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT, CAP>
+  attn_mma_kernel<MASK, DKMAX, DVMAX, WARPS, EXACT, CAP, LSE>
       <<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, Hq, Hkv, Dk, Dv, q_offset, window, scale * kLog2e, scale, cap, vec);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window, scale * kLog2e, scale, cap,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -676,9 +710,10 @@ int launch_mma_impl(const void* q, const void* k, const void* v, void* o,
 // recurrentgemma's (256, 256) as two CTAs of (256, 128); 2 warps a CTA where 4-warp
 // tiles would fill at most half the SMs (the vit-b16 and detector shapes;
 // llama's 128 CTAs at s256 run faster at 4 warps); capped, the common
-// pairs alone (the entry refuses the wide ones)
-template <int MASK, bool CAP>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+// pairs alone (the entry refuses the wide ones), and so with the lse
+template <int MASK, bool CAP, bool LSE>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B,
                int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
                int window, float scale, float cap, int device,
                cudaStream_t stream) {
@@ -692,24 +727,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       2 * static_cast<int64_t>(B) * Hq * ((Sq + 63) / 64) <= sms;
   const int dkp = pad16(Dk), dvp = pad16(Dv);
 #define REPRO_MMA(DK, DV, W, X)                                              \
-  launch_mma_impl<MASK, DK, DV, W, X, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv,  \
-                                           Dk, Dv, q_offset, window, scale,  \
-                                           cap, vec, stream)
+  launch_mma_impl<MASK, DK, DV, W, X, CAP, LSE>(                             \
+      q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window, scale,  \
+      cap, vec, stream)
 #define REPRO_MMA_DIMS(DK, DV, W)                                            \
   (Dk == DK && Dv == DV ? REPRO_MMA(DK, DV, W, true)                         \
                         : REPRO_MMA(DK, DV, W, false))
-  if constexpr (MASK == kCausal && !CAP)
+  if constexpr (MASK == kCausal && !CAP && !LSE)
     if (Dk == kDkWide)  // MLA's (192, 128) alone: exact trip counts
       return narrow ? REPRO_MMA(192, 128, 2, true) : REPRO_MMA(192, 128, 4, true);
-  if constexpr (MASK == kWindow && !CAP)
+  if constexpr (MASK == kWindow && !CAP && !LSE)
     if (Dk == kD256)  // (256, 256) alone: Dv over two CTAs of 128 columns
       return narrow
-          ? launch_mma_impl<MASK, 256, 128, 2, true, false, 2>(
-                q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window,
-                scale, cap, vec, stream)
-          : launch_mma_impl<MASK, 256, 128, 4, true, false, 2>(
-                q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset, window,
-                scale, cap, vec, stream);
+          ? launch_mma_impl<MASK, 256, 128, 2, true, false, false, 2>(
+                q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
+                window, scale, cap, vec, stream)
+          : launch_mma_impl<MASK, 256, 128, 4, true, false, false, 2>(
+                q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk, Dv, q_offset,
+                window, scale, cap, vec, stream);
   if (dkp > 64 || dvp > 64)
     return narrow ? REPRO_MMA_DIMS(128, 128, 2) : REPRO_MMA_DIMS(128, 128, 4);
   return narrow ? REPRO_MMA_DIMS(64, 64, 2) : REPRO_MMA_DIMS(64, 64, 4);
@@ -718,25 +753,32 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // CAP: the capped instantiations, at the common head dims alone (both up
-// to 128: no model caps MLA's or recurrentgemma's attention), cap > 0
-template <int MASK, bool CAP>
-int entry(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-          int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, int window,
-          float scale, float cap, int dtype, int device, void* stream) {
+// to 128: no model caps MLA's or recurrentgemma's attention), cap > 0.
+// LSE: the instantiations that also store each row's log-sum-exp (the
+// training forward, whose backward, attention_bwd.cu, reads it), at the
+// common head dims alone, uncapped
+template <int MASK, bool CAP, bool LSE = false>
+int entry(const void* q, const void* k, const void* v, void* o, float* lse,
+          int B, int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv,
+          int q_offset, int window, float scale, float cap, int dtype,
+          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv ||
       !dims_taken(Dk, Dv, MASK) || q_offset < 0 || window <= 0 ||
       (Sq + kBQ - 1) / kBQ > 65535 ||
-      (CAP && (Dk > kDMax || Dv > kDMax || !(cap > 0.f))))
+      (CAP && (Dk > kDMax || Dv > kDMax || !(cap > 0.f))) ||
+      (LSE && (CAP || Dk > kDMax || Dv > kDMax || lse == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float, MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                                    q_offset, window, scale, cap, s);
+    return launch<float, MASK, CAP, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv,
+                                         Dk, Dv, q_offset, window, scale, cap,
+                                         s);
   if (dtype == repro::kBF16)
-    return launch_mma<MASK, CAP>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                                 q_offset, window, scale, cap, device, s);
+    return launch_mma<MASK, CAP, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk,
+                                      Dv, q_offset, window, scale, cap, device,
+                                      s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -744,9 +786,10 @@ int entry(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 // attention_softcap.cu builds this source again with REPRO_ATTENTION_SOFTCAP
 // defined: the capped entries (the same names with _softcap and a `cap`
-// argument), in a library of their own, so that nvcc compiles the two sets
-// of instantiations in parallel
-#ifndef REPRO_ATTENTION_SOFTCAP
+// argument), in a library of their own, so that nvcc compiles the sets of
+// instantiations in parallel; attention_lse.cu likewise with
+// REPRO_ATTENTION_LSE: the entries with _lse and an `lse` output
+#if !defined(REPRO_ATTENTION_SOFTCAP) && !defined(REPRO_ATTENTION_LSE)
 
 // causal: query row i sits at q_offset + i and sees keys up to it
 extern "C" int repro_attention_causal(const void* q, const void* k,
@@ -754,8 +797,9 @@ extern "C" int repro_attention_causal(const void* q, const void* k,
                                       int Skv, int Hq, int Hkv, int Dk, int Dv,
                                       int q_offset, float scale, int dtype,
                                       int device, void* stream) {
-  return entry<kCausal, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                               q_offset, 1, scale, 0.f, dtype, device, stream);
+  return entry<kCausal, false>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, Dk,
+                               Dv, q_offset, 1, scale, 0.f, dtype, device,
+                               stream);
 }
 
 // window: causal, and query row i sees only keys at q_offset + i - kpos <
@@ -765,8 +809,8 @@ extern "C" int repro_attention_window(const void* q, const void* k,
                                       int Skv, int Hq, int Hkv, int Dk, int Dv,
                                       int q_offset, int window, float scale,
                                       int dtype, int device, void* stream) {
-  return entry<kWindow, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                               q_offset, window, scale, 0.f, dtype, device,
+  return entry<kWindow, false>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, Dk,
+                               Dv, q_offset, window, scale, 0.f, dtype, device,
                                stream);
 }
 
@@ -776,11 +820,11 @@ extern "C" int repro_attention_full(const void* q, const void* k,
                                     int Skv, int Hq, int Hkv, int Dk, int Dv,
                                     float scale, int dtype, int device,
                                     void* stream) {
-  return entry<kFull, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, 1,
-                             scale, 0.f, dtype, device, stream);
+  return entry<kFull, false>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                             0, 1, scale, 0.f, dtype, device, stream);
 }
 
-#else
+#elif defined(REPRO_ATTENTION_SOFTCAP)
 
 // the three masks with the scores capped at `cap` (> 0) before the mask;
 // head dims up to 128
@@ -788,16 +832,17 @@ extern "C" int repro_attention_causal_softcap(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, float scale,
     float cap, int dtype, int device, void* stream) {
-  return entry<kCausal, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                              q_offset, 1, scale, cap, dtype, device, stream);
+  return entry<kCausal, true>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, Dk,
+                              Dv, q_offset, 1, scale, cap, dtype, device,
+                              stream);
 }
 
 extern "C" int repro_attention_window_softcap(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset, int window,
     float scale, float cap, int dtype, int device, void* stream) {
-  return entry<kWindow, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv,
-                              q_offset, window, scale, cap, dtype, device,
+  return entry<kWindow, true>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, Dk,
+                              Dv, q_offset, window, scale, cap, dtype, device,
                               stream);
 }
 
@@ -805,8 +850,39 @@ extern "C" int repro_attention_full_softcap(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Skv, int Hq, int Hkv, int Dk, int Dv, float scale, float cap,
     int dtype, int device, void* stream) {
-  return entry<kFull, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, Dk, Dv, 0, 1,
-                            scale, cap, dtype, device, stream);
+  return entry<kFull, true>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, Dk, Dv,
+                            0, 1, scale, cap, dtype, device, stream);
+}
+
+#elif defined(REPRO_ATTENTION_LSE)
+
+// the three masks, each row's log-sum-exp also stored to `lse`, f32
+// (B, Hq, Sq): the training forward; head dims up to 128, uncapped
+extern "C" int repro_attention_causal_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
+    float scale, int dtype, int device, void* stream) {
+  return entry<kCausal, false, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk,
+                                     Dv, q_offset, 1, scale, 0.f, dtype,
+                                     device, stream);
+}
+
+extern "C" int repro_attention_window_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, int q_offset,
+    int window, float scale, int dtype, int device, void* stream) {
+  return entry<kWindow, false, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk,
+                                     Dv, q_offset, window, scale, 0.f, dtype,
+                                     device, stream);
+}
+
+extern "C" int repro_attention_full_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int Sq, int Skv, int Hq, int Hkv, int Dk, int Dv, float scale, int dtype,
+    int device, void* stream) {
+  return entry<kFull, false, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, Dk,
+                                   Dv, 0, 1, scale, 0.f, dtype, device,
+                                   stream);
 }
 
 #endif

@@ -13,12 +13,23 @@ Every wrapper
   else; under CUDA graph capture, where nothing launches, to the graph's
   record instead (:func:`recording`), which every replay adds
   (:func:`add_launches`);
-* is a ``torch.library.custom_op`` (``repro_torch::<name>``) with a fake
-  implementation, so a ``TorchDispatchMode`` (the capture and the timed
-  profile of ``core/graph.py``) sees the kernel as one op, and
+* is, or calls, a ``torch.library.custom_op`` (``repro_torch::<name>``)
+  with a fake implementation, so a ``TorchDispatchMode`` (the capture and
+  the timed profile of ``core/graph.py``) sees the kernel as one op, and
   ``torch.compile`` keeps it as one opaque call whose body, and count,
   run when the compiled program runs. A ctypes launch is invisible to
-  dispatch modes; without the op its time would be lost.
+  dispatch modes; without the op its time would be lost;
+* has a gradient (``register_autograd``) where a training forward reaches
+  it: a prefill attention wrapper asked for a gradient runs
+  :func:`attention_with_lse`, whose op returns the rows' log-sum-exp
+  beside the output and differentiates through the flash backward,
+  :func:`attention_bwd` (a kernel of its own, the counterpart of JAX's
+  flash VJP backward); the row norms, rope and the gated
+  activations through the gradient of their plain version, as JAX
+  differentiates their ``jnp`` twins (its Pallas kernels never train);
+  ``decode_core``, ``nms_sorted``, ``softmax_xent`` and
+  ``dequant_add_rms_norm`` raise if a gradient is asked: no training path
+  needs one.
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ from . import swiglu as _glu
 KERNELS = ("rms_norm", "fused_add_rms_norm", "layer_norm",
            "fused_add_layer_norm", "rope", "swiglu", "geglu", "attention_core",
            "attention_window", "decode_core", "attention_full", "nms",
-           "dequant_add_rms_norm", "softmax_xent")
+           "dequant_add_rms_norm", "softmax_xent", "attention_lse",
+           "attention_bwd")
 
 #: launches of each kernel since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -395,14 +407,90 @@ def _check_kernel_dims(name: str, q, v, softcap: Optional[float] = None) -> None
                          f"instantiation (the kernel takes up to {limits})")
 
 
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these inputs: grad mode on and
+    an input that requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check_bwd(name: str, q, v, softcap: Optional[float]) -> None:
+    """Raise for what the flash backward does not take: a softcap (JAX's
+    flash VJP takes none; its capped path is plain autodiff) and, on the
+    card, head dims past the forward's common bodies (MLA's (192, 128),
+    256)."""
+    if softcap is not None:
+        raise ValueError(
+            f"{name}: no gradient with softcap {softcap}: the flash backward "
+            "takes no cap (JAX's flash VJP takes none either)")
+    dk, dv = q.shape[3], v.shape[3]
+    if q.is_cuda and not (dk <= _attn.COMMON_MAX_DIM
+                          and dv <= _attn.COMMON_MAX_DIM):
+        raise ValueError(
+            f"{name}: no gradient at head dims ({dk}, {dv}): the flash "
+            f"backward takes both up to {_attn.COMMON_MAX_DIM}")
+
+
+@torch.library.custom_op("repro_torch::attention_lse", mutates_args=())
+def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: str, window: int = 1, q_offset: int = 0,
+                       scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward of a prefill op, ``(out, lse)``, lse each
+    row's log-sum-exp f32 (B, Hq, Sq), NEG_INF for a row that sees no key
+    (JAX's ``_flash_fwd_impl``): on the card the lse entry of ``mask``
+    (``csrc/attention_lse.cu``, counted ``attention_lse``), else the plain
+    version. What the prefill ops run when a gradient is asked; its
+    autograd formula saves (q, k, v, out, lse) and runs
+    :func:`attention_bwd`. The lse carries no gradient."""
+    name = f"attention_with_lse({mask})"
+    on_card = _on_card(name, q, k, v)
+    _check_dtype(name, q, k, v)
+    _check_qkv(name, q, k, v)
+    if mask not in _attn.MASK_CODE or q_offset < 0 or window <= 0:
+        raise ValueError(f"{name}: mask not in {tuple(_attn.MASK_CODE)}, or "
+                         f"q_offset {q_offset} < 0, or window {window} <= 0")
+    _check_bwd(name, q, v, None)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if not on_card:
+        return ref.attention_fwd_lse(
+            q, k, v, causal=mask != "full",
+            window=window if mask == "window" else None, q_offset=q_offset,
+            scale=scale)
+    _count("attention_lse")
+    return _attn.attention_lse(q, k, v, mask, window, q_offset, scale)
+
+
+@attention_with_lse.register_fake
+def _(q, k, v, mask, window=1, q_offset=0, scale=None):
+    b, sq, hq, _ = q.shape
+    return (q.new_empty((b, sq, hq, v.shape[3]), dtype=v.dtype),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+def _lse_setup_context(ctx, inputs, output):
+    q, k, v, mask, window, q_offset, scale = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.mask, ctx.window, ctx.q_offset = mask, window, q_offset
+    ctx.scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _lse_backward(ctx, grad, _lse_grad):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = attention_bwd(q, k, v, out, lse, grad.contiguous(),
+                               ctx.mask, ctx.window, ctx.q_offset, ctx.scale)
+    return dq, dk, dv, None, None, None, None
+
+
+attention_with_lse.register_autograd(_lse_backward,
+                                     setup_context=_lse_setup_context)
+
+
 @torch.library.custom_op("repro_torch::attention_core", mutates_args=())
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_offset: int = 0, scale: Optional[float] = None,
-                   softcap: Optional[float] = None) -> torch.Tensor:
-    """Causal GQA attention: q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk),
-    v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); query row i sits at ``q_offset + i``.
-    ``softcap``: the scores capped, ``tanh(s / cap) * cap``, before the
-    mask (head dims up to 128 on the card)."""
+def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     on_card = _on_card("attention_core", q, k, v)
     _check_dtype("attention_core", q, k, v)
     _check_qkv("attention_core", q, k, v)
@@ -418,19 +506,31 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attn.attention_core(q, k, v, q_offset, scale, softcap)
 
 
-@attention_core.register_fake
+@_attention_core.register_fake
 def _(q, k, v, q_offset=0, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_offset: int = 0, scale: Optional[float] = None,
+                   softcap: Optional[float] = None) -> torch.Tensor:
+    """Causal GQA attention: q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk),
+    v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); query row i sits at ``q_offset + i``.
+    ``softcap``: the scores capped, ``tanh(s / cap) * cap``, before the
+    mask (head dims up to 128 on the card). The op
+    ``repro_torch::attention_core``, or, when a gradient is asked,
+    :func:`attention_with_lse`'s output, which carries the gradient."""
+    if _wants_grad(q, k, v):
+        _check_bwd("attention_core", q, v, softcap)
+        return attention_with_lse(q, k, v, "causal", 1, q_offset, scale)[0]
+    return _attention_core(q, k, v, q_offset, scale, softcap)
+
+
 @torch.library.custom_op("repro_torch::attention_window", mutates_args=())
-def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int, q_offset: int = 0,
-                     scale: Optional[float] = None,
-                     softcap: Optional[float] = None) -> torch.Tensor:
-    """Sliding-window causal GQA attention: as :func:`attention_core`, and
-    query row i (at position ``q_offset + i``) sees only the keys ``kpos``
-    with ``q_offset + i - kpos < window``."""
+def _attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int, q_offset: int = 0,
+                      scale: Optional[float] = None,
+                      softcap: Optional[float] = None) -> torch.Tensor:
     on_card = _on_card("attention_window", q, k, v)
     _check_dtype("attention_window", q, k, v)
     _check_qkv("attention_window", q, k, v)
@@ -447,18 +547,29 @@ def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attn.attention_window(q, k, v, window, q_offset, scale, softcap)
 
 
-@attention_window.register_fake
+@_attention_window.register_fake
 def _(q, k, v, window, q_offset=0, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
 
 
+def attention_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int, q_offset: int = 0,
+                     scale: Optional[float] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """Sliding-window causal GQA attention: as :func:`attention_core`, and
+    query row i (at position ``q_offset + i``) sees only the keys ``kpos``
+    with ``q_offset + i - kpos < window``."""
+    if _wants_grad(q, k, v):
+        _check_bwd("attention_window", q, v, softcap)
+        return attention_with_lse(q, k, v, "window", window, q_offset,
+                                  scale)[0]
+    return _attention_window(q, k, v, window, q_offset, scale, softcap)
+
+
 @torch.library.custom_op("repro_torch::attention_full", mutates_args=())
-def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: Optional[float] = None,
-                   softcap: Optional[float] = None) -> torch.Tensor:
-    """Full-mask GQA attention (every key visible): q (B,Sq,Hq,Dk),
-    k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); Sq != Skv allowed
-    (cross-attention)."""
+def _attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     on_card = _on_card("attention_full", q, k, v)
     _check_dtype("attention_full", q, k, v)
     _check_qkv("attention_full", q, k, v)
@@ -472,9 +583,21 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attn.attention_full(q, k, v, scale, softcap)
 
 
-@attention_full.register_fake
+@_attention_full.register_fake
 def _(q, k, v, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: Optional[float] = None,
+                   softcap: Optional[float] = None) -> torch.Tensor:
+    """Full-mask GQA attention (every key visible): q (B,Sq,Hq,Dk),
+    k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv); Sq != Skv allowed
+    (cross-attention). A gradient as :func:`attention_core`'s."""
+    if _wants_grad(q, k, v):
+        _check_bwd("attention_full", q, v, softcap)
+        return attention_with_lse(q, k, v, "full", 1, 0, scale)[0]
+    return _attention_full(q, k, v, scale, softcap)
 
 
 @torch.library.custom_op("repro_torch::decode_core", mutates_args=())
@@ -507,6 +630,52 @@ def decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @decode_core.register_fake
 def _(q, k, v, lengths, scale=None, softcap=None):
     return q.new_empty((*q.shape[:3], v.shape[3]), dtype=v.dtype)
+
+
+@torch.library.custom_op("repro_torch::attention_bwd", mutates_args=())
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  mask: str, window: int = 1, q_offset: int = 0,
+                  scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward of a prefill op: ``(dq, dk, dv)`` from q, k, v,
+    the forward's ``out`` and its rows' ``lse`` (B, Hq, Sq) f32, and
+    ``dout`` (out's shape); ``mask`` ``"causal"``, ``"window"`` (``window``
+    keys) or ``"full"``, query row i at ``q_offset + i``. The counterpart
+    of JAX's ``_flash_bwd_impl``; the plain version is
+    ``ref.attention_bwd``."""
+    on_card = _on_card("attention_bwd", q, k, v, out, lse, dout)
+    _check_dtype("attention_bwd", q, k, v, out, dout)
+    _check_qkv("attention_bwd", q, k, v)
+    b, sq, hq, _ = q.shape
+    if out.shape != (*q.shape[:3], v.shape[3]) or dout.shape != out.shape:
+        raise ValueError(f"attention_bwd: out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} for q {tuple(q.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (b, hq, sq):
+        raise ValueError(f"attention_bwd: lse must be float32 ({b}, {hq}, "
+                         f"{sq}), got {lse.dtype} {tuple(lse.shape)}")
+    if mask not in _attn.MASK_CODE or q_offset < 0 or window <= 0:
+        raise ValueError(f"attention_bwd: mask {mask!r} not in "
+                         f"{tuple(_attn.MASK_CODE)}, or q_offset {q_offset} "
+                         f"< 0, or window {window} <= 0")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if not on_card:
+        return ref.attention_bwd(
+            q, k, v, out, lse, dout, causal=mask != "full",
+            window=window if mask == "window" else None, q_offset=q_offset,
+            scale=scale)
+    _check_bwd("attention_bwd", q, v, None)
+    _count("attention_bwd")
+    return _attn.attention_bwd(q, k, v, out, lse, dout, mask, window,
+                               q_offset, scale)
+
+
+@attention_bwd.register_fake
+def _(q, k, v, out, lse, dout, mask, window=1, q_offset=0, scale=None):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -552,6 +721,67 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
     # out of place, as JAX's ``.at[order].set``: the scatter is then no
     # in-place op, which a timed run could time only once
     return torch.zeros_like(keep_sorted).scatter(0, order, keep_sorted)
+
+
+# ---------------------------------------------------------------------------
+# gradients of the other kernel-backed ops
+# ---------------------------------------------------------------------------
+
+def _plain_autograd(op, plain: Callable, n_tensors: int) -> None:
+    """``op``'s gradient: that of its plain version ``plain`` with respect
+    to its first ``n_tensors`` arguments (the floating ones; an int
+    ``positions`` takes none), by autograd through ``plain`` recomputed
+    in the backward from the saved inputs. JAX differentiates the ``jnp``
+    twins of these ops; no Pallas kernel of them has a backward."""
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:n_tensors])
+        ctx.rest = tuple(inputs[n_tensors:])
+
+    def backward(ctx, *grads):
+        xs = [t.detach().requires_grad_(t.is_floating_point())
+              for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = plain(*xs, *ctx.rest)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wrt = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+        return (*(next(got) if x.requires_grad else None for x in xs),
+                *(None,) * len(ctx.rest))
+
+    op.register_autograd(backward, setup_context=setup_context)
+
+
+def _no_autograd(op, name: str,
+                 why: str = "no training path differentiates this kernel"
+                 ) -> None:
+    """``op`` raises if a gradient is asked: no training path needs one."""
+    def backward(ctx, *grads):
+        raise RuntimeError(f"{name}: no gradient: {why}")
+
+    op.register_autograd(backward)
+
+
+for _op, _plain, _n in ((rms_norm, ref.rms_norm, 2),
+                        (fused_add_rms_norm, ref.fused_add_rms_norm, 3),
+                        (layer_norm, ref.layer_norm, 3),
+                        (fused_add_layer_norm, ref.fused_add_layer_norm, 4),
+                        (rope, ref.rope, 2), (swiglu, ref.swiglu, 2),
+                        (geglu, ref.geglu, 2)):
+    _plain_autograd(_op, _plain, _n)
+for _op, _name in ((decode_core, "decode_core"), (nms_sorted, "nms"),
+                   (softmax_xent, "softmax_xent"),
+                   (dequant_add_rms_norm, "dequant_add_rms_norm"),
+                   (attention_bwd, "attention_bwd")):
+    _no_autograd(_op, _name)
+for _op, _name in ((_attention_core, "attention_core"),
+                   (_attention_window, "attention_window"),
+                   (_attention_full, "attention_full")):
+    _no_autograd(_op, f"repro_torch::{_name}",
+                 f"call ops.{_name}, which runs attention_with_lse when a "
+                 "gradient is asked")
 
 
 # ---------------------------------------------------------------------------
@@ -613,5 +843,7 @@ KERNEL_SPECS: Dict[str, KernelSpec] = dict((
     _spec("decode_core", ref.decode_attention, "decode.cu",
           "decode_softcap.cu"),
     _spec("softmax_xent", ref.softmax_xent, "softmax_xent.cu"),
+    _spec("attention_lse", ref.attention_fwd_lse, "attention_lse.cu"),
+    _spec("attention_bwd", ref.attention_bwd, "attention_bwd.cu"),
     _spec("nms", ref.nms_sorted, "nms.cu", op="nms_sorted"),
 ))

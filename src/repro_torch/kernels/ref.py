@@ -142,6 +142,95 @@ def attention(q, k, v, q_offset: int = 0, scale: Optional[float] = None,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(v.dtype)
 
 
+def _flash_mask(sq: int, skv: int, causal: bool, window: Optional[int],
+                q_offset: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: which key each query row sees, as ``mask_for`` of
+    ``repro.models.attention._flash_fwd_impl`` (query row i at position
+    ``q_offset + i``)."""
+    qpos = q_offset + torch.arange(sq, device=device)
+    kpos = torch.arange(skv, device=device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+    return mask
+
+
+def _grouped(t: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, S, Hq, D) -> (B, Hkv, G, S, D) f32: query heads by KV head."""
+    b, s, hq, d = t.shape
+    return t.float().reshape(b, s, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+
+
+def _ungrouped(t: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, G, S, D) -> (B, S, Hq, D), contiguous."""
+    b, hkv, g, s, d = t.shape
+    return t.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g, d).contiguous()
+
+
+def attention_fwd_lse(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      scale: Optional[float] = None):
+    """Attention and each row's log-sum-exp: ``(out (B,Sq,Hq,Dv) in v's
+    dtype, lse (B,Hq,Sq) f32)``, the values of
+    ``repro.models.attention._flash_fwd_impl`` (GQA by index, KV head
+    ``h // (Hq / Hkv)``). ``lse = m + log(l)`` of the row's masked scores;
+    a row that sees no key gives zeros and ``lse`` :data:`NEG_INF`."""
+    b, sq, hq, dk = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(dk) if scale is None else scale
+    mask = _flash_mask(sq, skv, causal, window, q_offset, q.device)
+    s = torch.einsum("bkgqd,bktd->bkgqt", _grouped(q, hkv),
+                     k.float().permute(0, 2, 1, 3)) * scale
+    s = torch.where(mask, s, NEG_INF)
+    seen = mask.any(dim=-1)                                  # (Sq,)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bkgqt,bktd->bkgqd", p, v.float().permute(0, 2, 1, 3))
+    o = torch.where(seen[:, None], o / torch.clamp(l, min=1e-30)[..., None],
+                    0.0)
+    lse = torch.where(seen, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
+                      NEG_INF)
+    return _ungrouped(o).to(v.dtype), lse.reshape(b, hq, sq).contiguous()
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0,
+                  scale: Optional[float] = None):
+    """The flash backward: ``(dq, dk, dv)`` in q's, k's and v's dtypes, with
+    the arithmetic of ``repro.models.attention._flash_bwd_impl``: delta =
+    rowsum(dO * O) in f32, p = exp(s - lse) of the f32 scores, dp = dO V^T,
+    ds = p * (dp - delta) * scale rounded to q's dtype before its two
+    products, p rounded to dO's dtype for dV, every product accumulated in
+    f32. GQA: dK and dV of a KV head sum its query heads' in f32, rounded
+    once (JAX rounds each head's before its head gather's transpose sums
+    them). A masked (q, k) pair gives exactly 0, so a row that sees no key
+    has zero gradients (JAX's exp(NEG_INF - lse) reads 1 there)."""
+    b, sq, hq, dk = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(dk) if scale is None else scale
+    mask = _flash_mask(sq, skv, causal, window, q_offset, q.device)
+    qg, dog, og = _grouped(q, hkv), _grouped(dout, hkv), _grouped(out, hkv)
+    kf = k.float().permute(0, 2, 1, 3)                       # (B,Hkv,T,D)
+    vf = v.float().permute(0, 2, 1, 3)
+    g = hq // hkv
+    lse_g = lse.float().reshape(b, hkv, g, sq)
+    delta = torch.sum(dog * og, dim=-1)                      # (B,Hkv,G,Sq)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse_g[..., None]), 0.0)
+    dp = torch.einsum("bkgqd,bktd->bkgqt", dog, vf)
+    ds = torch.where(mask, p * (dp - delta[..., None]) * scale, 0.0)
+    dsb = ds.to(q.dtype).float()
+    dq = torch.einsum("bkgqt,bktd->bkgqd", dsb, kf)
+    dkf = torch.einsum("bkgqt,bkgqd->bktd", dsb, qg)
+    dvf = torch.einsum("bkgqt,bkgqd->bktd", p.to(dout.dtype).float(), dog)
+    return (_ungrouped(dq).to(q.dtype),
+            dkf.permute(0, 2, 1, 3).contiguous().to(k.dtype),
+            dvf.permute(0, 2, 1, 3).contiguous().to(v.dtype))
+
+
 def decode_attention(q, k, v, lengths: torch.Tensor,
                      scale: Optional[float] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:

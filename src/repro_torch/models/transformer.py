@@ -39,6 +39,7 @@ Public API (functions over a params dict of tensors):
     lm_decode(params, token, pos, caches, cfg) -> (logits (B, V), caches)
     lm_extend(params, tokens, start, caches, cfg)
                                             -> (logits (B, C, V), caches)
+    lm_loss(params, batch, cfg)             -> (loss, {"ce", "aux", "tokens"})
 
 ``pos`` may be a scalar or a per-row ``(B,)`` vector; ``lm_decode`` and
 ``lm_extend`` write the caches in place and return them.
@@ -51,6 +52,7 @@ from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import nn
 from repro_torch.core.taxonomy import OpGroup
@@ -211,20 +213,86 @@ def _block_rest(params, a, x, cfg: ModelConfig, with_aux: bool = False):
     return nn.residual_add(x, f), aux
 
 
+def _block_mixer(params, x, cfg: ModelConfig, kind: str, positions):
+    """The pre-norm and the mixer of an attention or ``rec`` block: its
+    out-projection's output ``a`` (JAX's first ``"proj_out"``)."""
+    h = _apply_norm(params["norm1"], x, cfg)
+    if kind == "rec":
+        return R.recurrent_forward(params["mixer"], h, cfg)
+    if cfg.mla:
+        return A.mla_forward(params["mixer"], h, cfg, positions)
+    return A.attn_forward(params["mixer"], h, cfg, kind, positions)
+
+
 def block_forward(params, x, cfg: ModelConfig, kind: str, positions):
     """-> (x, aux): aux the MoE layer's load-balance loss, None for a dense
     or an xLSTM layer."""
-    h = _apply_norm(params["norm1"], x, cfg)
     if kind in XLSTM_KINDS:
+        h = _apply_norm(params["norm1"], x, cfg)
         fwd = X.mlstm_forward if kind == "mlstm" else X.slstm_forward
         return nn.residual_add(x, fwd(params["mixer"], h, cfg)), None
-    if kind == "rec":
-        a = R.recurrent_forward(params["mixer"], h, cfg)
-    elif cfg.mla:
-        a = A.mla_forward(params["mixer"], h, cfg, positions)
-    else:
-        a = A.attn_forward(params["mixer"], h, cfg, kind, positions)
+    a = _block_mixer(params, x, cfg, kind, positions)
     return _block_rest(params, a, x, cfg, with_aux=True)
+
+
+def remat_policy(cfg: ModelConfig) -> str:
+    """The recompute a training forward takes: ``cfg.remat_policy`` where
+    ``cfg.remat``, else ``"none"`` (JAX's ``_remat``)."""
+    return cfg.remat_policy if cfg.remat else "none"
+
+
+def _checkpoint(fn, *args, context_fn=None):
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of the 2-D matrix products
+    (``nn.linear``'s and the tied head's ``aten.mm``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_save_matmuls)
+
+
+def _remat_block(params, x, cfg: ModelConfig, kind: str, positions,
+                 policy: str):
+    """One block under JAX's remat policies (``_remat``), by
+    ``torch.utils.checkpoint``; the values are :func:`block_forward`'s
+    whatever the policy, only what the backward holds moves.
+
+    * ``full``: one checkpointed region a block: the backward holds its
+      input alone and recomputes the rest.
+    * ``proj``: JAX saves the two tensors it names ``"proj_out"``, the
+      attention out-projection's and the FFN down-projection's outputs, so
+      that its backward never re-runs their tensor-parallel all-reduces.
+      Here a block is two regions, the mixer (x -> a) and the rest (a, x ->
+      x'), which hold exactly two tensors a block for the backward: the
+      block's input and the attention out-projection's output ``a``. The
+      FFN down-projection's output needs no holding: the residual add that
+      reads it keeps nothing for its backward, and its own backward
+      recomputes the FFN region in any case. An xLSTM block names nothing
+      in JAX and is one region.
+    * ``dots``: JAX's ``checkpoint_dots_with_no_batch_dims`` saves every
+      dot without batch dims; here a selective checkpoint of the block
+      keeps the outputs of the 2-D ``aten.mm`` products (the projections,
+      the FFN; JAX's attention einsums have batch dims and are recomputed,
+      as the attention kernels are here) and recomputes the rest. An
+      ``einsum`` that PyTorch lowers to ``bmm`` (the MoE experts') is
+      recomputed where JAX's may count it a batch-free dot.
+    """
+    if policy == "full" or (policy == "proj" and kind in XLSTM_KINDS):
+        return _checkpoint(block_forward, params, x, cfg, kind, positions)
+    if policy == "proj":
+        a = _checkpoint(_block_mixer, params, x, cfg, kind, positions)
+        return _checkpoint(_block_rest, params, a, x, cfg, True)
+    if policy == "dots":
+        return _checkpoint(block_forward, params, x, cfg, kind, positions,
+                           context_fn=_dots_context)
+    raise ValueError(f"unknown remat_policy {policy!r}")
 
 
 def block_prefill(params, x, cfg: ModelConfig, kind: str, positions,
@@ -346,12 +414,20 @@ def _default_positions(tokens):
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
 
 
-def forward_hidden(params, x, cfg: ModelConfig, positions):
+def forward_hidden(params, x, cfg: ModelConfig, positions,
+                   remat: bool = False):
     """Every block, then the final norm: (B, S, D) -> (hidden, aux), aux
-    the sum of the MoE layers' load-balance losses (None without MoE)."""
+    the sum of the MoE layers' load-balance losses (None without MoE).
+    ``remat``: each block under the config's remat policy
+    (:func:`_remat_block`, the training forward of :func:`lm_loss`); the
+    inference paths recompute nothing."""
+    policy = remat_policy(cfg) if remat else "none"
     aux = None
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
-        x, a = block_forward(p, x, cfg, kind, positions)
+        if policy == "none":
+            x, a = block_forward(p, x, cfg, kind, positions)
+        else:
+            x, a = _remat_block(p, x, cfg, kind, positions, policy)
         if a is not None:
             aux = a if aux is None else aux + a
     return _apply_norm(params["final_norm"], x, cfg), aux
@@ -366,6 +442,64 @@ def lm_forward(params, inputs, cfg: ModelConfig, positions=None):
     x = embed_inputs(params, inputs, cfg, positions)
     h, _ = forward_hidden(params, x, cfg, positions)
     return logits_from_hidden(params, h, cfg)
+
+
+def _chunk_ce(params, h, labels, mask, cfg: ModelConfig):
+    """Sum of the masked cross-entropy of one sequence chunk."""
+    logits = logits_from_hidden(params, h, cfg)
+    return torch.sum(nn.softmax_cross_entropy(logits, labels) * mask)
+
+
+def lm_loss(params, batch: dict, cfg: ModelConfig):
+    """The LM loss, as ``repro.models.transformer.lm_loss``: batch
+    ``{"inputs": (B, S) ids or (B, S, D) embeddings, "labels": (B, S)
+    int}`` (and ``"positions"``, optional) -> ``(loss, {"ce", "aux",
+    "tokens"})``. Positions with a label < 0 are masked out, and every
+    label is clamped to ``max(label, 0)`` before the cross-entropy, as
+    JAX's (its CE chains disagree with each other past [0, V): ROADMAP
+    queue 3). The loss is taken in ``cfg.loss_chunk`` sequence chunks (the
+    whole sequence at 0), the last padded with zero rows of weight 0, so
+    no (B, S, V) logits exist beyond a chunk; with ``cfg.remat`` each
+    chunk's cross-entropy is recomputed in the backward (``dots``: its
+    logits kept), as JAX remats its chunk scan. ``loss = ce + aux``, aux
+    the MoE layers' load-balance loss (0 without MoE). The blocks run
+    under the config's remat policy (:func:`forward_hidden`)."""
+    check_supported(cfg)
+    inputs, labels = batch["inputs"], batch["labels"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(inputs)
+    x = embed_inputs(params, inputs, cfg, positions)
+    h, aux = forward_hidden(params, x, cfg, positions, remat=True)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0)
+    s = labels.shape[1]
+    chunk = cfg.loss_chunk or s
+    if chunk >= s:
+        tot = _chunk_ce(params, h, safe, mask, cfg)
+    else:
+        pad = -(-s // chunk) * chunk - s
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            safe = F.pad(safe, (0, pad))
+            mask = F.pad(mask, (0, pad))
+        policy = remat_policy(cfg)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j in range(0, s + pad, chunk):
+            args = (params, h[:, j:j + chunk], safe[:, j:j + chunk],
+                    mask[:, j:j + chunk], cfg)
+            if policy == "none":
+                part = _chunk_ce(*args)
+            else:
+                part = _checkpoint(_chunk_ce, *args, context_fn=(
+                    _dots_context if policy == "dots" else None))
+            tot = tot + part
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    ce = tot / n
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": n}
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,

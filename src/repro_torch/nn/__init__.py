@@ -358,7 +358,8 @@ def softmax_cross_entropy(logits, labels):
     (the softmax_xent kernel is reached only through
     ``kernels.ops.softmax_xent``, as the JAX package reaches its own)."""
     lf = logits.float()
-    m = torch.amax(lf, dim=-1, keepdim=True)
+    with torch.no_grad():       # JAX's stop_gradient of the shift
+        m = torch.amax(lf, dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m.squeeze(-1)
     label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return lse - label_logit

@@ -287,12 +287,17 @@ OPCHECK = {
     "swiglu": lambda: (ops.swiglu, (_r(2, 5, 48), _r(2, 5, 48, seed=1))),
     "rope": lambda: (ops.rope, (_r(2, 5, 4, 16), torch.arange(
         5, dtype=torch.int32)[None].repeat(2, 1))),
-    "attention_core": lambda: (ops.attention_core,
+    # the prefill wrappers' ops (a wrapper asked for a gradient calls
+    # attention_lse instead)
+    "attention_core": lambda: (torch.ops.repro_torch.attention_core.default,
                                (_r(2, 5, 4, 16), _r(2, 5, 2, 16, seed=1),
                                 _r(2, 5, 2, 8, seed=2))),
-    "attention_full": lambda: (ops.attention_full,
+    "attention_full": lambda: (torch.ops.repro_torch.attention_full.default,
                                (_r(2, 5, 4, 16), _r(2, 7, 2, 16, seed=1),
                                 _r(2, 7, 2, 8, seed=2))),
+    "attention_lse": lambda: (ops.attention_with_lse,
+                              (_r(2, 5, 4, 16), _r(2, 7, 2, 16, seed=1),
+                               _r(2, 7, 2, 8, seed=2), "causal", 1, 2)),
 }
 
 

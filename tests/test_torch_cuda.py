@@ -1718,3 +1718,82 @@ def test_ng010_clean_on_card(card):
     from repro_torch.analysis.rules import get_rule, run_static_rules
 
     assert run_static_rules(rules=[get_rule("NG010")]) == []
+
+
+# ---------------------------------------------------------------------------
+# the training pair: the lse forward and the flash backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [(2, 97, 97, 8, 1, 64, "causal", 1, 0),
+                                  (1, 130, 200, 8, 2, 128, "causal", 1, 70),
+                                  (2, 77, 77, 4, 4, 80, "window", 16, 0),
+                                  (1, 33, 90, 4, 2, 64, "full", 1, 0),
+                                  (1, 20, 40, 4, 2, 64, "window", 4, 60)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_attention_lse_and_bwd_on_card(card, case, dt):
+    """The lse forward and attention_bwd against their plain twins, one
+    launch each counted, two backward launches bit-identical; the last
+    case's rows see no key: zeros, NEG_INF and zero gradients."""
+    b, sq, skv, hq, hkv, d, mask, w, off = case
+    q, do = _randn(card, (b, sq, hq, d), dt), _randn(card, (b, sq, hq, d), dt)
+    k, v = _randn(card, (b, skv, hkv, d), dt), _randn(card, (b, skv, hkv, d), dt)
+    kw = dict(causal=mask != "full", window=w if mask == "window" else None,
+              q_offset=off)
+    out, lse = _launched("attention_lse",
+                         lambda: ops.attention_with_lse(q, k, v, mask, w, off))
+    p_out, p_lse = ref.attention_fwd_lse(q, k, v, **kw)
+    _assert_close(out, p_out, dt)
+    torch.testing.assert_close(lse, p_lse, atol=TOL[dt][0], rtol=1e-5)
+    grads = _launched("attention_bwd", lambda: ops.attention_bwd(
+        q, k, v, out, lse, do, mask, w, off))
+    again = ops.attention_bwd(q, k, v, out, lse, do, mask, w, off)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    for got, want in zip(grads, ref.attention_bwd(q, k, v, out, lse, do, **kw)):
+        # atol scaled by the gradient's RMS, as phase 2's (chip_smoke.py)
+        scale = float(want.float().square().mean().sqrt())
+        atol, rtol = TOL[dt]
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=atol * scale, rtol=rtol)
+        assert torch.isfinite(got.float()).all()
+    if off >= skv + w - 1 and mask == "window":
+        assert not out.float().any() and not any(g.float().any() for g in grads)
+
+
+@pytest.mark.parametrize("bad", ["head_256", "softcap"])
+def test_attention_bwd_refuses_on_card(card, bad):
+    q = _randn(card, (1, 8, 2, 256 if bad == "head_256" else 64),
+               torch.bfloat16).requires_grad_(True)
+    k, v = (_randn(card, (1, 8, 1, q.shape[-1]), torch.bfloat16)
+            for _ in range(2))
+    with pytest.raises(ValueError):
+        if bad == "head_256":
+            ops.attention_window(q, k, v, 4)
+        else:
+            ops.attention_core(q, k, v, softcap=20.0)
+
+
+def test_reduced_train_step_kernel_path_on_card(card):
+    """A reduced granite-3-8b train step on the card's kernel path against
+    the plain path, bf16 working copy over f32 masters: the loss within
+    2^-7 relative and every leaf's gradient within 2^-5 of its largest."""
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime import cast_params, value_and_grad
+
+    cfg = reduced(get_config("granite-3-8b")).replace(
+        n_kv_heads=2, dtype="bfloat16", remat=True, remat_policy="proj",
+        loss_chunk=16)
+    params = init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    x = torch.randint(0, cfg.vocab_size, (2, 64), generator=card,
+                      device="cuda")
+    batch = {"inputs": x, "labels": x.roll(-1, 1)}
+    fn = value_and_grad(lambda p, b: lm_loss(cast_params(p, torch.bfloat16),
+                                             b, cfg))
+    ops.reset_launches()
+    (lk, _), gk = fn(params, batch)
+    assert ops.launches["attention_bwd"] == cfg.n_layers
+    with nn.backend("torch"):
+        (lp, _), gp = fn(params, batch)
+    assert float(lk) == pytest.approx(float(lp), rel=2 ** -7)
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert float((a - b).abs().max()) <= 2 ** -5 * float(b.abs().max())

@@ -259,8 +259,14 @@ def test_default_builder_phases(arch, phase, shape):
 
 
 def test_default_builder_train_and_vision_decode_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        Workload(name="t", arch="llama2-7b", phase="train").build("cpu")
+    # phase train builds JAX's train workload now (lm_loss is ported): the
+    # gradient of every param; a vision decode still raises
+    fn, args = Workload(name="t", arch="llama2-7b", phase="train").build("cpu")
+    grads = fn(*args)
+    assert set(grads) == set(args[0])
+    assert all(g.shape == p.shape for g, p in
+               zip(grads["layers"][0]["ffn"].values(),
+                   args[0]["layers"][0]["ffn"].values()))
     with pytest.raises(ValueError, match="encoder-only"):
         Workload(name="v", arch="vit-b16-cls", phase="decode").build("cpu")
 
